@@ -1,0 +1,3 @@
+"""Synthetic data streams of the port."""
+
+from repro_torch.data.pipeline import DataConfig, SyntheticLMStream  # noqa: F401

@@ -1,0 +1,308 @@
+"""Transformer layer primitives of the dense GQA family.
+
+The PyTorch counterpart of ``repro.models.layers``, with its conventions:
+activations in ``cfg.compute_dtype``, norms, softmax and attention scores in
+f32; every attention entry point has a full-sequence form (prefill) and a
+single-token decode form against a KV cache. Public functions keep the JAX
+package's layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, caches
+``[B, T, kv, hd]``, page pools ``[P, page, kv, hd]``).
+
+Decode writes K/V into the cache tensors in place (the JAX version returns
+new arrays and donates the old ones). Int8 KV caches, sliding windows and
+MLA are not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.scatter import put_rows
+from repro_torch.kernels import ops as kops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import ParamSpec
+
+F32 = torch.float32
+_MASK_VALUE = -1e30
+
+
+def _require_plain_gqa(cfg: ModelConfig) -> None:
+    if cfg.attn_impl != "gqa":
+        raise NotImplementedError(f"attention {cfg.attn_impl!r} is not ported")
+    if cfg.sliding_window is not None:
+        raise NotImplementedError("sliding-window attention is not ported")
+    if cfg.kv_cache_dtype != "bf16":
+        raise NotImplementedError(
+            f"KV cache dtype {cfg.kv_cache_dtype!r} is not ported"
+        )
+
+
+# ---------------------------------------------------------------------------
+# norms / rope / masks
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(F32)
+    rms = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (xf * rms).to(x.dtype) * w.to(x.dtype)
+
+
+def rmsnorm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), init="ones")
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding over the last dim. x [..., S, H, D]; positions [S]
+    or [B, S] (every row at its own depth)."""
+    d = x.shape[-1]
+    inv = 1.0 / (theta ** (torch.arange(0, d, 2, device=x.device, dtype=F32) / d))
+    ang = positions.to(F32)[..., None] * inv
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def causal_mask(
+    q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int] = None
+) -> torch.Tensor:
+    """[S_q, S_k] boolean keep-mask: causal, optionally windowed."""
+    keep = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        keep &= k_pos[None, :] > (q_pos[:, None] - window)
+    return keep
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+
+def gqa_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = d**-0.5
+    p = {
+        "wq": ParamSpec((d, h, hd), scale=s),
+        "wk": ParamSpec((d, kv, hd), scale=s),
+        "wv": ParamSpec((d, kv, hd), scale=s),
+        "wo": ParamSpec((h, hd, d), scale=(h * hd) ** -0.5),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_spec(hd)
+        p["k_norm"] = rmsnorm_spec(hd)
+    return p
+
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B,S,d] @ w [d,H,hd] -> [B,S,H,hd]."""
+    d, h, hd = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * hd)).unflatten(-1, (h, hd))
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """o [B,S,H,hd] @ wo [H,hd,d] -> [B,S,d]."""
+    h, hd, d = wo.shape
+    return o.flatten(-2) @ wo.to(o.dtype).reshape(h * hd, d)
+
+
+def _qkv(x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.Tensor):
+    q = _proj_heads(x, p["wq"])
+    k = _proj_heads(x, p["wk"])
+    v = _proj_heads(x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def _gqa_core(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, keep: torch.Tensor
+) -> torch.Tensor:
+    """q [B,S,Hq,D]; k,v [B,T,Hkv,D]; keep [S,T] or [B,S,T] -> [B,S,Hq,D]."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(F32), k.to(F32)) * (d**-0.5)
+    keep_b = keep if keep.dim() == 3 else keep[None]
+    scores = torch.where(keep_b[:, None, None], scores, _MASK_VALUE)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(b, s, hq, d)
+
+
+def _gqa_blocked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    positions: torch.Tensor,
+    window: Optional[int],
+    block: int = 1024,
+) -> torch.Tensor:
+    """Causal attention blocked over queries and keys with an online
+    softmax, so no [S, S] score matrix is built: the long-prompt path."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    out = torch.empty_like(q)
+    scale = d**-0.5
+    for q0 in range(0, s, block):
+        qi = q[:, q0:q0 + block].reshape(b, -1, hkv, g, d).to(F32)
+        pq = positions[q0:q0 + block]
+        m = torch.full((b, hkv, g, qi.shape[1]), _MASK_VALUE, dtype=F32,
+                       device=q.device)
+        l_ = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, g, qi.shape[1], d), dtype=F32,
+                          device=q.device)
+        for k0 in range(0, s, block):
+            kj = k[:, k0:k0 + block].to(F32)
+            vj = v[:, k0:k0 + block]
+            pk = positions[k0:k0 + block]
+            s_ij = torch.einsum("bqkgd,btkd->bkgqt", qi, kj) * scale
+            keep = pk[None, :] <= pq[:, None]
+            if window is not None:
+                keep &= pk[None, :] > (pq[:, None] - window)
+            s_ij = torch.where(keep, s_ij, _MASK_VALUE)
+            m_new = torch.maximum(m, s_ij.amax(dim=-1))
+            p_ij = torch.exp(s_ij - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l_ = l_ * corr + p_ij.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p_ij.to(vj.dtype), vj
+            ).to(F32)
+            m = m_new
+        o = (acc / l_.clamp(min=1e-30)[..., None]).to(q.dtype)
+        out[:, q0:q0 + block] = o.permute(0, 3, 1, 2, 4).reshape(b, -1, hq, d)
+    return out
+
+
+def _attend_full(q, k, v, positions, cfg: ModelConfig) -> torch.Tensor:
+    if q.shape[1] >= cfg.blocked_attn_min:
+        return _gqa_blocked(q, k, v, positions, cfg.sliding_window)
+    keep = causal_mask(positions, positions, cfg.sliding_window)
+    return _gqa_core(q, k, v, keep)
+
+
+def gqa_attend(
+    x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.Tensor
+) -> torch.Tensor:
+    """Full-sequence attention. x [B,S,D] -> [B,S,D]."""
+    q, k, v = _qkv(x, p, cfg, positions)
+    return _out_proj(_attend_full(q, k, v, positions, cfg), p["wo"])
+
+
+def gqa_init_cache(
+    cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,
+    device: torch.device | str,
+) -> dict:
+    _require_plain_gqa(cfg)
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_fill_cache(
+    x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.Tensor,
+    max_seq: int,
+) -> tuple[torch.Tensor, dict]:
+    """Prefill: (output, cache [B, max_seq, kv, hd] holding the prompt)."""
+    _require_plain_gqa(cfg)
+    q, k, v = _qkv(x, p, cfg, positions)
+    out = _out_proj(_attend_full(q, k, v, positions, cfg), p["wo"])
+    pad = (0, 0, 0, 0, 0, max_seq - x.shape[1])
+    return out, {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+
+
+def gqa_decode(
+    x: torch.Tensor, p: dict, cfg: ModelConfig, cache: dict,
+    pos: torch.Tensor, max_seq: int,
+) -> tuple[torch.Tensor, dict]:
+    """Single-token decode against the dense cache, written in place.
+    x [B,1,D]; pos = tokens already cached, a scalar (whole batch at one
+    depth) or a [B] vector (every row at its own depth)."""
+    _require_plain_gqa(cfg)
+    b = x.shape[0]
+    per_slot = pos.dim() == 1 and pos.shape[0] == b
+    rope_pos = pos[:, None] if per_slot else pos.reshape(1)
+    q, k, v = _qkv(x, p, cfg, rope_pos)
+    slot = pos.long() % max_seq
+    t = torch.arange(max_seq, device=x.device)
+    if per_slot:
+        bidx = torch.arange(b, device=x.device)
+        cache["k"][bidx, slot] = k[:, 0]
+        cache["v"][bidx, slot] = v[:, 0]
+        keep = (t[None] <= pos[:, None])[:, None]  # [B,1,T]
+    else:
+        cache["k"].index_copy_(1, slot.reshape(1), k)
+        cache["v"].index_copy_(1, slot.reshape(1), v)
+        keep = (t <= pos)[None]  # [1,T]
+    out = _gqa_core(q, cache["k"], cache["v"], keep)
+    return _out_proj(out, p["wo"]), cache
+
+
+def gqa_paged_init_cache(
+    cfg: ModelConfig, num_pages: int, page_size: int, dtype: torch.dtype,
+    device: torch.device | str,
+) -> dict:
+    """One layer's slice of the global KV page pool: [P, page, kv, hd]."""
+    _require_plain_gqa(cfg)
+    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
+            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_paged_decode(
+    x: torch.Tensor, p: dict, cfg: ModelConfig, cache: dict,
+    page_table: torch.Tensor, pos: torch.Tensor,
+) -> tuple[torch.Tensor, dict]:
+    """Single-token decode through the paged KV pool.
+
+    x [B,1,D]; cache {"kp","vp": [P, page, kv, hd]}; page_table [B, NP]
+    (-1 = unallocated: a write through it is dropped, so a freed slot never
+    scribbles on a page that moved on to another owner); pos [B]. The new
+    K/V row is written into the pool in place, then attention reads the
+    pool through the table via ``kernels.ops.paged_decode_attn`` (the CUDA
+    kernel on the card, its plain version on the CPU).
+    """
+    _require_plain_gqa(cfg)
+    kp, vp = cache["kp"], cache["vp"]
+    ps = kp.shape[1]
+    b = x.shape[0]
+    q, k, v = _qkv(x, p, cfg, pos[:, None])
+    bidx = torch.arange(b, device=x.device)
+    page = page_table[bidx, pos.long() // ps].long()  # -1 when unallocated
+    flat = page * ps + pos.long() % ps
+    keep = page >= 0
+    put_rows(kp.view(-1, *kp.shape[2:]), flat, k[:, 0], keep)
+    put_rows(vp.view(-1, *vp.shape[2:]), flat, v[:, 0], keep)
+    o = kops.paged_decode_attn(q[:, 0], kp, vp, page_table, pos)
+    return _out_proj(o[:, None].to(x.dtype), p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# dense FFN (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+def mlp_specs(d: int, f: int, gelu: bool = False) -> dict[str, ParamSpec]:
+    if gelu:
+        raise NotImplementedError("the GELU MLP (granite) is not ported")
+    return {
+        "w1": ParamSpec((d, f), scale=d**-0.5),
+        "w2": ParamSpec((f, d), scale=f**-0.5),
+        "w3": ParamSpec((d, f), scale=d**-0.5),
+    }
+
+
+def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    return swiglu_tokens(x, p["w1"].to(x.dtype), p["w3"].to(x.dtype),
+                         p["w2"].to(x.dtype))
+
+
+def swiglu_tokens(
+    x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor
+) -> torch.Tensor:
+    """SwiGLU over the last axis."""
+    return (F.silu(x @ w1) * (x @ w3)) @ w2

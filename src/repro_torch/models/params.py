@@ -1,0 +1,87 @@
+"""Parameter specs and their tensors.
+
+The model declares its parameters as a nested dict of ``ParamSpec`` (shape,
+initializer, scale), the layout of ``repro.models.params``: the layers of a
+stack share one tensor with a leading layer dim (``blocks``). From the spec
+tree come
+
+* ``materialize`` — initialized tensors, drawn on the target device from a
+  ``torch.Generator`` seeded per leaf from (seed, path);
+* ``from_jax`` — the JAX package's parameters (numpy arrays in the same
+  tree) carried over as tensors, which is how the tests compare the two.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    init: str = "normal"  # normal | zeros | ones
+    scale: float = 1.0  # stddev for "normal"
+
+
+def is_spec(x: Any) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_map(fn: Callable, tree: Any, path: tuple = ()) -> Any:
+    """Map ``fn(path, leaf)`` over a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def tree_leaves(tree: Any) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def _path_seed(seed: int, path: tuple) -> int:
+    key = f"{seed}/" + "/".join(map(str, path))
+    return int.from_bytes(hashlib.md5(key.encode()).digest()[:8], "little") >> 1
+
+
+def materialize(
+    specs: Any, seed: int, dtype: torch.dtype, device: torch.device | str
+) -> Any:
+    """Initialized parameters, drawn directly on ``device`` in ``dtype``."""
+
+    def leaf(path, spec: ParamSpec) -> torch.Tensor:
+        out = torch.empty(spec.shape, dtype=dtype, device=device)
+        if spec.init == "zeros":
+            return out.zero_()
+        if spec.init == "ones":
+            return out.fill_(1.0)
+        g = torch.Generator(device=device).manual_seed(_path_seed(seed, path))
+        return out.normal_(0.0, spec.scale, generator=g)
+
+    return tree_map(leaf, specs)
+
+
+def from_jax(
+    tree: Any, device: torch.device | str, dtype: torch.dtype | None = None
+) -> Any:
+    """The JAX package's parameter tree (numpy arrays, or anything
+    ``np.asarray`` takes) as tensors on ``device``; ``dtype`` recasts float
+    leaves."""
+
+    def leaf(path, x) -> torch.Tensor:
+        arr = np.asarray(x)
+        if arr.dtype.name == "bfloat16":  # ml_dtypes: no torch conversion
+            t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr))  # a writable copy
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+
+    return tree_map(leaf, tree)
