@@ -26,7 +26,28 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    kernel launches per step and the kernels that take the most time;
 6. reference — the same engine on the smoke config in float32, once on the
    card (kernels) and once on the CPU (plain versions): equal tokens and
-   ledgers agreeing to 1e-5.
+   ledgers agreeing to 1e-5; then two OBFTF train steps of the smoke config
+   in float32 on the card and on the CPU, with the same selection draws:
+   equal selected rows, losses and ledger tables within 1e-5;
+7. xent and ledger — the training path's kernels against their plain
+   versions at its shapes (cross-entropy at T = 4096 and 1024 rows of the
+   128256-token vocabulary in bf16, with -1 labels, a row of ±1e4 logits
+   and a vocabulary that is no multiple of the tile; the ledger at
+   capacity 65536 with batches of 32 and 512, duplicates, masked items,
+   chained transactions and an eviction inside a batch, through both
+   launch routes), timed as above; then the ledger's two launch routes,
+   timed by device span at batches of 32 to 32768, and the dispatch
+   threshold beside them;
+8. train — ``repro_torch.launch.train.main`` at the full width of
+   llama3-8b cut to 8 of 32 layers (bf16, random weights from seed 0),
+   global batch 32 × 128 tokens, obftf at ratio 0.25, AdamW: (a) 4 steps
+   with a selection forward, (b) 6 steps with ``--recycle --ledger device
+   --instance-pool 64``. Every warm step runs with host syncs made errors;
+   every loss must be finite, each new kernel must launch in the run that
+   uses it, (b) must cost 0.75 forwards a step and leave the kept rows in
+   the ledger; the steady step time and peak memory are printed;
+9. train profile — run (a)'s configuration again, two warm steps timed by
+   the host clock and two under torch.profiler.
 
 It then prints the kernels as one JSON line, the card again, and last
 ``{"ok": true, "device": {...}}``.
@@ -35,6 +56,7 @@ It then prints the kernels as one JSON line, the card again, and last
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -47,8 +69,22 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense, outside sparsity
 TOPK_TOL = 1e-4  # lse: f32 sums in another order (values/indices exact)
 PAGED_F32_TOL = 2e-5  # f32 kernel vs f32 plain: summation order only
 PAGED_BF16_TOL = 1e-2  # bf16 output: within ~2 bf16 ulps of the plain one
+# xent loss/lse in f32: the row's exponentials summed in another order, so
+# |kernel - plain| <= XENT_ATOL + XENT_RTOL * |plain| (a few f32 units in
+# the last place of the lse)
+XENT_ATOL, XENT_RTOL = 1e-5, 1e-6
+# xent gradient, entry by entry: both versions compute in f32 and round once
+# to the logits' dtype, so |kernel - plain| <= rtol * |plain| + the dtype's
+# smallest normal (entries that underflow); rtol is one bf16 unit in the last
+# place (exp may differ in its last f32 bit and round the other way), or
+# about eight f32 units
+XENT_BWD_RTOL = {"torch.bfloat16": 2**-7, "torch.float32": 1e-6}
+LEDGER_RTOL = 1e-6  # ema / priority; the integer tables must be equal
+REF_TRAIN_RTOL = 1e-5  # card vs CPU train steps in f32
+TRAIN_LAYERS = 8  # of llama3-8b's 32: 2.80 B params fit the card's 80 GB
 
 
+SERVE_KERNELS = ("topk_lse", "paged_decode_attn")
 SERVE_ARGV = [
     "--arch", "llama3-8b", "--batch", "8", "--requests", "16",
     "--prompt-len", "128", "--gen", "32", "--page-size", "16",
@@ -241,8 +277,8 @@ def serve_phase(torch, ops, tmp: str) -> dict:
                              f"{summary['steps'] - 1}")
     if summary["evicted"] != 16 or summary["queued"] or summary["in_flight"]:
         raise AssertionError(f"not every request finished: {summary}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched: {launches}")
+    if min(launches[k] for k in SERVE_KERNELS) <= 0:
+        raise AssertionError(f"a serving kernel never launched: {launches}")
     import numpy as np
 
     hist = LossHistory(HistoryConfig())
@@ -253,6 +289,49 @@ def serve_phase(torch, ops, tmp: str) -> dict:
     summary["launches"] = launches
     summary["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return summary
+
+
+def _profile_summary(torch, prof, n) -> tuple[float, float, str]:
+    """(device ms per step, kernel launches per step, top five kernels)."""
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    # device-side events only: an operator's row repeats its kernels' time
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                "cuLaunchKernel")) / n
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    tops = "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3 / n:.3f}" for e in top)
+    if device_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return device_ms, launches, tops
+
+
+KERNEL_GROUPS = (("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
+                 ("xent", ("xent_",)), ("ledger", ("ledger_",)),
+                 ("elementwise", ("elementwise",)), ("reduce", ("reduce",)))
+
+
+def _kernel_groups(torch, prof, n) -> str:
+    """Device ms per step by kind of kernel, from the kernels' names."""
+    sums: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+        name = e.key.lower()
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name for k in keys)), "other")
+        sums[group] = sums.get(group, 0.0) + us / 1e3 / n
+    return ", ".join(f"{g} {ms:.2f}" for g, ms in
+                     sorted(sums.items(), key=lambda kv: -kv[1]))
 
 
 def profile_phase(torch) -> str:
@@ -286,23 +365,7 @@ def profile_phase(torch) -> str:
         for _ in range(n):
             eng.step()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
-    # device-side events only: an operator's row repeats its kernels' time
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
-                                "cuLaunchKernel")) / n
-    top = sorted(kernels, key=dev_us, reverse=True)[:5]
-    tops = "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3 / n:.3f}" for e in top)
-    if device_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
+    device_ms, launches, tops = _profile_summary(torch, prof, n)
     return (f"steady decode step {wall_ms:.2f} ms host wall (8 slots), "
             f"device busy {device_ms:.2f} ms/step "
             f"({100 * device_ms / wall_ms:.1f}%), {launches:.0f} kernel "
@@ -311,7 +374,8 @@ def profile_phase(torch) -> str:
 
 def reference_phase(torch) -> str:
     """The smoke config in f32 through the card's kernels and through the
-    CPU's plain versions: same tokens, ledgers within 1e-5."""
+    CPU's plain versions: same tokens, ledgers within 1e-5; then the same
+    for two train steps."""
     import dataclasses
 
     import numpy as np
@@ -349,7 +413,474 @@ def reference_phase(torch) -> str:
         raise AssertionError("card and CPU engines generated different tokens")
     for key in la:
         np.testing.assert_allclose(la[key], lb[key], rtol=1e-5, err_msg=key)
-    return f"{len(fa)} requests, tokens equal, ledgers within rtol 1e-5"
+    return (f"serve: {len(fa)} requests, tokens equal, ledgers within rtol "
+            f"1e-5; train: {train_reference(torch)}")
+
+
+class SharedDraws:
+    """Selection draws made on the host from one seed and moved to the
+    device, so the card's and the CPU's steps select with equal numbers."""
+
+    def __init__(self, torch, device, seed):
+        self.torch, self.device = torch, device
+        self.g = torch.Generator().manual_seed(seed)
+
+    def permutation(self, n):
+        return self.torch.randperm(n, generator=self.g).to(self.device)
+
+    def gumbel(self, n):
+        e = self.torch.empty(n).exponential_(generator=self.g)
+        return (-self.torch.log(e)).to(self.device)
+
+    def normal(self):
+        return self.torch.randn((), generator=self.g).to(self.device)
+
+
+def train_reference(torch) -> str:
+    """Two OBFTF steps (selection forward, obftf with a noisy target,
+    AdamW), each followed by the ledger write of the fresh losses, on the
+    smoke config in f32: on the card (xent and ledger kernels) and on the
+    CPU (plain versions), with the same weights, batches and draws."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import device_ledger as dledger
+    from repro_torch.core.history import HistoryConfig
+    from repro_torch.core.obftf import OBFTFConfig, make_train_step
+    from repro_torch.core.selection import SelectionConfig
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import build_optimizer
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.params import materialize, tree_map
+
+    cfg = dataclasses.replace(configs.get_smoke("llama3-8b"),
+                              param_dtype="float32", compute_dtype="float32")
+    stream = SyntheticLMStream(DataConfig(16, 24, cfg.vocab_size, seed=3))
+    weights = materialize(Mdl.param_specs(cfg), 0, torch.float32, "cpu")
+    lcfg = HistoryConfig(capacity=1 << 12)
+    runs = []
+    for device in ("cuda", "cpu"):
+        opt = build_optimizer(1e-3, 2)
+        step_fn = make_train_step(Mdl.loss_fn(cfg), opt, OBFTFConfig(
+            SelectionConfig(method="obftf", ratio=0.25)))
+        params = tree_map(lambda _, x: x.to(device), weights)
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=device)}
+        led = dledger.init_state(lcfg, device)
+        draws = SharedDraws(torch, device, 7)
+        out = []
+        for step in range(2):
+            raw = stream.batch(step)
+            batch = {k: torch.from_numpy(raw[k]).to(device)
+                     for k in ("tokens", "labels")}
+            state, m = step_fn(state, batch, draws)
+            ids = torch.from_numpy(raw["instance_id"].astype(np.int32))
+            led, pri = dledger.record_priority(
+                lcfg, led, ids.to(device), m["per_example_loss"],
+                state["step"], valid=m["per_example_fresh"])
+            out.append({k: m[k].cpu().numpy() for k in
+                        ("per_example_loss", "selected", "loss")})
+            out[-1]["priority"] = pri.cpu().numpy()
+        runs.append((out, dledger.state_dict_of(led)))
+    (ca, la), (cb, lb) = runs
+    for sa, sb in zip(ca, cb):
+        if not np.array_equal(sa["selected"], sb["selected"]):
+            raise AssertionError("card and CPU train steps kept other rows")
+        for k in ("per_example_loss", "loss", "priority"):
+            np.testing.assert_allclose(sa[k], sb[k], rtol=REF_TRAIN_RTOL,
+                                       err_msg=k)
+    for key in la:
+        np.testing.assert_allclose(la[key], lb[key], rtol=REF_TRAIN_RTOL,
+                                   err_msg=key)
+    return (f"2 steps, kept rows equal {[s['selected'].tolist() for s in ca]}"
+            f", losses, priorities and ledgers within rtol {REF_TRAIN_RTOL}")
+
+
+def xent_case(torch, t, v, dtype, seed):
+    """Logits [t, v] in ``dtype`` (normal × 4), labels with every third -1
+    and a row of ±1e4 logits, cotangent g."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((t, v), device="cuda", generator=g) * 4
+    labels = torch.randint(0, v, (t,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    labels[1::3] = -1
+    x[0] = torch.where(torch.arange(v, device="cuda") % 2 == 0, 1e4, -1e4)
+    x[0, v // 3] = 5e3
+    labels[0] = v // 3
+    cot = torch.randn((t,), device="cuda", generator=g)
+    return x.to(dtype), labels, cot
+
+
+def _grad_check(torch, got, want, what) -> float:
+    """Every entry within XENT_BWD_RTOL of the plain one -> max abs error."""
+    rtol, tiny = XENT_BWD_RTOL[str(want.dtype)], torch.finfo(want.dtype).tiny
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    bad = diff > rtol * want.abs() + tiny
+    if bad.any():
+        i = int(bad.flatten().nonzero()[0])
+        raise AssertionError(f"{what}: {int(bad.sum())} entries out of "
+                             f"tolerance, first at {i}: "
+                             f"{got.flatten()[i].item()} vs "
+                             f"{want.flatten()[i].item()}")
+    return diff.max().item()
+
+
+def xent_check(torch, ops, ref, case) -> tuple[float, float]:
+    """Forward and backward against the plain versions -> max abs errors;
+    the ±1e4 row's gradient also against its closed form."""
+    x, labels, cot = case
+    loss, lse = ops.xent_fwd(x, labels, impl="cuda")
+    rl, rlse = ref.xent_ref(x, labels)
+    ferr = 0.0
+    for got, want, name in ((loss, rl, "loss"), (lse, rlse, "lse")):
+        diff = (got - want).abs()
+        if (diff > XENT_ATOL + XENT_RTOL * want.abs()).any():
+            raise AssertionError(f"xent_fwd {name} {tuple(x.shape)} "
+                                 f"{x.dtype}: err {diff.max().item()}")
+        ferr = max(ferr, diff.max().item())
+    if not torch.equal(loss[labels < 0], lse[labels < 0]):
+        raise AssertionError("xent_fwd: a -1 label picked a logit")
+    grad = ops.xent_bwd(x, labels, rlse, cot, impl="cuda")
+    if grad.dtype != x.dtype:
+        raise AssertionError(f"xent_bwd gave {grad.dtype} for {x.dtype}")
+    what = f"xent_bwd {tuple(x.shape)} {x.dtype}"
+    berr = _grad_check(torch, grad, ref.xent_grad_ref(x, labels, rlse, cot),
+                       what)
+    # row 0: exp(max - lse) g (g/n up to the lse's f32 rounding) on its n
+    # largest logits, -g at the label (5e3 below them), 0 elsewhere
+    top = x[0] == x[0].max()
+    closed = torch.where(top, torch.exp(x[0].max().float() - rlse[0]) * cot[0],
+                         0.0)
+    closed[labels[0].long()] = -cot[0]
+    _grad_check(torch, grad[0], closed.to(x.dtype), what + " ±1e4 row")
+    return ferr, berr
+
+
+def xent_phases(torch, ops, ref) -> list[dict]:
+    """Both cross-entropy kernels at the train path's shapes: the
+    selection forward (T = 4096) and the kept rows (T = 1024), V = 128256,
+    bf16; also an f32 case and V = 128257 (rows not 16-byte aligned)."""
+    v = 128256
+    cases = {t: xent_case(torch, t, v, torch.bfloat16, t) for t in (4096,
+                                                                  1024)}
+    ferr = berr = 0.0
+    for case in (*cases.values(), xent_case(torch, 64, v, torch.float32, 1),
+                 xent_case(torch, 7, v + 1, torch.bfloat16, 2)):
+        f, b = xent_check(torch, ops, ref, case)
+        ferr, berr = max(ferr, f), max(berr, b)
+    fwd = {}
+    for t, (x, labels, _) in cases.items():
+        fwd[t] = dict(
+            ms=time_ms(lambda: ops.xent_fwd(x, labels, impl="cuda")),
+            plain_ms=time_ms(lambda: ref.xent_ref(x, labels)),
+            library_ms=time_ms(lambda: (
+                torch.logsumexp(x, dim=-1),
+                x.gather(1, labels.long().clamp(min=0)[:, None]))),
+            bound=bound(t * v * 2 + t * 12, 4.0 * t * v, "f32"),
+        )
+    x, labels, cot = cases[1024]
+    _, lse = ref.xent_ref(x, labels)
+    onehot_rows = torch.arange(1024, device="cuda")
+
+    def library_bwd():
+        p = torch.softmax(x, dim=-1)
+        p[onehot_rows, labels.long().clamp(min=0)] -= 1.0
+        return p * cot[:, None].to(p.dtype)
+
+    t = 4096
+    rows = [dict(
+        name="xent_fwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/xent.cu",
+        replaces="src/repro/kernels/xent.py:88", max_abs_err=ferr,
+        ms=fwd[t]["ms"], plain_ms=fwd[t]["plain_ms"],
+        bound_ms=fwd[t]["bound"][0], bound_by=fwd[t]["bound"][1],
+        library_ms=fwd[t]["library_ms"],
+        tol=f"{XENT_ATOL} + {XENT_RTOL}·|plain|",
+        shape=(f"T=4096 V={v} bf16; at T=1024: {fwd[1024]['ms']:.4f} ms, "
+               f"plain {fwd[1024]['plain_ms']:.4f}, library "
+               f"{fwd[1024]['library_ms']:.4f}, bound "
+               f"{fwd[1024]['bound'][0]:.5f}"),
+    ), dict(
+        name="xent_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/xent.cu",
+        replaces="src/repro/kernels/xent.py:132", max_abs_err=berr,
+        ms=time_ms(lambda: ops.xent_bwd(x, labels, lse, cot, impl="cuda")),
+        plain_ms=time_ms(lambda: ref.xent_grad_ref(x, labels, lse, cot)),
+        library_ms=time_ms(library_bwd),
+        tol=f"{XENT_BWD_RTOL['torch.bfloat16']}·|plain| per entry",
+        shape=f"T=1024 V={v} bf16",
+    )]
+    rows[1]["bound_ms"], rows[1]["bound_by"] = bound(
+        2 * 1024 * v * 2 + 1024 * 12, 4.0 * 1024 * v, "f32")
+    return rows
+
+
+def ledger_batch(torch, cap, b, seed):
+    """(ids, losses, valid) on the card: ids in [0, 2b) (duplicates), a
+    quarter masked, and two ids of one slot last, the later evicting the
+    earlier."""
+    import numpy as np
+
+    from repro_torch.core.history import slot_for
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, 2 * b, (b,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    start = 10**6 + 17 * seed
+    cand = np.arange(start, start + 64 * cap)  # about 64 ids per slot
+    slots = slot_for(cand, cap)
+    pair = cand[slots == slots[0]][:2]
+    ids[-2:] = torch.from_numpy(pair.astype(np.int32)).cuda()
+    losses = torch.randn((b,), device="cuda", generator=g) + 2.0
+    valid = torch.rand((b,), device="cuda", generator=g) > 0.25
+    valid[-2:] = True
+    return ids, losses, valid
+
+
+# batch sizes at which both ledger launch routes are timed: the train
+# path's 32 and larger batches on both sides of the dispatch threshold
+LEDGER_SWEEP = (32, 256, 512, 1024, 2048, 4096, 8192, 32768)
+
+
+def ledger_span_ms(torch, fn, n: int = 20) -> float:
+    """Median device span of one ledger transaction: CUDA events recorded
+    just before and just after the call, so the gaps between its dependent
+    launches count. The calls queue behind a sleep kernel, so the host's
+    launch cost stays out, as it does on the train path, where the host
+    runs ahead of the card."""
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda._sleep(20_000_000)
+    for a, b in events:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    spans = sorted(a.elapsed_time(b) for a, b in events)
+    return spans[n // 2]
+
+
+def ledger_phase(torch, ops, ref) -> tuple[dict, str]:
+    """The ledger kernel against its plain version at capacity 65536, both
+    launch routes forced at B = 32 and B = 512, five chained transactions
+    each; timed at B = 32, the train path's batch; then both routes' device
+    spans over LEDGER_SWEEP, which set ops.LEDGER_BLOCK_MIN_BATCH."""
+    from repro_torch.core.history import HistoryConfig
+    from repro_torch.kernels.ledger import resolve_variant
+
+    cfg = HistoryConfig()
+    cap = cfg.capacity
+    kw = dict(decay=cfg.decay, unseen_priority=cfg.unseen_priority,
+              staleness_half_life=cfg.staleness_half_life)
+
+    def table():
+        return (torch.zeros(cap, device="cuda"),
+                torch.zeros(cap, dtype=torch.int32, device="cuda"),
+                torch.full((cap,), -1, dtype=torch.int32, device="cuda"),
+                torch.full((cap,), -1, dtype=torch.int32, device="cuda"))
+
+    err = 0.0
+    for b in (32, 512):
+        for variant in ("fori", "block"):
+            st_k, st_r = table(), table()
+            for s in range(5):
+                ids, losses, valid = ledger_batch(torch, cap, b, 100 * b + s)
+                step = torch.full((), 3 * s, dtype=torch.int32, device="cuda")
+                out_k = ops.ledger_record_priority(
+                    *st_k, ids, losses, step, valid=valid, impl="cuda",
+                    variant=variant, **kw)
+                out_r = ops.ledger_record_priority(
+                    *st_r, ids, losses, step, valid=valid, impl="ref", **kw)
+                for name, got, want in zip(("count", "last_seen", "owner"),
+                                           out_k[1:4], out_r[1:4]):
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"ledger {name} differs at B={b} ({variant})")
+                for name, got, want in (("ema", out_k[0], out_r[0]),
+                                        ("priority", out_k[4], out_r[4])):
+                    rel = ((got - want).abs()
+                           / want.abs().clamp(min=1e-30)).max()
+                    if rel.item() > LEDGER_RTOL:
+                        raise AssertionError(
+                            f"ledger {name} at B={b} ({variant}): rel err "
+                            f"{rel.item()}")
+                    err = max(err, (got - want).abs().max().item())
+                if out_k[4][-2].item() != cfg.unseen_priority:
+                    raise AssertionError("an id evicted in its batch read as "
+                                         "seen")
+                st_k, st_r = out_k[:4], out_r[:4]
+    sweep = []
+    for b in LEDGER_SWEEP:
+        ids, losses, valid = ledger_batch(torch, cap, b, b)
+        step = torch.full((), 7, dtype=torch.int32, device="cuda")
+        spans = {v: ledger_span_ms(torch, lambda: ops.ledger_record_priority(
+            *st_k, ids, losses, step, valid=valid, impl="cuda", variant=v,
+            **kw)) for v in ("fori", "block")}
+        sweep.append((b, spans["fori"], spans["block"]))
+        if b == 32:
+            args = (*st_k, ids, losses, step)
+            ms = time_ms(lambda: ops.ledger_record_priority(
+                *args, valid=valid, impl="cuda", **kw))
+            plain_ms = time_ms(lambda: ops.ledger_record_priority(
+                *args, valid=valid, impl="ref", **kw))
+            path_span = spans[resolve_variant(None, b,
+                                              ops.LEDGER_BLOCK_MIN_BATCH)]
+    faster = [b for b, fori, block in sweep if block < fori]
+    summary = ("ledger routes, device span per call in ms (fori | block): "
+               + "; ".join(f"B={b} {fori:.4f} | {block:.4f}"
+                           for b, fori, block in sweep)
+               + f"; block faster at B in {faster}; dispatch threshold "
+               f"LEDGER_BLOCK_MIN_BATCH = {ops.LEDGER_BLOCK_MIN_BATCH}")
+    b = 32
+    moved = 2 * cap * 16 + b * (4 + 4 + 1 + 4) + 4
+    bnd, by = bound(moved, 0.0, "f32")
+    return dict(
+        name="ledger_record_priority", route="cuda",
+        source="src/repro_torch/kernels/csrc/ledger.cu",
+        replaces="src/repro/kernels/ledger.py:268", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+        library_ms=None, tol=LEDGER_RTOL,
+        shape=(f"capacity {cap}, B=32, device span {path_span:.4f} ms/call; "
+               f"both routes checked at B=32 and 512; no single PyTorch call "
+               f"does this transaction"),
+    ), summary
+
+
+TRAIN_ARGV = [
+    "--arch", "llama3-8b", "--layers", str(TRAIN_LAYERS),
+    "--global-batch", "32", "--seq-len", "128", "--method", "obftf",
+    "--ratio", "0.25", "--device", "cuda", "--log-every", "1",
+]
+
+
+def _free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_run(torch, ops, argv, path) -> dict:
+    from repro_torch.launch import train
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    train.main(argv + ["--json-out", path])
+    launches = dict(ops.LAUNCHES)
+    with open(path) as f:
+        s = json.load(f)
+    s["launches"] = launches
+    s["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    warm = sorted(s["step_ms"][1:])
+    s["steady_ms"] = warm[len(warm) // 2]
+    if s["guarded_steps"] != s["steps"] - 1:
+        raise AssertionError(f"a warm train step ran unguarded: {s}")
+    losses = [s["loss_first"], s["loss_last"], s["health"]["loss"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    return s
+
+
+def train_phase(torch, ops, tmp: str) -> tuple[dict, dict]:
+    import numpy as np
+
+    from repro_torch.core.history import HistoryConfig, LossHistory
+
+    a = train_run(torch, ops, TRAIN_ARGV + ["--steps", "4"],
+                  os.path.join(tmp, "train_a.json"))
+    if a["launches"]["xent_fwd"] <= 0 or a["launches"]["xent_bwd"] <= 0:
+        raise AssertionError(f"run (a) missed a kernel: {a['launches']}")
+    if abs(a["mean_step_cost"] - 1.75) > 1e-6:
+        raise AssertionError(f"run (a) step cost {a['mean_step_cost']}")
+    ledger_path = os.path.join(tmp, "train_ledger.npz")
+    b = train_run(torch, ops, TRAIN_ARGV + [
+        "--steps", "6", "--recycle", "--ledger", "device",
+        "--instance-pool", "64", "--ledger-out", ledger_path],
+        os.path.join(tmp, "train_b.json"))
+    if min(b["launches"][k] for k in ("xent_fwd", "xent_bwd",
+                                      "ledger_record_priority")) <= 0:
+        raise AssertionError(f"run (b) missed a kernel: {b['launches']}")
+    if abs(b["mean_step_cost"] - 0.75) > 1e-6:
+        raise AssertionError(f"run (b) step cost {b['mean_step_cost']}")
+    hist = LossHistory(HistoryConfig())
+    hist.load_state_dict(dict(np.load(ledger_path)))
+    sd = hist.state_dict()
+    live = sd["owner"] >= 0
+    # 8 kept rows recorded per step, ids from the 64-id pool
+    if (sd["count"][live].sum() != 6 * 8
+            or not set(sd["owner"][live]) <= set(range(64))
+            or not np.isfinite(sd["ema"][live]).all()):
+        raise AssertionError("the ledger does not hold the kept rows")
+    if b["ledger_hits_first"] != 0 or b["ledger_hits_mean"] <= 0:
+        raise AssertionError(f"ledger hits {b['ledger_hits_first']}, "
+                             f"{b['ledger_hits_mean']}")
+    return a, b
+
+
+def train_profile_phase(torch) -> str:
+    """Where a steady train step of run (a)'s configuration goes: host wall
+    time per step, device kernel time per step (torch.profiler), kernel
+    launches per step and the top kernels."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.core.obftf import OBFTFConfig, make_train_step
+    from repro_torch.core.selection import GeneratorNoise, SelectionConfig
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import build_optimizer
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.params import materialize
+
+    _free(torch)
+    cfg = dataclasses.replace(configs.get("llama3-8b"),
+                              num_layers=TRAIN_LAYERS)
+    opt = build_optimizer(1e-3, 100)
+    step_fn = make_train_step(Mdl.loss_fn(cfg), opt, OBFTFConfig(
+        SelectionConfig(method="obftf", ratio=0.25)))
+    params = materialize(Mdl.param_specs(cfg), 0, torch.bfloat16, "cuda")
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    del params
+    stream = SyntheticLMStream(DataConfig(32, 128, cfg.vocab_size))
+    noise = GeneratorNoise(torch.Generator("cuda").manual_seed(0))
+
+    def step(i):
+        nonlocal state
+        raw = stream.batch(i)
+        batch = {k: torch.from_numpy(raw[k]).cuda() for k in ("tokens",
+                                                              "labels")}
+        state, _ = step_fn(state, batch, noise)
+
+    for i in range(2):
+        step(i)
+    n = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        step(2 + i)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(4 + i)
+        torch.cuda.synchronize()
+    device_ms, launches, tops = _profile_summary(torch, prof, n)
+    groups = _kernel_groups(torch, prof, n)
+    del state
+    _free(torch)
+    return (f"steady train step {wall_ms:.1f} ms host wall (run a), device "
+            f"busy {device_ms:.1f} ms/step ({100 * device_ms / wall_ms:.1f}%)"
+            f", {launches:.0f} kernel launches/step; device ms/step by kind: "
+            f"{groups}; top device ms/step: {tops}")
 
 
 def main() -> int:
@@ -374,14 +905,18 @@ def main() -> int:
         if "registers" in line:
             print(f"build:   {line.strip()}")
     kernels = []
-    for phase in (topk_phase, paged_phase):
-        row = phase(torch, ops, ref)
+
+    def show(row):
         kernels.append(row)
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
         print(f"kernel {row['name']} ({row['shape']}): ok, max_abs_err "
               f"{row['max_abs_err']:.3g} (tol {row['tol']}), {row['ms']:.4f} ms"
-              f" | plain {row['plain_ms']:.4f} ms | library "
-              f"{row['library_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms "
-              f"({row['bound_by']})", flush=True)
+              f" | plain {row['plain_ms']:.4f} ms | library {lib} | bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']})", flush=True)
+
+    for phase in (topk_phase, paged_phase):
+        show(phase(torch, ops, ref))
     with tempfile.TemporaryDirectory() as tmp:
         s = serve_phase(torch, ops, tmp)
     print(f"serve: llama3-8b 32 layers bf16, {s['evicted']} requests, "
@@ -396,6 +931,28 @@ def main() -> int:
     print(f"reference: {reference_phase(torch)}", flush=True)
     for row in kernels:
         row["launches"] = s["launches"][row["name"]]
+    _free(torch)
+    for row in xent_phases(torch, ops, ref):
+        show(row)
+    row, routes = ledger_phase(torch, ops, ref)
+    show(row)
+    print(routes, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = train_phase(torch, ops, tmp)
+    for name, r in (("a", a), ("b", b)):
+        print(f"train ({name}): llama3-8b {r['layers']} layers bf16, "
+              f"{r['steps']} steps, recycle={r['recycle']} "
+              f"ledger={r['ledger']}, loss {r['loss_first']:.4f} -> "
+              f"{r['loss_last']:.4f}, mean step cost "
+              f"{r['mean_step_cost']:.3f}C, ledger hits "
+              f"{r['ledger_hits_mean']}, launches {r['launches']}, step ms "
+              f"first {r['step_ms'][0]:.1f}, steady (median of warm) "
+              f"{r['steady_ms']:.1f}, peak {r['peak_gib']:.1f} GiB, sync "
+              f"guard on {r['guarded_steps']} warm steps", flush=True)
+    for row in kernels[2:]:
+        row["launches"] = a["launches"][row["name"]] + \
+            b["launches"][row["name"]]
+    print(f"train profile: {train_profile_phase(torch)}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))

@@ -187,6 +187,69 @@ def priority(
     return torch.where(seen, score, cfg.unseen_priority).to(F32)
 
 
+def _sig_scatter(
+    cfg: HistoryConfig,
+    state: LedgerState,
+    ids: torch.Tensor,
+    signals: Optional[torch.Tensor],
+    valid: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """The ``sig`` half of ``record`` alone -> the new [capacity, N_AUX]
+    channels: the ledger kernel carries the four scalar arrays, and the
+    channels ride this scatter beside it with the same slots, ownership
+    and winners."""
+    ids = _as_i32_ids(ids)
+    slots = slot_for_torch(ids, state.capacity)
+    fresh = state.owner[slots] != ids
+    if signals is None:
+        new_sig = torch.where(fresh[:, None], 0.0, state.sig[slots])
+    else:
+        signals = signals.to(F32).reshape(ids.shape[0], N_AUX)
+        prev_sig = torch.where(fresh[:, None], signals, state.sig[slots])
+        new_sig = cfg.decay * prev_sig + (1.0 - cfg.decay) * signals
+    if valid is not None:
+        slots = torch.where(valid.to(torch.bool), slots, state.capacity)
+    keep = _winner_mask(slots, state.capacity)
+    sig = state.sig.clone()
+    put_rows(sig, slots, new_sig, keep)
+    return sig
+
+
+def record_priority(
+    cfg: HistoryConfig,
+    state: LedgerState,
+    ids: torch.Tensor,
+    losses: torch.Tensor,
+    step,
+    valid: Optional[torch.Tensor] = None,
+    signals: Optional[torch.Tensor] = None,
+) -> tuple[LedgerState, torch.Tensor]:
+    """Record the batch, then score every id at the same step, in one
+    transaction -> (new state, priority [B] f32).
+
+    The state it leaves is bit for bit the one ``record`` leaves (the
+    contract of ``repro.core.device_ledger.record_priority``), so a caller
+    that only needs the write may take this path and drop the priorities:
+    the trainer does. On the card the four scalar arrays go through the
+    ledger kernel (``kernels.ops.ledger_record_priority``) and ``sig``
+    through ``_sig_scatter``; on the CPU it is ``record`` followed by
+    ``priority``."""
+    if not state.ema.is_cuda:
+        new = record(cfg, state, ids, losses, step, valid=valid,
+                     signals=signals)
+        return new, priority(cfg, new, ids, step)
+    from repro_torch.kernels import ops as kops
+
+    sig = _sig_scatter(cfg, state, ids, signals, valid)
+    ema, count, last_seen, owner, pri = kops.ledger_record_priority(
+        state.ema, state.count, state.last_seen, state.owner,
+        _as_i32_ids(ids), losses, step,
+        decay=cfg.decay, unseen_priority=cfg.unseen_priority,
+        staleness_half_life=cfg.staleness_half_life, valid=valid,
+    )
+    return LedgerState(ema, count, last_seen, owner, sig), pri
+
+
 def state_dict_of(state: LedgerState) -> dict[str, np.ndarray]:
     """Export in the ``LossHistory`` checkpoint format (int64 host dtypes):
     the ``.npz`` interchange shared with the JAX package's ledgers."""

@@ -1,3 +1,7 @@
-"""Synthetic data streams of the port."""
+"""Synthetic data streams of the port and the recycle feed."""
 
-from repro_torch.data.pipeline import DataConfig, SyntheticLMStream  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    DataConfig,
+    RecycleFeed,
+    SyntheticLMStream,
+)

@@ -1,4 +1,5 @@
-"""Synthetic LM stream with per-instance ids (copy of ``repro.data.pipeline``).
+"""Synthetic LM stream with per-instance ids, and the recycle feed that
+joins the ledger's signal onto it (copy of ``repro.data.pipeline``).
 
 ``DataConfig`` and ``SyntheticLMStream`` are numpy only; the port keeps its
 own copy so that it imports nothing of the JAX package, and the copy gives
@@ -18,6 +19,7 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +95,77 @@ class SyntheticLMStream:
             "labels": seq[:, 1:].astype(np.int32),
             "instance_id": ids,
         }
+
+    def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch(step)
+            step += 1
+
+
+class RecycleFeed:
+    """Joins the recycle ledger's signal onto a batch stream.
+
+    ``ledger`` picks where the serve->train join happens:
+
+    * ``"host"`` — ``history`` is a host ``LossHistory``, probed when the
+      batch is built; ``recorded_loss`` ships with the batch;
+    * ``"engine"`` — the same join against a live serving engine's ledger
+      (``serving.EngineLedgerHandle``, or anything with its ``lookup`` /
+      ``lookup_signals``);
+    * ``"device"`` — pass-through: the join runs inside the train step
+      against the device ledger.
+
+    Unseen instances get ``cold_loss`` (must-see). ``policy`` names a
+    ``core.selection.POLICIES`` entry; a policy other than ``loss_ema``
+    ships its score of the ledger's channels under ``recorded_loss``.
+    """
+
+    LEDGERS = ("host", "engine", "device")
+
+    def __init__(
+        self,
+        stream: SyntheticLMStream,
+        history=None,
+        ledger: str = "host",
+        cold_loss: float = 1e3,
+        policy: str = "loss_ema",
+    ):
+        from repro_torch.core.selection import get_policy
+
+        if ledger not in self.LEDGERS:
+            raise ValueError(f"ledger {ledger!r} not in {self.LEDGERS}")
+        if ledger != "device" and not hasattr(history, "lookup"):
+            raise ValueError(f"a {ledger} ledger feed needs a history or "
+                             "handle with lookup()")
+        self.stream = stream
+        self.history = history
+        self.ledger = ledger
+        self.cold_loss = cold_loss
+        self.policy = get_policy(policy)  # validate the name eagerly
+
+    def batch(self, step: int) -> dict[str, np.ndarray]:
+        raw = self.stream.batch(step)
+        if self.ledger == "device":
+            return raw
+        if self.policy.name == "loss_ema":
+            ema, seen = self.history.lookup(raw["instance_id"])
+            seen = np.asarray(seen)
+            raw["recorded_loss"] = np.where(
+                seen, np.asarray(ema), self.cold_loss).astype(np.float32)
+        else:
+            from repro_torch.core.selection import policy_score
+
+            ema, sig, seen = self.history.lookup_signals(raw["instance_id"])
+            seen = np.asarray(seen)
+            raw["recorded_loss"] = policy_score(
+                self.policy, torch.from_numpy(np.asarray(ema, np.float32)),
+                torch.from_numpy(np.asarray(sig, np.float32)),
+                torch.from_numpy(seen), self.cold_loss,
+            ).numpy()
+        # fraction of the batch the ledger could answer
+        raw["ledger_hit_rate"] = float(seen.mean())
+        return raw
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         step = 0

@@ -34,12 +34,18 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # exported C function -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
     "topk_lse_f32": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "paged_decode_attn": [
-        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-        ctypes.c_float, _P,
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ],
+    "xent_fwd": [_I, _P, _P, _I, _I, _I, _P, _P, _P],
+    "xent_bwd": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "ledger_record_priority": [
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F,
+        _P, _P, _P, _P, _P, _P, _P,
     ],
 }
 

@@ -17,11 +17,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attn as _da
+from repro_torch.kernels import ledger as _ledger
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import topk_lse as _topk
+from repro_torch.kernels import xent as _xent
 
 IMPLS = ("ref", "cuda")
-LAUNCHES = {"topk_lse": 0, "paged_decode_attn": 0}
+LAUNCHES = {"topk_lse": 0, "paged_decode_attn": 0, "xent_fwd": 0,
+            "xent_bwd": 0, "ledger_record_priority": 0}
 
 
 def reset_launches() -> None:
@@ -70,4 +73,119 @@ def paged_decode_attn(
         q, kp, vp, page_table.to(torch.int32), pos.to(torch.int32)
     )
     LAUNCHES["paged_decode_attn"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# per-token cross-entropy (forward and backward kernels)
+# ---------------------------------------------------------------------------
+
+
+def xent_fwd(
+    logits: torch.Tensor, labels: torch.Tensor, impl: Optional[str] = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """logits [T,V], labels [T] -> (loss [T] f32, lse [T] f32); a label
+    below 0 picks nothing (loss = lse)."""
+    if _resolve(impl, logits) == "ref":
+        return _ref.xent_ref(logits, labels)
+    out = _xent.xent_fwd_cuda(logits, labels.to(torch.int32))
+    LAUNCHES["xent_fwd"] += 1
+    return out
+
+
+def xent_bwd(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """d(sum(g * loss))/d logits from the saved lse, [T,V] in logits'
+    dtype."""
+    if _resolve(impl, logits) == "ref":
+        return _ref.xent_grad_ref(logits, labels, lse, g)
+    out = _xent.xent_bwd_cuda(logits, labels.to(torch.int32),
+                              lse.to(torch.float32), g.to(torch.float32))
+    LAUNCHES["xent_bwd"] += 1
+    return out
+
+
+class _XentLoss(torch.autograd.Function):
+    """The custom VJP of ``repro.kernels.ops.xent_loss``: the forward saves
+    only the [T] lse beside its inputs (never a [T,V] softmax); the backward
+    recomputes the gradient from (logits, lse)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, impl):
+        loss, lse = xent_fwd(logits, labels, impl)
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.impl = impl
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        return xent_bwd(logits, labels, lse, g, ctx.impl), None, None
+
+
+def xent_loss(
+    logits: torch.Tensor, labels: torch.Tensor, impl: Optional[str] = None
+) -> torch.Tensor:
+    """Per-token CE, differentiable in ``logits``: [T,V], [T] -> [T] f32."""
+    return _XentLoss.apply(logits, labels, impl)
+
+
+# ---------------------------------------------------------------------------
+# fused recycle-ledger record + priority
+# ---------------------------------------------------------------------------
+
+# Batches of at least this many items take the "block" launch (three grids
+# over the items), smaller ones "fori" (one block); see kernels.ledger. Set
+# from chip_smoke.py's sweep of both routes on an H100 (capacity 65536):
+# "fori" is faster up to 512 items, "block" from 1024 on.
+LEDGER_BLOCK_MIN_BATCH = 1024
+
+
+def ledger_record_priority(
+    ema: torch.Tensor,
+    count: torch.Tensor,
+    last_seen: torch.Tensor,
+    owner: torch.Tensor,
+    ids: torch.Tensor,
+    losses: torch.Tensor,
+    step,
+    *,
+    decay: float,
+    unseen_priority: float,
+    staleness_half_life: float = float("inf"),
+    valid: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+    variant: Optional[str] = None,
+) -> tuple[torch.Tensor, ...]:
+    """One ledger transaction -> (ema', count', last_seen', owner', pri).
+
+    ``valid`` ([B] bool) masks the write; masked items are still scored.
+    ``step`` is an int or a 0-dim int tensor; on the card, pass a device
+    tensor to keep the call free of host syncs. ``variant`` picks the
+    kernel's launch: None by batch size (``LEDGER_BLOCK_MIN_BATCH``),
+    "fori"/"block" force one; the plain version ignores it."""
+    variant = _ledger.resolve_variant(variant, ids.shape[0],
+                                      LEDGER_BLOCK_MIN_BATCH)
+    if _resolve(impl, ema) == "ref":
+        return _ref.ledger_record_priority_ref(
+            ema, count, last_seen, owner, ids, losses, step, decay,
+            unseen_priority, staleness_half_life, valid,
+        )
+    if isinstance(step, torch.Tensor):
+        step = step.reshape(()).to(device=ema.device, dtype=torch.int32)
+    else:  # a fill, not a host-to-device copy
+        step = torch.full((), int(step), dtype=torch.int32, device=ema.device)
+    out = _ledger.ledger_record_priority_cuda(
+        ema, count, last_seen, owner, ids.to(torch.int32),
+        losses.to(torch.float32), step,
+        None if valid is None else valid.to(torch.bool),
+        decay=decay, unseen_priority=unseen_priority,
+        staleness_half_life=staleness_half_life, variant=variant,
+    )
+    LAUNCHES["ledger_record_priority"] += 1
     return out

@@ -10,6 +10,79 @@ from __future__ import annotations
 import torch
 
 F32 = torch.float32
+I32 = torch.int32
+
+
+def xent_ref(
+    logits: torch.Tensor, labels: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token CE: logits [T,V], labels [T] -> (loss [T], lse [T]) f32.
+    A label below 0 picks nothing, so its loss is the lse (the recorder's
+    -1 "unknown" sentinel; the model masks those tokens afterwards)."""
+    x = logits.to(F32)
+    lse = torch.logsumexp(x, dim=-1)
+    picked = x.gather(-1, labels.long().clamp(min=0)[:, None])[:, 0]
+    return lse - torch.where(labels >= 0, picked, 0.0), lse
+
+
+def xent_grad_ref(
+    logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
+    g: torch.Tensor,
+) -> torch.Tensor:
+    """d(sum(g * loss))/d logits from the saved lse -> [T,V] in logits'
+    dtype; a label below 0 subtracts no one-hot (a zero row)."""
+    p = torch.exp(logits.to(F32) - lse[:, None])
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = (cols[None] == labels[:, None].long()).to(F32)
+    return ((p - onehot) * g.to(F32)[:, None]).to(logits.dtype)
+
+
+def ledger_record_priority_ref(
+    ema: torch.Tensor,  # [capacity] f32
+    count: torch.Tensor,  # [capacity] i32
+    last_seen: torch.Tensor,  # [capacity] i32
+    owner: torch.Tensor,  # [capacity] i32
+    ids: torch.Tensor,  # [B] i32
+    losses: torch.Tensor,  # [B] f32
+    step,  # int or 0-dim i32
+    decay: float,
+    unseen_priority: float,
+    staleness_half_life: float = float("inf"),
+    valid=None,  # [B] bool, None = every item writes
+) -> tuple[torch.Tensor, ...]:
+    """One ledger transaction -> (ema', count', last_seen', owner',
+    priority [B] f32), ``repro_torch.core.device_ledger`` semantics: new
+    EMA/count from the pre-batch snapshot, the last valid item in batch
+    order wins each slot, then every item (masked ones too) is scored
+    against the updated table; an id evicted within the batch reads as
+    unseen. The inputs are not modified."""
+    from repro_torch.core.device_ledger import slot_for_torch
+
+    cap = ema.shape[0]
+    ids = ids.to(I32)
+    losses = losses.to(F32)
+    step = torch.as_tensor(step, device=ids.device).to(I32)
+    slots = slot_for_torch(ids, cap)
+    fresh = owner[slots] != ids
+    prev = torch.where(fresh, losses, ema[slots])
+    new_ema = decay * prev + (1.0 - decay) * losses
+    new_count = torch.where(fresh, 1, count[slots] + 1).to(I32)
+    order = torch.arange(ids.shape[0], device=ids.device)
+    wslots = slots if valid is None else torch.where(valid, slots, cap)
+    last = torch.full((cap + 1,), -1, dtype=order.dtype, device=ids.device)
+    last = last.scatter_reduce(0, wslots, order, reduce="amax")
+    win = (wslots < cap) & (last[slots] == order)  # distinct slots
+    ema2, count2 = ema.clone(), count.clone()
+    last_seen2, owner2 = last_seen.clone(), owner.clone()
+    ema2[slots[win]] = new_ema[win]
+    count2[slots[win]] = new_count[win]
+    last_seen2[slots[win]] = step
+    owner2[slots[win]] = ids[win]
+    seen = owner2[slots] == ids
+    age = torch.clamp(step - last_seen2[slots], min=0).to(F32)
+    boost = torch.exp2(age / staleness_half_life)
+    pri = torch.where(seen, ema2[slots] * boost, unseen_priority).to(F32)
+    return ema2, count2, last_seen2, owner2, pri
 
 
 def topk_lse_ref(

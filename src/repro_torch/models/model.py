@@ -5,18 +5,21 @@ The PyTorch counterpart of ``repro.models.model`` for ``family="dense"``:
 layers' parameters stacked along a leading dim (``blocks``) exactly as in
 the JAX tree, run by a Python loop over that dim.
 
-Entry points: ``forward_hidden`` (full sequence), ``prefill`` (full
-sequence, builds the decode cache) and ``decode_step`` (one token per row
-against the dense or the paged cache). Other families raise
-``NotImplementedError`` naming themselves.
+Entry points: ``forward_hidden`` (full sequence), ``per_example_loss`` /
+``loss_fn`` (the OBFTF loss signal, per-token CE through the cross-entropy
+kernel), ``prefill`` (full sequence, builds the decode cache) and
+``decode_step`` (one token per row against the dense or the paged cache).
+Other families raise ``NotImplementedError`` naming themselves.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec, tree_map
@@ -79,7 +82,12 @@ def layer(blocks: dict, i: int) -> dict:
 def embed_tokens(
     params: dict, cfg: ModelConfig, tokens: torch.Tensor
 ) -> torch.Tensor:
-    return params["embed"].to(dtype_of(cfg.compute_dtype))[tokens.long()]
+    """Row gather by ``index_select``, whose gradient is an ``index_add_``
+    that reads nothing back to the host (an advanced-index gather's
+    backward may, on CUDA)."""
+    w = params["embed"].to(dtype_of(cfg.compute_dtype))
+    return w.index_select(0, tokens.reshape(-1).long()).reshape(
+        *tokens.shape, w.shape[1])
 
 
 def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -97,13 +105,57 @@ def _block(x, p, cfg, positions):
 def forward_hidden(
     params: dict, cfg: ModelConfig, tokens: torch.Tensor
 ) -> torch.Tensor:
-    """tokens [B,S] -> final-normed hidden states [B,S,D]."""
+    """tokens [B,S] -> final-normed hidden states [B,S,D].
+
+    With ``cfg.remat`` and autograd recording, each layer runs under
+    ``torch.utils.checkpoint``, as the JAX scan wraps its body in
+    ``jax.checkpoint``: only layer inputs are kept for the backward. The
+    model draws no random numbers, so no RNG state is stashed."""
     _require_dense(cfg)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
-        x = _block(x, layer(params["blocks"], i), cfg, positions)
+        p = layer(params["blocks"], i)
+        if remat:
+            x = checkpoint(_block, x, p, cfg, positions, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _block(x, p, cfg, positions)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
+def per_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy per token through ``kernels.ops.xent_loss`` (the CUDA
+    kernel on the card), masked afterwards: labels < 0 give 0, as in the JAX
+    model (the kernel itself gives lse there). [B,S,V], [B,S] -> [B,S] f32."""
+    v = logits.shape[-1]
+    loss = kops.xent_loss(logits.reshape(-1, v), labels.reshape(-1))
+    return torch.where(labels >= 0, loss.reshape(labels.shape), 0.0)
+
+
+def per_example_loss(
+    params: dict, cfg: ModelConfig, batch: dict[str, torch.Tensor]
+) -> torch.Tensor:
+    """-> per-example mean CE [B] over the label positions (the OBFTF loss
+    signal)."""
+    hidden = forward_hidden(params, cfg, batch["tokens"])
+    ce = per_token_loss(unembed(params, cfg, hidden), batch["labels"])
+    denom = torch.clamp((batch["labels"] >= 0).sum(dim=-1), min=1)
+    return ce.sum(dim=-1) / denom.to(torch.float32)
+
+
+def loss_fn(
+    cfg: ModelConfig,
+) -> Callable[[dict, dict[str, torch.Tensor]], torch.Tensor]:
+    """``per_example_loss_fn(params, batch) -> [B]`` for the OBFTF step
+    (the dense family has no MoE aux loss to fold in)."""
+    _require_dense(cfg)
+
+    def fn(params: dict, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        return per_example_loss(params, cfg, batch)
+
+    return fn
 
 
 # ---------------------------------------------------------------------------

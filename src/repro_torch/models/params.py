@@ -7,8 +7,10 @@ tree come
 
 * ``materialize`` — initialized tensors, drawn on the target device from a
   ``torch.Generator`` seeded per leaf from (seed, path);
-* ``from_jax`` — the JAX package's parameters (numpy arrays in the same
-  tree) carried over as tensors, which is how the tests compare the two.
+* ``from_jax`` — the JAX package's parameters, or a whole JAX train state
+  ``{"params", "opt": {"step", "m", "v"}, "step"}`` (numpy arrays in the
+  same tree), carried over as tensors: how the tests compare the two
+  packages, and how both take the same train step from one state.
 """
 
 from __future__ import annotations
@@ -70,9 +72,10 @@ def materialize(
 def from_jax(
     tree: Any, device: torch.device | str, dtype: torch.dtype | None = None
 ) -> Any:
-    """The JAX package's parameter tree (numpy arrays, or anything
-    ``np.asarray`` takes) as tensors on ``device``; ``dtype`` recasts float
-    leaves."""
+    """The JAX package's parameter tree or train state (numpy arrays, or
+    anything ``np.asarray`` takes) as tensors on ``device``; ``dtype``
+    recasts float leaves (int leaves such as the step counters keep
+    theirs)."""
 
     def leaf(path, x) -> torch.Tensor:
         arr = np.asarray(x)

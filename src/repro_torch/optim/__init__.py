@@ -1,0 +1,17 @@
+"""Optimizers and learning-rate schedules of the port (``repro.optim``)."""
+
+from repro_torch.optim.optimizer import (  # noqa: F401
+    AdamWConfig,
+    Optimizer,
+    adamw,
+    apply_updates,
+    global_norm,
+    sgd_momentum,
+)
+from repro_torch.optim.schedules import (  # noqa: F401
+    constant,
+    exponential_decay,
+    warmup_cosine,
+    warmup_exponential,
+    warmup_linear,
+)

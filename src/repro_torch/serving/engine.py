@@ -30,7 +30,6 @@ tensors in place.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -41,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.device_ledger import mul32
+from repro_torch.core.guard import no_host_sync
 from repro_torch.core.history import LossHistory
 from repro_torch.core.scatter import put_rows
 from repro_torch.models import model as Mdl
@@ -169,20 +169,6 @@ def make_slot_sampler(temperature: float, top_p: float, seed: int):
         return torch.argmax(x - torch.log(-torch.log(u)), dim=-1).to(I32)
 
     return sample
-
-
-@contextlib.contextmanager
-def _no_host_sync(enabled: bool):
-    """Make any host synchronisation inside the block raise (CUDA only)."""
-    if not enabled:
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
 
 
 class Engine:
@@ -572,7 +558,7 @@ class Engine:
             self._grow_pages()
         t0 = time.perf_counter()
         guard = self._warm and self.device.type == "cuda"
-        with _no_host_sync(guard):
+        with no_host_sync(guard):
             metrics = self._fused_step(self._estate, self._rstate)
         self._warm = True
         self.guarded_steps += guard

@@ -32,3 +32,79 @@ def paged_case(b, hq, hkv, d, page, npg, seed=3, hole=False):
     if hole:
         pt[0, 1] = -1
     return q, kp, vp, pt, pos
+
+
+def xent_case(t, v, seed=0, scale=4.0):
+    """Logits [t, v] f32, labels [t] i32 with every third label -1 (picks
+    nothing) and, where t > 1, a row of extreme logits (±1e4), plus a
+    cotangent g [t] f32."""
+    rs = np.random.default_rng(seed)
+    x = (rs.standard_normal((t, v)) * scale).astype(np.float32)
+    labels = rs.integers(0, v, size=t).astype(np.int32)
+    labels[1::3] = -1
+    if t > 1:
+        x[0] = np.where(np.arange(v) % 2 == 0, 1e4, -1e4)
+        x[0, v // 3] = 5e3
+        labels[0] = v // 3
+    g = rs.standard_normal(t).astype(np.float32)
+    return x, labels, g
+
+
+def colliding_ids(capacity, n, start=1000):
+    """``n`` distinct ids that all hash to one slot of a ``capacity`` table
+    (an eviction when they share a batch)."""
+    from repro_torch.core.history import slot_for
+
+    cand = np.arange(start, start + 64 * capacity, dtype=np.int64)
+    slots = slot_for(cand, capacity)
+    target = slots[0]
+    return cand[slots == target][:n].astype(np.int32)
+
+
+def ledger_batches(capacity, batch, steps, seed=0, id_range=None):
+    """``steps`` batches of (ids i32, losses f32, valid bool): ids drawn
+    with repeats (duplicates within a batch and across batches), a quarter
+    of the items masked, and in each batch two distinct ids on one slot,
+    the second (later in batch order) evicting the first."""
+    rs = np.random.default_rng(seed)
+    pair = colliding_ids(capacity, 2 * steps)
+    out = []
+    for s in range(steps):
+        ids = rs.integers(0, id_range or 2 * batch, size=batch).astype(np.int32)
+        ids[-2:] = pair[2 * s:2 * s + 2]
+        losses = rs.normal(2.0, 1.0, size=batch).astype(np.float32)
+        valid = rs.random(batch) > 0.25
+        valid[-2:] = True
+        out.append((ids, losses, valid))
+    return out
+
+
+class JaxDraws:
+    """The random draws a JAX selector takes from ``key`` (permutation,
+    Gumbel noise, one normal), served as the port's selection Noise, so
+    both packages select with the same numbers. Imports JAX on use only."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def permutation(self, n):
+        import jax
+        import torch
+
+        return torch.from_numpy(np.array(jax.random.permutation(self.key, n)))
+
+    def gumbel(self, n):
+        import jax
+        import jax.numpy as jnp
+        import torch
+
+        return torch.from_numpy(np.array(
+            jax.random.gumbel(self.key, (n,), dtype=jnp.float32)))
+
+    def normal(self):
+        import jax
+        import jax.numpy as jnp
+        import torch
+
+        return torch.from_numpy(np.array(
+            jax.random.normal(self.key, (), dtype=jnp.float32)))

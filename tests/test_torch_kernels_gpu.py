@@ -14,7 +14,8 @@ import textwrap
 import pytest
 import torch
 
-from _torch_cases import paged_case, topk_logits
+from _torch_cases import ledger_batches, paged_case, topk_logits, xent_case
+from repro_torch.core.history import HistoryConfig
 from repro_torch.kernels import ops, ref
 
 
@@ -71,3 +72,112 @@ def test_paged_decode_attn_kernel_asserts_on_page_past_the_pool(cuda):
                           text=True, timeout=120)
     assert proc.returncode != 0
     assert "assert" in (proc.stdout + proc.stderr).lower()
+
+
+# the training path's shapes (T = 1024 kept tokens, V = llama3's vocab) and
+# edge cases: a row length that is no multiple of 16 bytes (scalar loop),
+# tiny rows, -1 labels and a row of ±1e4 logits in every case
+XENT_CASES = [(1024, 128256, torch.bfloat16), (64, 128256, torch.float32),
+              (7, 128257, torch.bfloat16), (5, 97, torch.float32),
+              (3, 130, torch.bfloat16)]
+
+
+def _xent_inputs(cuda, t, v, dtype):
+    x, labels, g = xent_case(t, v, seed=t + v)
+    return (torch.from_numpy(x).to(cuda).to(dtype),
+            torch.from_numpy(labels).to(cuda), torch.from_numpy(g).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,v,dtype", XENT_CASES)
+def test_xent_fwd_kernel_matches_plain(cuda, t, v, dtype):
+    """Loss and lse in f32 within 1e-5 + 1e-6 * |value| (a few f32 units in
+    the last place of the lse): the kernel sums the row's exponentials in
+    another order than torch.logsumexp."""
+    logits, labels, _ = _xent_inputs(cuda, t, v, dtype)
+    loss, lse = ops.xent_fwd(logits, labels, impl="cuda")
+    rl, rlse = ref.xent_ref(logits, labels)
+    torch.testing.assert_close(loss, rl, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-6, atol=1e-5)
+    neg = labels < 0
+    assert torch.equal(loss[neg], lse[neg])
+
+
+# per entry: both versions compute in f32 and round once to the logits'
+# dtype, so an entry may differ by one bf16 unit in the last place (exp may
+# differ in its last f32 bit and round the other way) or a few f32 units,
+# with the dtype's smallest normal as the floor for entries that underflow
+XENT_BWD_RTOL = {torch.bfloat16: 2**-7, torch.float32: 1e-6}
+
+
+def _assert_grad_close(got, want):
+    tol = (XENT_BWD_RTOL[want.dtype] * want.float().abs()
+           + torch.finfo(want.dtype).tiny)
+    bad = (got.float() - want.float()).abs() > tol
+    assert not bad.any(), f"{int(bad.sum())} entries out of tolerance"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,v,dtype", XENT_CASES)
+def test_xent_bwd_kernel_matches_plain(cuda, t, v, dtype):
+    """Every entry against the plain version, relative to its own size;
+    the ±1e4 row also against its closed form: exp(max - lse) g (g/n up to
+    the lse's f32 rounding) on its n largest logits, -g at the label (5e3
+    below them), 0 elsewhere."""
+    logits, labels, g = _xent_inputs(cuda, t, v, dtype)
+    _, lse = ref.xent_ref(logits, labels)
+    got = ops.xent_bwd(logits, labels, lse, g, impl="cuda")
+    assert got.dtype == dtype
+    _assert_grad_close(got, ref.xent_grad_ref(logits, labels, lse, g))
+    top = logits[0] == logits[0].max()
+    closed = torch.where(top, torch.exp(logits[0].max().float() - lse[0])
+                         * g[0], 0.0)
+    closed[labels[0].long()] = -g[0]
+    _assert_grad_close(got[0], closed.to(dtype))
+
+
+@pytest.mark.gpu
+def test_xent_loss_autograd_matches_plain_autograd(cuda):
+    logits, labels, _ = _xent_inputs(cuda, 12, 1000, torch.float32)
+    a = logits.clone().requires_grad_(True)
+    b = logits.clone().requires_grad_(True)
+    torch.tanh(ops.xent_loss(a, labels, impl="cuda")).sum().backward()
+    torch.tanh(ref.xent_ref(b, labels)[0]).sum().backward()
+    torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=2e-6)
+
+
+def _ledger_table(cuda, cap):
+    return (torch.zeros(cap, device=cuda),
+            torch.zeros(cap, dtype=torch.int32, device=cuda),
+            torch.full((cap,), -1, dtype=torch.int32, device=cuda),
+            torch.full((cap,), -1, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [32, 512])
+@pytest.mark.parametrize("variant", [None, "fori", "block"])
+@pytest.mark.parametrize("half_life", [float("inf"), 3.0])
+def test_ledger_kernel_matches_plain_chained(cuda, batch, variant, half_life):
+    """Capacity 65536 (HistoryConfig's), five chained transactions with
+    duplicates, masked items and an eviction inside each batch: integers
+    exact, ema and priority within rtol 1e-6."""
+    cfg = HistoryConfig()
+    st_k = st_r = _ledger_table(cuda, cfg.capacity)
+    kw = dict(decay=cfg.decay, unseen_priority=cfg.unseen_priority,
+              staleness_half_life=half_life)
+    for step, (ids, losses, valid) in enumerate(
+            ledger_batches(cfg.capacity, batch, 5, seed=batch)):
+        ids, losses, valid = (torch.from_numpy(a).to(cuda)
+                              for a in (ids, losses, valid))
+        step_t = torch.full((), 2 * step, dtype=torch.int32, device=cuda)
+        out_k = ops.ledger_record_priority(*st_k, ids, losses, step_t,
+                                           valid=valid, impl="cuda",
+                                           variant=variant, **kw)
+        out_r = ops.ledger_record_priority(*st_r, ids, losses, 2 * step,
+                                           valid=valid, impl="ref", **kw)
+        for got, want in zip(out_k[1:4], out_r[1:4]):
+            assert torch.equal(got, want)
+        for got, want in (out_k[0], out_r[0]), (out_k[4], out_r[4]):
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        assert out_k[4][-2] == cfg.unseen_priority  # evicted in its batch
+        st_k, st_r = out_k[:4], out_r[:4]
