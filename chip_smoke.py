@@ -10,10 +10,14 @@ Phases, one line each (any failure raises, exits non-zero and prints no
 2. build — every kernel under ``src/repro_torch/kernels/csrc`` built from
    source (one nvcc per file, in parallel);
 3. one phase per kernel — the kernel against its plain PyTorch version at
-   the shapes of the serving path, with its time, the plain version's time,
-   a PyTorch library yardstick (never called by the port) and the least
-   time the card could take (bytes over 3.35 TB/s, operations over the
-   published peak);
+   the shapes of the serving paths, with its time, the plain version's
+   time, a PyTorch library yardstick (never called by the port) and the
+   least time the card could take (bytes over 3.35 TB/s, operations over
+   the published peak): top-k + lse, paged decode attention, dense-cache
+   decode attention (zamba2's D = 80, G = 1 and llama3-8b's shapes, an
+   all-masked row, a rolling window, f32), the SSD scan (zamba2's and
+   mamba2's 300-token prefills, a long case, the JAX test's odd shapes in
+   f32, against the chunked scan and the sequential oracle);
 4. serve — ``repro_torch.launch.serve.main`` at the full width of
    llama3-8b (32 layers, bf16, random weights from a seed): 8 slots, 16
    requests, prompt 128, 32 new tokens, paged KV (16-token pages), top-k
@@ -29,6 +33,18 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    ledgers agreeing to 1e-5; then two OBFTF train steps of the smoke config
    in float32 on the card and on the CPU, with the same selection draws:
    equal selected rows, losses and ledger tables within 1e-5;
+6a. the slice's serving paths, each through ``launch.serve.main`` at full
+   width and depth, dense cache, top-k retention, device ledger, greedy, 8
+   slots and 16 requests: zamba2-2.7b (54 layers, prompts of 300, 32 new
+   tokens; ``ssd`` launched 54 times per admission and ``decode_attn`` 9
+   times per decode step), mamba2-370m (48 layers, prompts of 200, 16 new
+   tokens; ``ssd`` 48 times per admission) and llama3-8b with
+   ``--page-size 0`` (``decode_attn`` 32 times per step); every request
+   finishes, the warm steps run under the sync guard, the ledger holds
+   every id. Then a profile of zamba2's decode step, its 300-token prefill
+   timed and profiled, and the mamba2 and zamba2 smoke configs in float32
+   on the card and on the CPU: equal greedy tokens, logits within 1e-4,
+   and zamba2's engine with equal tokens and ledgers;
 7. xent and ledger — the training path's kernels against their plain
    versions at its shapes (cross-entropy at T = 4096 and 1024 rows of the
    128256-token vocabulary in bf16, with -1 labels, a row of ±1e4 logits
@@ -79,6 +95,17 @@ XENT_ATOL, XENT_RTOL = 1e-5, 1e-6
 # place (exp may differ in its last f32 bit and round the other way), or
 # about eight f32 units
 XENT_BWD_RTOL = {"torch.bfloat16": 2**-7, "torch.float32": 1e-6}
+# decode_attn against its plain version, absolute, as in the JAX package's
+# test_decode_attn_matches_ref: f32 sums in another order; bf16 inputs with
+# f32 weights in both versions, the output rounded once
+DECODE_TOL = {"torch.float32": 2e-6, "torch.bfloat16": 3e-2}
+# ssd in f32: test_ssd_kernel_matches_sequential_ref's atol and rtol; a bf16
+# y may differ by one bf16 unit in the last place (both versions compute in
+# f32 from the same bf16 inputs and round once), plus SSD_BF16_ATOL where
+# the f32 sums cancel; the state is f32 in every case
+SSD_ATOL, SSD_RTOL = 3e-4, 1e-3
+SSD_BF16_RTOL, SSD_BF16_ATOL = 2**-7, 1e-3
+REF_LOGIT_TOL = 1e-4  # card vs CPU logits of the ssm/hybrid smoke configs
 LEDGER_RTOL = 1e-6  # ema / priority; the integer tables must be equal
 REF_TRAIN_RTOL = 1e-5  # card vs CPU train steps in f32
 TRAIN_LAYERS = 8  # of llama3-8b's 32: 2.80 B params fit the card's 80 GB
@@ -257,13 +284,241 @@ def paged_phase(torch, ops, ref) -> dict:
     )
 
 
-def serve_phase(torch, ops, tmp: str) -> dict:
+def decode_inputs(torch, g, b, hq, hkv, d, t, dtype):
+    """q [b,hq,d], K/V [b,t,hkv,d] in ``dtype`` on the card."""
+    q = torch.randn((b, hq, d), device="cuda", generator=g).to(dtype)
+    k = torch.randn((b, t, hkv, d), device="cuda", generator=g).to(dtype)
+    v = torch.randn((b, t, hkv, d), device="cuda", generator=g).to(dtype)
+    return q, k, v
+
+
+def depth_mask(torch, pos, t):
+    """[B, T]: row i attends positions 0..pos[i] (an occupancy mask)."""
+    pos = torch.tensor(pos, device="cuda")
+    return torch.arange(t, device="cuda")[None] <= pos[:, None]
+
+
+def window_mask(torch, pos, t, window):
+    """[B, T]: the rolling-slot mask of gqa_decode at depths ``pos``."""
+    pos = torch.tensor(pos, device="cuda")[:, None]
+    slot_pos = pos - torch.remainder(pos - torch.arange(t, device="cuda"), t)
+    return (slot_pos >= 0) & (slot_pos > pos - window)
+
+
+def decode_check(torch, ops, ref, q, k, v, valid) -> float:
+    """Kernel against the plain version run in f32 -> max abs error."""
+    out = ops.decode_attn(q, k, v, valid, impl="cuda")
+    if out.dtype != q.dtype:
+        raise AssertionError(f"decode_attn gave {out.dtype} for {q.dtype}")
+    want = ref.decode_attn_ref(q.float(), k.float(), v.float(), valid)
+    diff = (out.float() - want).abs()
+    tol = DECODE_TOL[str(q.dtype)]
+    if not (diff <= tol).all():
+        raise AssertionError(f"decode_attn {tuple(k.shape)} {q.dtype}: err "
+                             f"{diff.max().item()} > {tol}")
+    dead = ~valid.any(dim=1)  # rows with no valid position: the mean of V
+    if dead.any():
+        g = q.shape[1] // k.shape[2]
+        mean = v[dead].float().mean(dim=1).repeat_interleave(g, dim=1)
+        if not ((out[dead].float() - mean).abs() <= tol).all():
+            raise AssertionError("decode_attn: an all-masked row is not the "
+                                 "mean of V")
+    return diff.max().item()
+
+
+# the hybrid serve phase's rows decode at contexts 301-332 (prompts of 300,
+# up to 32 new tokens) in a 332-slot cache; the dense-cache llama3-8b phase's
+# at 81-160 in a 160-slot one (SERVE_POS: every row in the top half)
+HYBRID_POS = tuple(300 + 31 - 4 * i for i in range(8))
+
+
+def decode_attn_phase(torch, ops, ref) -> dict:
+    """The dense-cache kernel at zamba2's shared-block shape (G = 1, D = 80,
+    T = 332) and llama3-8b's dense-cache shape (G = 4, D = 128, T = 160) in
+    bf16, an all-masked and a one-position row, f32 cases, and a rolling
+    window; timed at both serving shapes."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    zamba = decode_inputs(torch, g, 8, 32, 32, 80, 332, torch.bfloat16)
+    llama = decode_inputs(torch, g, 8, 32, 8, 128, 160, torch.bfloat16)
+    zmask = depth_mask(torch, HYBRID_POS, 332)
+    lmask = depth_mask(torch, SERVE_POS, 160)
+    err = max(decode_check(torch, ops, ref, *zamba, zmask),
+              decode_check(torch, ops, ref, *llama, lmask))
+    edge = zmask.clone()
+    edge[0] = False  # no valid position: the mean of V
+    edge[1] = False
+    edge[1, 17] = True  # one valid position: its value
+    err = max(err, decode_check(torch, ops, ref, *zamba, edge))
+    err32 = 0.0
+    for shape, mask in (
+            ((2, 8, 2, 64, 300), depth_mask(torch, (299, 40), 300)),
+            ((8, 32, 32, 80, 332), window_mask(
+                torch, (10, 331, 332, 500, 700, 1000, 0, 400), 332, 256)),
+            ((4, 32, 8, 128, 129), depth_mask(torch, (-1, 0, 64, 128), 129))):
+        case = decode_inputs(torch, g, *shape, torch.float32)
+        err32 = max(err32, decode_check(torch, ops, ref, *case, mask))
+
+    def timed(q, k, v, valid):
+        b, hq, d = q.shape
+        hkv = k.shape[2]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        ntok = int(valid.sum().item())  # attended positions, all rows
+        moved = (2 * ntok * hkv * d * k.element_size()
+                 + 2 * q.numel() * q.element_size() + valid.numel())
+        return dict(
+            ms=time_ms(lambda: ops.decode_attn(q, k, v, valid, impl="cuda")),
+            plain_ms=time_ms(lambda: ref.decode_attn_ref(q, k, v, valid)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, attn_mask=valid[:, None, None],
+                enable_gqa=True)),
+            bound=bound(moved, 4.0 * ntok * hq * d, "bf16"),
+        )
+
+    z, lt = timed(*zamba, zmask), timed(*llama, lmask)
+    return dict(
+        name="decode_attn", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attn.cu",
+        replaces="src/repro/kernels/decode_attn.py:176",
+        max_abs_err=err, ms=z["ms"], plain_ms=z["plain_ms"],
+        bound_ms=z["bound"][0], bound_by=z["bound"][1],
+        library_ms=z["library_ms"], f32_max_abs_err=err32,
+        tol=f"{DECODE_TOL['torch.bfloat16']} bf16, "
+            f"{DECODE_TOL['torch.float32']} f32",
+        shape=(f"B=8 Hq=32 Hkv=32 D=80 T=332 ctx {min(HYBRID_POS) + 1}-"
+               f"{max(HYBRID_POS) + 1} bf16; at llama3-8b's B=8 Hq=32 Hkv=8 "
+               f"D=128 T=160: {lt['ms']:.4f} ms, plain {lt['plain_ms']:.4f}, "
+               f"library {lt['library_ms']:.4f}, bound {lt['bound'][0]:.5f}; "
+               f"checked also with an all-masked row, one valid position, a "
+               f"rolling window and in f32 (err {err32:.3g})"),
+    )
+
+
+def ssd_inputs(torch, g, bsz, s, h, p, gr, n, dtype):
+    """x, dt = softplus(normal), a = -exp(normal), B/C = normal / 2: the
+    draws of the JAX package's ssd test, on the card."""
+    import torch.nn.functional as F
+
+    def rnd(*shape):
+        return torch.randn(shape, device="cuda", generator=g)
+
+    return (rnd(bsz, s, h, p).to(dtype), F.softplus(rnd(bsz, s, h)),
+            -torch.exp(rnd(h)), (rnd(bsz, s, gr, n) * 0.5).to(dtype),
+            (rnd(bsz, s, gr, n) * 0.5).to(dtype))
+
+
+def _close(torch, got, want, atol, rtol, what) -> tuple[float, float]:
+    """-> (max abs error, largest share of its tolerance an entry used)."""
+    diff = (got.float() - want.float()).abs()
+    tol = atol + rtol * want.float().abs()
+    if not (diff <= tol).all():
+        raise AssertionError(f"{what}: err {diff.max().item()}")
+    return diff.max().item(), (diff / tol).max().item()
+
+
+def ssd_check(torch, ops, ref, case, chunk) -> tuple[float, float, float]:
+    """Kernel against the plain chunked scan and the sequential oracle, in
+    y and in the final state -> (max abs err of y, of the state, largest
+    share of the tolerance used by an entry of y)."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    y, st = ops.ssd_scan(*case, chunk=chunk, impl="cuda")
+    x = case[0]
+    if y.dtype != x.dtype or st.dtype != torch.float32:
+        raise AssertionError(f"ssd gave {y.dtype}/{st.dtype} for {x.dtype}")
+    f32 = x.dtype == torch.float32
+    atol, rtol = (SSD_ATOL, SSD_RTOL) if f32 else (SSD_BF16_ATOL,
+                                                    SSD_BF16_RTOL)
+    ey = es = used = 0.0
+    what = f"ssd {tuple(x.shape)} {x.dtype}"
+    for wy, wst in (ssd_chunked(*case, chunk=min(chunk, x.shape[1])),
+                    ref.ssd_ref(*case)):
+        e, u = _close(torch, y, wy, atol, rtol, what + " y")
+        ey, used = max(ey, e), max(used, u)
+        es = max(es, _close(torch, st, wst, SSD_ATOL, SSD_RTOL,
+                            what + " state")[0])
+    return ey, es, used
+
+
+def ssd_flops(bsz, s, h, p, n, chunk) -> float:
+    """f32 operations of the chunk scan: per head and chunk of Lc steps,
+    the scores and their product with x on and below the diagonal,
+    (N + P) Lc (Lc + 1), and the inter-chunk output and the state update,
+    4 N P Lc."""
+    total = 0.0
+    for c0 in range(0, s, chunk):
+        lc = min(chunk, s - c0)
+        total += (n + p) * lc * (lc + 1) + 4 * n * p * lc
+    return bsz * h * total
+
+
+def ssd_phase(torch, ops, ref) -> dict:
+    """The scan at zamba2's and mamba2's 300-token prefills (three chunks,
+    the last one short) and a long case in bf16, and the JAX test's odd
+    shapes in f32; timed at zamba2's prefill, the hybrid serve's call."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+    shapes = {"zamba2": (1, 300, 80, 64, 1, 64, bf),
+              "mamba2": (1, 300, 32, 64, 1, 128, bf),
+              "long": (4, 2048, 80, 64, 1, 64, bf)}
+    cases = {k: ssd_inputs(torch, g, *v) for k, v in shapes.items()}
+    ey = es = used = 0.0
+    for case in cases.values():
+        a, b, u = ssd_check(torch, ops, ref, case, 128)
+        ey, es, used = max(ey, a), max(es, b), max(used, u)
+    ey32 = 0.0
+    for shape, chunk in (((2, 50, 4, 16, 2, 16), 16),
+                         ((2, 64, 4, 16, 1, 32), 16),
+                         ((1, 96, 2, 32, 2, 16), 32)):
+        a, b, _ = ssd_check(torch, ops, ref, ssd_inputs(
+            torch, g, *shape, torch.float32), chunk)
+        ey32, es = max(ey32, a), max(es, b)
+    times = {k: time_ms(lambda c=c: ops.ssd_scan(*c, chunk=128, impl="cuda"))
+             for k, c in cases.items()}
+
+    def bound_of(bsz, s, h, p, gr, n, dtype):
+        isz = 2 if dtype == bf else 4
+        moved = (2 * bsz * s * h * p * isz + 2 * bsz * s * gr * n * isz
+                 + bsz * s * h * 4 + h * 4 + bsz * h * p * n * 4)
+        return bound(moved, ssd_flops(bsz, s, h, p, n, 128), "f32")
+
+    bnd = {k: bound_of(*v) for k, v in shapes.items()}
+    z = cases["zamba2"]
+    return dict(
+        name="ssd", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd.py:89", max_abs_err=max(ey, ey32),
+        ms=times["zamba2"],
+        plain_ms=time_ms(lambda: ssd_chunked(*z, chunk=128)),
+        bound_ms=bnd["zamba2"][0], bound_by=bnd["zamba2"][1],
+        library_ms=None,
+        tol=(f"y bf16 {SSD_BF16_ATOL} + 2^-7·|plain|, f32 {SSD_ATOL} + "
+             f"{SSD_RTOL}·|plain|; state {SSD_ATOL} + {SSD_RTOL}·|plain|"),
+        shape=(f"x [1,300,80,64] G=1 N=64 chunk 128 bf16 (zamba2 prefill); "
+               f"mamba2 [1,300,32,64] N=128: {times['mamba2']:.4f} ms, bound "
+               f"{bnd['mamba2'][0]:.5f}; long [4,2048,80,64] N=64: "
+               f"{times['long']:.4f} ms, bound {bnd['long'][0]:.5f}; max "
+               f"err y bf16 {ey:.3g} (at most {used:.2f} of an entry's "
+               f"tolerance), y f32 {ey32:.3g}, state {es:.3g}; no single "
+               f"PyTorch call computes the scan"),
+    )
+
+
+def serve_phase(torch, ops, tmp: str, argv=SERVE_ARGV,
+                kernels=SERVE_KERNELS) -> dict:
+    """``launch.serve.main(argv)`` with every launch count set to 0 just
+    before and read just after: every request finishes, the warm fused
+    steps run under the sync guard, each of ``kernels`` launches and the
+    ledger holds every instance id."""
     from repro_torch.core.history import HistoryConfig, LossHistory
     from repro_torch.launch import serve
 
+    _free(torch)
     summary_path = os.path.join(tmp, "serve.json")
     ledger_path = os.path.join(tmp, "ledger.npz")
-    argv = SERVE_ARGV + ["--json-out", summary_path,
+    argv = list(argv) + ["--json-out", summary_path,
                          "--ledger-out", ledger_path]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -277,7 +532,7 @@ def serve_phase(torch, ops, tmp: str) -> dict:
                              f"{summary['steps'] - 1}")
     if summary["evicted"] != 16 or summary["queued"] or summary["in_flight"]:
         raise AssertionError(f"not every request finished: {summary}")
-    if min(launches[k] for k in SERVE_KERNELS) <= 0:
+    if min(launches[k] for k in kernels) <= 0:
         raise AssertionError(f"a serving kernel never launched: {launches}")
     import numpy as np
 
@@ -289,6 +544,68 @@ def serve_phase(torch, ops, tmp: str) -> dict:
     summary["launches"] = launches
     summary["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return summary
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def serve_line(name: str, s: dict) -> str:
+    return (f"{name}: {s['evicted']} requests, {s['generated_tokens']} tokens "
+            f"in {s['seconds']:.2f}s = {s['tok_per_s']:.1f} tok/s, "
+            f"{s['steps']} engine steps, {s['recorded']} records, launches "
+            f"{s['launches']}, peak {s['peak_gib']:.1f} GiB, sync guard on "
+            f"{s['guarded_steps']} warm steps; step ms first "
+            f"{s['step_ms'][0]:.1f}, median {_median(s['step_ms']):.2f}")
+
+
+def _per_path(s: dict, counts: dict) -> None:
+    """Each kernel's launches against its count per admission or per
+    decode step on this path."""
+    for name, (per, unit) in counts.items():
+        n = s["admitted"] if unit == "admission" else s["steps"]
+        if s["launches"][name] != per * n:
+            raise AssertionError(f"{name} launched {s['launches'][name]} "
+                                 f"times, not {per} per {unit} x {n}")
+
+
+# the slice's serving paths, each at full width and full depth, dense cache
+HYBRID_ARGV = [
+    "--arch", "zamba2-2.7b", "--batch", "8", "--requests", "16",
+    "--prompt-len", "300", "--gen", "32", "--retain", "topk", "--topk", "64",
+    "--ledger", "device", "--temperature", "0", "--device", "cuda",
+]
+MAMBA_ARGV = [
+    "--arch", "mamba2-370m", "--batch", "8", "--requests", "16",
+    "--prompt-len", "200", "--gen", "16", "--retain", "topk", "--topk", "64",
+    "--ledger", "device", "--temperature", "0", "--device", "cuda",
+]
+DENSE_ARGV = [
+    "--arch", "llama3-8b", "--batch", "8", "--requests", "16",
+    "--prompt-len", "128", "--gen", "32", "--page-size", "0",
+    "--retain", "topk", "--topk", "64", "--ledger", "device",
+    "--temperature", "0", "--device", "cuda",
+]
+
+
+def slice_serve_phases(torch, ops, tmp: str) -> dict:
+    """zamba2-2.7b (54 Mamba2 layers in 9 groups, each led by the shared
+    attention block), mamba2-370m (48 layers) and llama3-8b through the
+    dense cache (32 layers): ssd launches once per SSM layer per admission,
+    decode_attn once per attention block per decode step."""
+    out = {}
+    out["hybrid"] = s = serve_phase(torch, ops, tmp, HYBRID_ARGV,
+                                    ("ssd", "decode_attn", "topk_lse"))
+    _per_path(s, {"ssd": (54, "admission"), "decode_attn": (9, "step")})
+    out["mamba2"] = s = serve_phase(torch, ops, tmp, MAMBA_ARGV,
+                                    ("ssd", "topk_lse"))
+    _per_path(s, {"ssd": (48, "admission"), "decode_attn": (0, "step")})
+    out["dense"] = s = serve_phase(torch, ops, tmp, DENSE_ARGV,
+                                   ("decode_attn", "topk_lse"))
+    _per_path(s, {"decode_attn": (32, "step"),
+                  "paged_decode_attn": (0, "step")})
+    return out
 
 
 def _profile_summary(torch, prof, n) -> tuple[float, float, str]:
@@ -315,6 +632,9 @@ def _profile_summary(torch, prof, n) -> tuple[float, float, str]:
 
 KERNEL_GROUPS = (("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("xent", ("xent_",)), ("ledger", ("ledger_",)),
+                 ("ssd", ("ssd_scan",)), ("decode_attn", ("dense_decode",)),
+                 ("paged_decode_attn", ("paged_decode",)),
+                 ("topk_lse", ("topk",)),
                  ("elementwise", ("elementwise",)), ("reduce", ("reduce",)))
 
 
@@ -334,8 +654,8 @@ def _kernel_groups(torch, prof, n) -> str:
                      sorted(sums.items(), key=lambda kv: -kv[1]))
 
 
-def profile_phase(torch) -> str:
-    """Where a steady decode step's time goes, at the serve phase's
+def profile_phase(torch, argv=SERVE_ARGV) -> str:
+    """Where a steady decode step's time goes, at a serve phase's
     configuration: host wall time per step, device kernel time per step
     (torch.profiler), kernel launches per step and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -345,7 +665,8 @@ def profile_phase(torch) -> str:
     from repro_torch.models import model as Mdl
     from repro_torch.models.params import materialize
 
-    args = serve.parse_args(SERVE_ARGV)
+    _free(torch)
+    args = serve.parse_args(argv)
     cfg = configs.get(args.arch)
     params = materialize(Mdl.param_specs(cfg), args.seed, torch.bfloat16,
                          "cuda")
@@ -366,29 +687,76 @@ def profile_phase(torch) -> str:
             eng.step()
         torch.cuda.synchronize()
     device_ms, launches, tops = _profile_summary(torch, prof, n)
+    groups = _kernel_groups(torch, prof, n)
+    del eng, params
     return (f"steady decode step {wall_ms:.2f} ms host wall (8 slots), "
             f"device busy {device_ms:.2f} ms/step "
             f"({100 * device_ms / wall_ms:.1f}%), {launches:.0f} kernel "
-            f"launches/step; top device ms/step: {tops}")
+            f"launches/step; device ms/step by kind: {groups}; top device "
+            f"ms/step: {tops}")
 
 
-def reference_phase(torch) -> str:
-    """The smoke config in f32 through the card's kernels and through the
-    CPU's plain versions: same tokens, ledgers within 1e-5; then the same
-    for two train steps."""
-    import dataclasses
-
-    import numpy as np
+def prefill_phase(torch) -> str:
+    """One 300-token prefill of zamba2-2.7b at batch 1 (what an admission
+    runs): host wall time with the device drained, median of 5, and its
+    device time by kind of kernel under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.params import materialize
+
+    _free(torch)
+    cfg = configs.get("zamba2-2.7b")
+    params = materialize(Mdl.param_specs(cfg), 0, torch.bfloat16, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, 300), device="cuda",
+                         generator=g, dtype=torch.int32)
+
+    def run():
+        Mdl.prefill(params, cfg, toks, max_seq=332)
+        torch.cuda.synchronize()
+
+    run()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    device_ms, launches, tops = _profile_summary(torch, prof, 1)
+    groups = _kernel_groups(torch, prof, 1)
+    del params
+    return (f"zamba2-2.7b prefill of 300 tokens: {_median(walls):.2f} ms host "
+            f"wall (median of 5), device busy {device_ms:.2f} ms, "
+            f"{launches:.0f} kernel launches; device ms by kind: {groups}; "
+            f"top device ms: {tops}")
+
+
+def _smoke_f32(arch: str):
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_smoke(arch),
+                               param_dtype="float32", compute_dtype="float32")
+
+
+def engine_reference(torch, arch: str, page_size) -> int:
+    """The engine on ``arch``'s smoke config in f32, on the card (kernels)
+    and on the CPU (plain versions): same tokens, ledgers within 1e-5 ->
+    the number of requests."""
+    import numpy as np
+
     from repro_torch.core.history import HistoryConfig
     from repro_torch.data import DataConfig, SyntheticLMStream
     from repro_torch.models import model as Mdl
     from repro_torch.models.params import materialize, tree_map
     from repro_torch.serving import Engine, OutcomeRecorder
 
-    cfg = dataclasses.replace(configs.get_smoke("llama3-8b"),
-                              param_dtype="float32", compute_dtype="float32")
+    cfg = _smoke_f32(arch)
     stream = SyntheticLMStream(DataConfig(4, 22, cfg.vocab_size, seed=5))
     weights = materialize(Mdl.param_specs(cfg), 0, torch.float32, "cpu")
     results = []
@@ -398,23 +766,80 @@ def reference_phase(torch) -> str:
                               ledger="device", retention="topk", topk=16,
                               device=device)
         eng = Engine(cfg, params, rec, slots=4, max_prompt=16, max_gen=6,
-                     page_size=4)
+                     page_size=page_size)
         for w in range(2):
             raw = stream.batch(w)
             for r in range(4):
                 toks = raw["tokens"][r]
-                eng.submit(toks[:16], 6, toks[16:22],
+                plen = 16 - 3 * (r % 2)  # exact-length families: two lengths
+                eng.submit(toks[:plen], 6, toks[16:22],
                            int(raw["instance_id"][r]))
         eng.run()
         results.append((eng.finished, eng.ledger_state_dict()))
     (fa, la), (fb, lb) = results
     if fa.keys() != fb.keys() or any(
             not np.array_equal(fa[i], fb[i]) for i in fa):
-        raise AssertionError("card and CPU engines generated different tokens")
+        raise AssertionError(f"{arch}: card and CPU engines generated "
+                             "different tokens")
     for key in la:
-        np.testing.assert_allclose(la[key], lb[key], rtol=1e-5, err_msg=key)
-    return (f"serve: {len(fa)} requests, tokens equal, ledgers within rtol "
+        np.testing.assert_allclose(la[key], lb[key], rtol=1e-5,
+                                   err_msg=f"{arch} {key}")
+    return len(fa)
+
+
+def reference_phase(torch) -> str:
+    """The smoke config in f32 through the card's kernels and through the
+    CPU's plain versions: same tokens, ledgers within 1e-5; then the same
+    for two train steps."""
+    n = engine_reference(torch, "llama3-8b", 4)
+    return (f"serve: {n} requests, tokens equal, ledgers within rtol "
             f"1e-5; train: {train_reference(torch)}")
+
+
+def hybrid_reference_phase(torch, ops) -> str:
+    """The mamba2 and zamba2 smoke configs in f32: prefill of 37 tokens
+    (three scan chunks of 16, the last one short) and 6 greedy decode
+    steps, on the card through the kernels and on the CPU through the plain
+    versions: equal tokens, logits within REF_LOGIT_TOL; then the engine on
+    zamba2's smoke config, card against CPU."""
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.params import materialize, tree_map
+
+    lines = []
+    for arch, kernels in (("mamba2-370m", ("ssd",)),
+                          ("zamba2-2.7b", ("ssd", "decode_attn"))):
+        cfg = _smoke_f32(arch)
+        weights = materialize(Mdl.param_specs(cfg), 0, torch.float32, "cpu")
+        toks = torch.randint(0, cfg.vocab_size, (3, 37), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(6))
+        runs = []
+        for device in ("cuda", "cpu"):
+            ops.reset_launches()
+            params = tree_map(lambda _, x: x.to(device), weights)
+            logits, cache = Mdl.prefill(params, cfg, toks.to(device), 44)
+            pos = torch.full((3,), 37, dtype=torch.int32, device=device)
+            seq, lgs = [], [logits.cpu()]
+            for _ in range(6):
+                nxt = Mdl.greedy_token(cfg, logits)[:, None]
+                seq.append(nxt.cpu())
+                logits, cache = Mdl.decode_step(params, cfg, cache, nxt, pos)
+                lgs.append(logits.cpu())
+                pos = pos + 1
+            runs.append((torch.cat(seq, 1), torch.stack(lgs),
+                         dict(ops.LAUNCHES)))
+        (ta, la, ka), (tb, lb, kb) = runs
+        if min(ka[k] for k in kernels) <= 0 or any(kb.values()):
+            raise AssertionError(f"{arch}: kernels {ka} on the card, {kb} on "
+                                 f"the CPU")
+        if not torch.equal(ta, tb):
+            raise AssertionError(f"{arch}: card and CPU tokens differ")
+        err = (la - lb).abs().max().item()
+        if err > REF_LOGIT_TOL:
+            raise AssertionError(f"{arch}: logits differ by {err}")
+        lines.append(f"{arch} tokens equal, logits max abs diff {err:.3g}")
+    n = engine_reference(torch, "zamba2-2.7b", None)
+    return "; ".join(lines) + (f"; zamba2 engine: {n} requests, tokens "
+                               f"equal, ledgers within rtol 1e-5")
 
 
 class SharedDraws:
@@ -915,22 +1340,29 @@ def main() -> int:
               f" | plain {row['plain_ms']:.4f} ms | library {lib} | bound "
               f"{row['bound_ms']:.5f} ms ({row['bound_by']})", flush=True)
 
-    for phase in (topk_phase, paged_phase):
+    for phase in (topk_phase, paged_phase, decode_attn_phase, ssd_phase):
         show(phase(torch, ops, ref))
     with tempfile.TemporaryDirectory() as tmp:
         s = serve_phase(torch, ops, tmp)
-    print(f"serve: llama3-8b 32 layers bf16, {s['evicted']} requests, "
-          f"{s['generated_tokens']} tokens in {s['seconds']:.2f}s = "
-          f"{s['tok_per_s']:.1f} tok/s, {s['steps']} engine steps, "
-          f"{s['recorded']} records, launches {s['launches']}, peak "
-          f"{s['peak_gib']:.1f} GiB, sync guard on {s['guarded_steps']} warm "
-          f"steps; step ms first "
-          f"{s['step_ms'][0]:.1f}, median "
-          f"{sorted(s['step_ms'])[len(s['step_ms']) // 2]:.2f}", flush=True)
+    print(serve_line("serve: llama3-8b 32 layers bf16, paged", s), flush=True)
     print(f"profile: {profile_phase(torch)}", flush=True)
     print(f"reference: {reference_phase(torch)}", flush=True)
-    for row in kernels:
-        row["launches"] = s["launches"][row["name"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        sl = slice_serve_phases(torch, ops, tmp)
+    for key, name in (("hybrid", "zamba2-2.7b 54 layers"),
+                      ("mamba2", "mamba2-370m 48 layers"),
+                      ("dense", "llama3-8b 32 layers, dense cache")):
+        print(serve_line(f"serve: {name} bf16", sl[key]), flush=True)
+    print(f"hybrid profile: {profile_phase(torch, HYBRID_ARGV)}", flush=True)
+    print(f"hybrid prefill: {prefill_phase(torch)}", flush=True)
+    print(f"hybrid reference: {hybrid_reference_phase(torch, ops)}",
+          flush=True)
+    # launches over each kernel's own main path: the paged llama3-8b serve
+    # for topk_lse and paged_decode_attn, the zamba2 serve for the slice's
+    # two kernels, the two train runs for the training kernels
+    launches = {k: s["launches"][k] for k in SERVE_KERNELS}
+    launches.update({k: sl["hybrid"]["launches"][k]
+                     for k in ("decode_attn", "ssd")})
     _free(torch)
     for row in xent_phases(torch, ops, ref):
         show(row)
@@ -949,9 +1381,10 @@ def main() -> int:
               f"first {r['step_ms'][0]:.1f}, steady (median of warm) "
               f"{r['steady_ms']:.1f}, peak {r['peak_gib']:.1f} GiB, sync "
               f"guard on {r['guarded_steps']} warm steps", flush=True)
-    for row in kernels[2:]:
-        row["launches"] = a["launches"][row["name"]] + \
-            b["launches"][row["name"]]
+    for k in ("xent_fwd", "xent_bwd", "ledger_record_priority"):
+        launches[k] = a["launches"][k] + b["launches"][k]
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
     print(f"train profile: {train_profile_phase(torch)}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

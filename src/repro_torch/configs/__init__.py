@@ -25,7 +25,7 @@ ARCHS = {
     "mixtral_8x22b": "moe",
     "pixtral_12b": "vlm",
 }
-PORTED = ("llama3_8b",)
+PORTED = ("llama3_8b", "mamba2_370m", "zamba2_2p7b")
 
 _ALIASES = {name.replace("_", "-"): name for name in ARCHS}
 _ALIASES.update({"zamba2-2.7b": "zamba2_2p7b"})
@@ -44,7 +44,8 @@ def _module(name: str):
     key = canonical(name)
     if key not in PORTED:
         raise NotImplementedError(
-            f"arch {key!r} ({ARCHS[key]} family) is not ported to PyTorch yet"
+            f"arch {key!r} ({ARCHS[key]} family) is not ported to PyTorch "
+            f"yet; ported: {', '.join(PORTED)}"
         )
     return importlib.import_module(f"repro_torch.configs.{key}")
 

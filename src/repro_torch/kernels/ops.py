@@ -19,12 +19,14 @@ import torch
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import ledger as _ledger
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import topk_lse as _topk
 from repro_torch.kernels import xent as _xent
 
 IMPLS = ("ref", "cuda")
-LAUNCHES = {"topk_lse": 0, "paged_decode_attn": 0, "xent_fwd": 0,
-            "xent_bwd": 0, "ledger_record_priority": 0}
+LAUNCHES = {"topk_lse": 0, "paged_decode_attn": 0, "decode_attn": 0,
+            "xent_fwd": 0, "xent_bwd": 0, "ledger_record_priority": 0,
+            "ssd": 0}
 
 
 def reset_launches() -> None:
@@ -73,6 +75,23 @@ def paged_decode_attn(
         q, kp, vp, page_table.to(torch.int32), pos.to(torch.int32)
     )
     LAUNCHES["paged_decode_attn"] += 1
+    return out
+
+
+def decode_attn(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: torch.Tensor,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Decode attention against the dense cache: q [B,Hq,D], K/V
+    [B,T,Hkv,D], valid [B,T] bool -> [B,Hq,D] in q's dtype. A row with no
+    valid position gets the mean of V."""
+    if _resolve(impl, q) == "ref":
+        return _ref.decode_attn_ref(q, k, v, valid)
+    out = _da.decode_attn_cuda(q, k, v, valid.to(torch.bool))
+    LAUNCHES["decode_attn"] += 1
     return out
 
 
@@ -188,4 +207,33 @@ def ledger_record_priority(
         staleness_half_life=staleness_half_life, variant=variant,
     )
     LAUNCHES["ledger_record_priority"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SSD chunk scan
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    chunk: int = 128,
+    impl: Optional[str] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 chunk scan: x [B,S,H,P], dt [B,S,H] (positive), a [H]
+    (negative), B/C [B,S,G,N] -> (y [B,S,H,P] in x's dtype, final state
+    [B,H,P,N] f32) in chunks of ``min(chunk, S)`` steps. The plain version
+    is the chunked scan of ``models.ssm``, as in the JAX package."""
+    chunk = min(chunk, x.shape[1])
+    if _resolve(impl, x) == "ref":
+        from repro_torch.models.ssm import ssd_chunked
+
+        return ssd_chunked(x, dt, a, b, c, chunk=chunk)
+    out = _ssd.ssd_cuda(x, dt.to(torch.float32), a.to(torch.float32), b, c,
+                        chunk)
+    LAUNCHES["ssd"] += 1
     return out

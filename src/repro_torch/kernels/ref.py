@@ -7,6 +7,8 @@ what ``chip_smoke.py`` holds each kernel against.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 F32 = torch.float32
@@ -136,3 +138,32 @@ def paged_decode_attn_ref(
     allocated = (page_table >= 0).repeat_interleave(page, dim=1)
     valid = (tpos[None] <= pos[:, None].long()) & allocated
     return decode_attn_ref(q, k, v, valid)
+
+
+def ssd_ref(
+    x: torch.Tensor,  # [B, S, H, P]
+    dt: torch.Tensor,  # [B, S, H] positive
+    a: torch.Tensor,  # [H] negative
+    b: torch.Tensor,  # [B, S, G, N]
+    c: torch.Tensor,  # [B, S, G, N]
+    h0: Optional[torch.Tensor] = None,  # [B, H, P, N]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSD recurrence, the definitional oracle:
+    h_t = exp(a dt_t) h_{t-1} + dt_t x_t B_t^T, y_t = h_t C_t
+    -> (y [B,S,H,P] in x's dtype, final state [B,H,P,N] f32). The kernel's
+    plain version is the chunked scan ``models.ssm.ssd_chunked``."""
+    bsz, s, h, p = x.shape
+    rep = h // b.shape[2]
+    bh = b.to(F32).repeat_interleave(rep, dim=2)  # [B,S,H,N]
+    ch = c.to(F32).repeat_interleave(rep, dim=2)
+    xf, dtf, af = x.to(F32), dt.to(F32), a.to(F32)
+    state = (torch.zeros((bsz, h, p, b.shape[3]), dtype=F32, device=x.device)
+             if h0 is None else h0.to(F32))
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * af[None, :])[..., None, None]
+        upd = (dtf[:, t, :, None] * xf[:, t])[..., None] * bh[:, t, :, None, :]
+        state = state * decay + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros(x.shape)
+    return y.to(x.dtype), state

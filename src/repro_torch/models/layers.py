@@ -8,8 +8,11 @@ package's layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, caches
 ``[B, T, kv, hd]``, page pools ``[P, page, kv, hd]``).
 
 Decode writes K/V into the cache tensors in place (the JAX version returns
-new arrays and donates the old ones). Int8 KV caches, sliding windows and
-MLA are not ported yet and raise ``NotImplementedError``.
+new arrays and donates the old ones), then attends through
+``kernels.ops.decode_attn`` (dense cache) or ``paged_decode_attn`` (page
+pool). The dense cache holds bf16 or int8 K/V (per-(position, head) f32
+scales) and, with a sliding window, a rolling layout of ``window`` slots.
+MLA is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,13 +33,8 @@ _MASK_VALUE = -1e30
 
 def _require_plain_gqa(cfg: ModelConfig) -> None:
     if cfg.attn_impl != "gqa":
-        raise NotImplementedError(f"attention {cfg.attn_impl!r} is not ported")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window attention is not ported")
-    if cfg.kv_cache_dtype != "bf16":
         raise NotImplementedError(
-            f"KV cache dtype {cfg.kv_cache_dtype!r} is not ported"
-        )
+            f"attention {cfg.attn_impl!r} is not ported (only GQA is)")
 
 
 # ---------------------------------------------------------------------------
@@ -193,12 +191,43 @@ def gqa_attend(
     return _out_proj(_attend_full(q, k, v, positions, cfg), p["wo"])
 
 
+def gqa_cache_len(cfg: ModelConfig, max_seq: int) -> int:
+    """Slots of the dense cache: ``max_seq``, or the window's rolling
+    ``sliding_window`` slots when that is shorter."""
+    return min(max_seq, cfg.sliding_window or max_seq)
+
+
+def _kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., hd] -> (int8 values, f32 scale over the head dim). ``round``
+    is half to even in both packages."""
+    xf = x.to(F32)
+    scale = xf.abs().amax(dim=-1) / 127.0
+    safe = torch.where(scale > 0, scale, 1.0)
+    q = torch.clamp(torch.round(xf / safe[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_dequant(q: torch.Tensor, scale: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    return (q.to(F32) * scale[..., None].to(F32)).to(dtype)
+
+
 def gqa_init_cache(
     cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,
     device: torch.device | str,
 ) -> dict:
+    """One layer's dense cache [B, T, kv, hd], T = ``gqa_cache_len``; int8
+    K/V carry ``k_scale``/``v_scale`` [B, T, kv] in f32."""
     _require_plain_gqa(cfg)
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    t = gqa_cache_len(cfg, max_seq)
+    shape = (batch, t, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=F32, device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=F32, device=device),
+        }
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -207,12 +236,24 @@ def gqa_fill_cache(
     x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.Tensor,
     max_seq: int,
 ) -> tuple[torch.Tensor, dict]:
-    """Prefill: (output, cache [B, max_seq, kv, hd] holding the prompt)."""
+    """Prefill: (output, cache holding the last ``gqa_cache_len`` tokens).
+    A rolling window keeps slot j for the position p with p % t == j."""
     _require_plain_gqa(cfg)
     q, k, v = _qkv(x, p, cfg, positions)
     out = _out_proj(_attend_full(q, k, v, positions, cfg), p["wo"])
-    pad = (0, 0, 0, 0, 0, max_seq - x.shape[1])
-    return out, {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    t = gqa_cache_len(cfg, max_seq)
+    s = x.shape[1]
+    if t >= s:
+        pad = (0, 0, 0, 0, 0, t - s)
+        cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    else:
+        cache = {"k": torch.roll(k[:, s - t:], s % t, dims=1),
+                 "v": torch.roll(v[:, s - t:], s % t, dims=1)}
+    if cfg.kv_cache_dtype == "int8":
+        qk, sk = _kv_quant(cache["k"])
+        qv, sv = _kv_quant(cache["v"])
+        cache = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+    return out, cache
 
 
 def gqa_decode(
@@ -221,33 +262,64 @@ def gqa_decode(
 ) -> tuple[torch.Tensor, dict]:
     """Single-token decode against the dense cache, written in place.
     x [B,1,D]; pos = tokens already cached, a scalar (whole batch at one
-    depth) or a [B] vector (every row at its own depth)."""
+    depth) or a [B] vector (every row at its own depth).
+
+    The new row lands in slot ``pos % t``; slot j then holds position
+    ``pos - ((pos - j) mod t)``, attended if it is >= 0 and, with a window,
+    inside it. Attention runs through ``kernels.ops.decode_attn`` (the CUDA
+    kernel on the card), which keeps the softmax weights in f32 where the
+    JAX package's einsum rounds them to the compute dtype first."""
     _require_plain_gqa(cfg)
     b = x.shape[0]
+    t = gqa_cache_len(cfg, max_seq)
     per_slot = pos.dim() == 1 and pos.shape[0] == b
     rope_pos = pos[:, None] if per_slot else pos.reshape(1)
     q, k, v = _qkv(x, p, cfg, rope_pos)
-    slot = pos.long() % max_seq
-    t = torch.arange(max_seq, device=x.device)
+    slot = pos.long() % t
     if per_slot:
         bidx = torch.arange(b, device=x.device)
-        cache["k"][bidx, slot] = k[:, 0]
-        cache["v"][bidx, slot] = v[:, 0]
-        keep = (t[None] <= pos[:, None])[:, None]  # [B,1,T]
+
+        def upd(c, n):  # row slot[b] of example b
+            c[bidx, slot] = n[:, 0]
     else:
-        cache["k"].index_copy_(1, slot.reshape(1), k)
-        cache["v"].index_copy_(1, slot.reshape(1), v)
-        keep = (t <= pos)[None]  # [1,T]
-    out = _gqa_core(q, cache["k"], cache["v"], keep)
-    return _out_proj(out, p["wo"]), cache
+
+        def upd(c, n):
+            c.index_copy_(1, slot.reshape(1), n)
+
+    if cfg.kv_cache_dtype == "int8":
+        for name, new in (("k", k), ("v", v)):
+            qn, sn = _kv_quant(new)
+            upd(cache[name], qn)
+            upd(cache[f"{name}_scale"], sn)
+        ck = _kv_dequant(cache["k"], cache["k_scale"], x.dtype)
+        cv = _kv_dequant(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        upd(cache["k"], k)
+        upd(cache["v"], v)
+        ck, cv = cache["k"], cache["v"]
+    j = torch.arange(t, device=x.device)
+    posq = pos.long()[:, None] if per_slot else pos.long().reshape(1, 1)
+    slot_pos = posq - torch.remainder(posq - j, t)  # [B,T] or [1,T]
+    valid = slot_pos >= 0
+    if cfg.sliding_window is not None:
+        valid &= slot_pos > posq - cfg.sliding_window
+    o = kops.decode_attn(q[:, 0], ck, cv, valid.expand(b, t))
+    return _out_proj(o[:, None].to(x.dtype), p["wo"]), cache
 
 
 def gqa_paged_init_cache(
     cfg: ModelConfig, num_pages: int, page_size: int, dtype: torch.dtype,
     device: torch.device | str,
 ) -> dict:
-    """One layer's slice of the global KV page pool: [P, page, kv, hd]."""
+    """One layer's slice of the global KV page pool: [P, page, kv, hd].
+    Rolling windows and int8 K/V keep the dense layout, as in the JAX
+    package."""
     _require_plain_gqa(cfg)
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "paged KV cache requires plain GQA without a sliding window")
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError("paged KV cache: int8 KV not supported yet")
     shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
     return {"kp": torch.zeros(shape, dtype=dtype, device=device),
             "vp": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,15 +1,21 @@
-"""Decoder-LM assembly for the dense family.
+"""Decoder-LM assembly for the dense, ssm and hybrid families.
 
-The PyTorch counterpart of ``repro.models.model`` for ``family="dense"``:
-[norm -> GQA attention -> +res] [norm -> SwiGLU -> +res] per layer, the
-layers' parameters stacked along a leading dim (``blocks``) exactly as in
-the JAX tree, run by a Python loop over that dim.
+The PyTorch counterpart of ``repro.models.model``:
+
+* dense:  [norm -> GQA attention -> +res] [norm -> SwiGLU -> +res] per layer;
+* ssm:    [norm -> Mamba2/SSD -> +res] per layer (mamba2-370m);
+* hybrid: groups of ``hybrid_attn_every`` SSM layers, each group led by ONE
+  weight-shared attention block with its own KV cache (zamba2-2.7b).
+
+Layer parameters are stacked along leading dims exactly as in the JAX tree
+(``blocks`` [L, ...], or [groups, every, ...] for the hybrid's SSM layers)
+and run by Python loops over those dims.
 
 Entry points: ``forward_hidden`` (full sequence), ``per_example_loss`` /
 ``loss_fn`` (the OBFTF loss signal, per-token CE through the cross-entropy
-kernel), ``prefill`` (full sequence, builds the decode cache) and
-``decode_step`` (one token per row against the dense or the paged cache).
-Other families raise ``NotImplementedError`` naming themselves.
+kernel; dense only), ``prefill`` (full sequence, builds the decode cache)
+and ``decode_step`` (one token per row against the dense or the paged
+cache). Other families raise ``NotImplementedError`` naming themselves.
 """
 
 from __future__ import annotations
@@ -21,16 +27,21 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec, tree_map
 
-PORTED_FAMILIES = ("dense",)
+# families each entry point runs; training the ssm and hybrid families
+# (a gradient for the SSD scan) is not ported yet
+SERVING_FAMILIES = ("dense", "ssm", "hybrid")
+TRAINING_FAMILIES = ("dense",)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
+def _require(cfg: ModelConfig, families: tuple[str, ...], what: str) -> None:
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported to PyTorch yet"
+            f"model family {cfg.family!r}: {what} is not ported to PyTorch "
+            f"yet (ported for {', '.join(families)})"
         )
 
 
@@ -50,8 +61,22 @@ def stack_specs(tree, n: int):
     )
 
 
+def _attn_block_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "attn_norm": L.rmsnorm_spec(d),
+        "attn": L.gqa_specs(cfg),
+        "ffn_norm": L.rmsnorm_spec(d),
+        "mlp": L.mlp_specs(d, cfg.d_ff, gelu=cfg.mlp_gelu),
+    }
+
+
+def _ssm_block_specs(cfg: ModelConfig) -> dict:
+    return {"norm": L.rmsnorm_spec(cfg.d_model), "ssm": S.ssm_specs(cfg)}
+
+
 def param_specs(cfg: ModelConfig) -> dict:
-    _require_dense(cfg)
+    _require(cfg, SERVING_FAMILIES, "the parameter layout")
     d, v = cfg.d_model, cfg.vocab_size
     specs: dict = {
         "embed": ParamSpec((v, d), scale=0.02),
@@ -59,14 +84,19 @@ def param_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((v, d), scale=d**-0.5)
-    block = {
-        "attn_norm": L.rmsnorm_spec(d),
-        "attn": L.gqa_specs(cfg),
-        "ffn_norm": L.rmsnorm_spec(d),
-        "mlp": L.mlp_specs(d, cfg.d_ff, gelu=cfg.mlp_gelu),
-    }
-    specs["blocks"] = stack_specs(block, cfg.num_layers)
+    if cfg.family == "dense":
+        specs["blocks"] = stack_specs(_attn_block_specs(cfg), cfg.num_layers)
+    elif cfg.family == "ssm":
+        specs["blocks"] = stack_specs(_ssm_block_specs(cfg), cfg.num_layers)
+    else:  # hybrid: [groups, every, ...] SSM stacks, one shared attention
+        inner = stack_specs(_ssm_block_specs(cfg), cfg.hybrid_attn_every)
+        specs["blocks"] = stack_specs(inner, _groups(cfg))
+        specs["shared_attn"] = _attn_block_specs(cfg)
     return specs
+
+
+def _groups(cfg: ModelConfig) -> int:
+    return cfg.num_layers // cfg.hybrid_attn_every
 
 
 def layer(blocks: dict, i: int) -> dict:
@@ -111,7 +141,7 @@ def forward_hidden(
     ``torch.utils.checkpoint``, as the JAX scan wraps its body in
     ``jax.checkpoint``: only layer inputs are kept for the backward. The
     model draws no random numbers, so no RNG state is stashed."""
-    _require_dense(cfg)
+    _require(cfg, TRAINING_FAMILIES, "the full-sequence forward")
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -150,7 +180,7 @@ def loss_fn(
 ) -> Callable[[dict, dict[str, torch.Tensor]], torch.Tensor]:
     """``per_example_loss_fn(params, batch) -> [B]`` for the OBFTF step
     (the dense family has no MoE aux loss to fold in)."""
-    _require_dense(cfg)
+    _require(cfg, TRAINING_FAMILIES, "the training loss")
 
     def fn(params: dict, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         return per_example_loss(params, cfg, batch)
@@ -163,15 +193,35 @@ def loss_fn(
 # ---------------------------------------------------------------------------
 
 
+def _stack_over(n: int, one: dict) -> dict:
+    """A cache dict with a leading dim of ``n`` zeroed copies."""
+    return {k: v.new_zeros((n, *v.shape)) for k, v in one.items()}
+
+
 def init_cache(
     cfg: ModelConfig, batch: int, max_seq: int, device: torch.device | str
 ) -> dict:
-    """Dense per-row KV cache, stacked over layers: [L, B, T, kv, hd]."""
-    _require_dense(cfg)
+    """Decode cache with a batch dim of ``batch`` rows.
+
+    dense: ``blocks`` K/V [L, B, T, kv, hd] (T = ``gqa_cache_len``; int8
+    K/V with f32 scales [L, B, T, kv]); ssm: ``blocks`` state [L, B, H, P, N]
+    f32 and conv [L, B, K-1, C]; hybrid: ``blocks`` [groups, every, B, ...]
+    and ``shared_attn`` K/V [groups, B, T, kv, hd], one cache per group
+    though the groups share their attention weights."""
+    _require(cfg, SERVING_FAMILIES, "the decode cache")
     dt = dtype_of(cfg.compute_dtype)
-    one = L.gqa_init_cache(cfg, batch, max_seq, dt, device)
-    return {"blocks": {k: v.new_zeros((cfg.num_layers, *v.shape))
-                       for k, v in one.items()}}
+    if cfg.family == "dense":
+        one = L.gqa_init_cache(cfg, batch, max_seq, dt, device)
+        return {"blocks": _stack_over(cfg.num_layers, one)}
+    ssm = S.ssm_init_cache(cfg, batch, dt, device)
+    if cfg.family == "ssm":
+        return {"blocks": _stack_over(cfg.num_layers, ssm)}
+    attn = L.gqa_init_cache(cfg, batch, max_seq, dt, device)
+    return {
+        "blocks": _stack_over(_groups(cfg),
+                              _stack_over(cfg.hybrid_attn_every, ssm)),
+        "shared_attn": _stack_over(_groups(cfg), attn),
+    }
 
 
 def init_paged_cache(
@@ -180,12 +230,32 @@ def init_paged_cache(
 ) -> dict:
     """Global paged KV pool, stacked over layers: [L, P, page, kv, hd]. A
     physical page id addresses the same page in every layer, so one table
-    per row serves the whole stack."""
-    _require_dense(cfg)
+    per row serves the whole stack. Only the dense family pages its cache:
+    recurrent state and the hybrid's shared block keep the dense layout."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"paged KV cache: family {cfg.family!r} has non-KV cache state")
     dt = dtype_of(cfg.compute_dtype)
     one = L.gqa_paged_init_cache(cfg, num_pages, page_size, dt, device)
-    return {"blocks": {k: v.new_zeros((cfg.num_layers, *v.shape))
-                       for k, v in one.items()}}
+    return {"blocks": _stack_over(cfg.num_layers, one)}
+
+
+def _stack_caches(caches: list[dict]) -> dict:
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def _attn_block_fill(x, p, cfg, positions, max_seq):
+    h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    a, cache = L.gqa_fill_cache(h, p["attn"], cfg, positions, max_seq)
+    x = x + a
+    h = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
+    return x + L.mlp(h, p["mlp"]), cache
+
+
+def _ssm_block_fill(x, p, cfg):
+    h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+    out, cache = S.ssm_fill_cache(h, p["ssm"], cfg)
+    return x + out, cache
 
 
 def prefill(
@@ -195,24 +265,41 @@ def prefill(
     max_seq: int,
     last_pos: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, dict]:
-    """Full-sequence forward building the dense decode cache.
+    """Full-sequence forward building the decode cache.
 
     Returns (logits [B,V] at the last position, or at ``last_pos[b]`` for
-    right-padded prompts, and the cache [L, B, max_seq, kv, hd]).
+    right-padded prompts, and the cache in :func:`init_cache`'s layout).
     """
-    _require_dense(cfg)
+    _require(cfg, SERVING_FAMILIES, "prefill")
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        p = layer(params["blocks"], i)
-        h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-        a, c = L.gqa_fill_cache(h, p["attn"], cfg, positions, max_seq)
-        x = x + a
-        h = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-        x = x + L.mlp(h, p["mlp"])
-        ks.append(c["k"])
-        vs.append(c["v"])
+    if cfg.family == "dense":
+        caches = []
+        for i in range(cfg.num_layers):
+            x, c = _attn_block_fill(x, layer(params["blocks"], i), cfg,
+                                    positions, max_seq)
+            caches.append(c)
+        cache = {"blocks": _stack_caches(caches)}
+    elif cfg.family == "ssm":
+        caches = []
+        for i in range(cfg.num_layers):
+            x, c = _ssm_block_fill(x, layer(params["blocks"], i), cfg)
+            caches.append(c)
+        cache = {"blocks": _stack_caches(caches)}
+    else:
+        shared = params["shared_attn"]
+        attn_caches, group_caches = [], []
+        for gi in range(_groups(cfg)):
+            x, ac = _attn_block_fill(x, shared, cfg, positions, max_seq)
+            attn_caches.append(ac)
+            group = layer(params["blocks"], gi)
+            inner = []
+            for e in range(cfg.hybrid_attn_every):
+                x, c = _ssm_block_fill(x, layer(group, e), cfg)
+                inner.append(c)
+            group_caches.append(_stack_caches(inner))
+        cache = {"blocks": _stack_caches(group_caches),
+                 "shared_attn": _stack_caches(attn_caches)}
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if last_pos is None:
         last = x[:, -1:]
@@ -220,7 +307,28 @@ def prefill(
         bidx = torch.arange(x.shape[0], device=x.device)
         last = x[bidx, last_pos.long()][:, None]
     logits = unembed(params, cfg, last)[:, 0]
-    return logits, {"blocks": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return logits, cache
+
+
+def _attn_block_decode(x, p, cfg, c, pos, page_table=None):
+    h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    if page_table is not None:
+        a, _ = L.gqa_paged_decode(h, p["attn"], cfg, c, page_table, pos)
+    else:
+        a, _ = L.gqa_decode(h, p["attn"], cfg, c, pos, c["k"].shape[1])
+    x = x + a
+    h = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
+    return x + L.mlp(h, p["mlp"])
+
+
+def _ssm_block_decode(x, p, cfg, c):
+    """The block's output; the layer's (state, conv) cache ``c`` (views
+    into the stacked cache) is overwritten in place."""
+    h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+    out, new = S.ssm_decode(h, p["ssm"], cfg, c)
+    c["state"].copy_(new["state"])
+    c["conv"].copy_(new["conv"])
+    return x + out
 
 
 def decode_step(
@@ -234,24 +342,33 @@ def decode_step(
     """One decode step: tokens [B,1] -> (logits [B,V], cache).
 
     ``pos`` is the number of tokens already cached: a scalar or a [B]
-    vector. ``page_table`` ([B, NP] i32, -1 = unallocated) switches to the
-    paged pool of :func:`init_paged_cache`. The cache is updated in place
-    and returned.
+    vector (the SSM recurrence ignores it). ``page_table`` ([B, NP] i32,
+    -1 = unallocated) switches the dense family to the paged pool of
+    :func:`init_paged_cache`. The cache is updated in place and returned.
     """
-    _require_dense(cfg)
+    _require(cfg, SERVING_FAMILIES, "decode")
+    if page_table is not None and cfg.family != "dense":
+        raise NotImplementedError(
+            f"paged decode: unsupported family {cfg.family!r}")
     x = embed_tokens(params, cfg, tokens)
     blocks = cache["blocks"]
-    for i in range(cfg.num_layers):
-        p = layer(params["blocks"], i)
-        c = layer(blocks, i)
-        h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-        if page_table is not None:
-            a, _ = L.gqa_paged_decode(h, p["attn"], cfg, c, page_table, pos)
-        else:
-            a, _ = L.gqa_decode(h, p["attn"], cfg, c, pos, c["k"].shape[1])
-        x = x + a
-        h = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-        x = x + L.mlp(h, p["mlp"])
+    if cfg.family == "dense":
+        for i in range(cfg.num_layers):
+            x = _attn_block_decode(x, layer(params["blocks"], i), cfg,
+                                   layer(blocks, i), pos, page_table)
+    elif cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            x = _ssm_block_decode(x, layer(params["blocks"], i), cfg,
+                                  layer(blocks, i))
+    else:
+        shared = params["shared_attn"]
+        for gi in range(_groups(cfg)):
+            x = _attn_block_decode(x, shared, cfg,
+                                   layer(cache["shared_attn"], gi), pos)
+            group, group_cache = layer(params["blocks"], gi), layer(blocks, gi)
+            for e in range(cfg.hybrid_attn_every):
+                x = _ssm_block_decode(x, layer(group, e), cfg,
+                                      layer(group_cache, e))
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, cfg, x)[:, 0], cache
 

@@ -10,13 +10,16 @@ tree come
 * ``from_jax`` — the JAX package's parameters, or a whole JAX train state
   ``{"params", "opt": {"step", "m", "v"}, "step"}`` (numpy arrays in the
   same tree), carried over as tensors: how the tests compare the two
-  packages, and how both take the same train step from one state.
+  packages, and how both take the same train step from one state. Any
+  nesting carries over, the hybrid family's ``[groups, every, ...]`` SSM
+  stacks and its unstacked ``shared_attn`` block included.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -26,7 +29,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | ssm_a | ssm_dt | conv
     scale: float = 1.0  # stddev for "normal"
 
 
@@ -52,10 +55,21 @@ def _path_seed(seed: int, path: tuple) -> int:
     return int.from_bytes(hashlib.md5(key.encode()).digest()[:8], "little") >> 1
 
 
+def _uniform(spec: ParamSpec, g: torch.Generator, device, lo: float,
+             hi: float) -> torch.Tensor:
+    out = torch.empty(spec.shape, dtype=torch.float32, device=device)
+    return out.uniform_(lo, hi, generator=g)
+
+
 def materialize(
     specs: Any, seed: int, dtype: torch.dtype, device: torch.device | str
 ) -> Any:
-    """Initialized parameters, drawn directly on ``device`` in ``dtype``."""
+    """Initialized parameters, drawn directly on ``device`` in ``dtype``.
+
+    The SSM kinds follow ``repro.models.params``, drawn in f32 and cast:
+    ``ssm_a`` is log U[1, 16] (so A = -exp(a_log) lies in [-16, -1]),
+    ``ssm_dt`` the inverse softplus of a log-uniform dt in [1e-3, 0.1],
+    ``conv`` U[-fan^-1/2, fan^-1/2] with fan the last dim."""
 
     def leaf(path, spec: ParamSpec) -> torch.Tensor:
         out = torch.empty(spec.shape, dtype=dtype, device=device)
@@ -64,6 +78,17 @@ def materialize(
         if spec.init == "ones":
             return out.fill_(1.0)
         g = torch.Generator(device=device).manual_seed(_path_seed(seed, path))
+        if spec.init == "ssm_a":
+            return out.copy_(_uniform(spec, g, device, 1.0, 16.0).log_())
+        if spec.init == "ssm_dt":
+            lo, hi = math.log(1e-3), math.log(0.1)
+            dt = _uniform(spec, g, device, lo, hi).exp_()
+            return out.copy_(torch.log(torch.expm1(dt)))
+        if spec.init == "conv":
+            bound = spec.shape[-1] ** -0.5
+            return out.copy_(_uniform(spec, g, device, -bound, bound))
+        if spec.init != "normal":
+            raise ValueError(f"unknown init {spec.init!r} at {path}")
         return out.normal_(0.0, spec.scale, generator=g)
 
     return tree_map(leaf, specs)

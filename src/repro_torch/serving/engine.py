@@ -4,8 +4,9 @@ The PyTorch counterpart of ``repro.serving.engine`` (see its module doc): a
 fixed batch of ``slots`` that requests flow through —
 
 * **admission**: a queued request takes a free slot; its prompt is
-  prefilled at batch 1, right-padded to a length bucket, and the cache is
-  written into the slot's row (dense) or the slot's pages (paged);
+  prefilled at batch 1 (right-padded to a length bucket where the family
+  allows it, at its exact length otherwise), and the cache is written into
+  the slot's row (dense) or the slot's pages (paged);
 * **decode**: ONE fused step advances every occupied slot by one token at
   its own depth, retains the outcome summary, and lets the
   :class:`~repro_torch.serving.recorder.OutcomeRecorder` score and record
@@ -87,15 +88,22 @@ class EngineState:
     page_table: Optional[torch.Tensor] = None  # [S, NP] i32 (paged mode)
 
 
+def _cache_batch_axis(cfg: ModelConfig, key: str) -> int:
+    # the hybrid stacks its SSM blocks [groups, every, batch, ...];
+    # everything else is [layers, batch, ...]
+    return 2 if (cfg.family == "hybrid" and key == "blocks") else 1
+
+
 def insert_cache_slot(
     cfg: ModelConfig, cache: dict, new: dict, slot: int
 ) -> dict:
-    """Write a batch-1 prefill cache [L, 1, T, ...] into row ``slot`` of
-    the batch cache [L, S, T, ...], in place."""
-    del cfg
+    """Write a batch-1 prefill cache into row ``slot`` of the batch cache
+    (the batch dim is 1 for [L, B, ...] leaves and 2 for the hybrid's
+    [groups, every, B, ...] SSM stack), in place."""
     for key, sub in cache.items():
+        ax = _cache_batch_axis(cfg, key)
         for name, c in sub.items():
-            c[:, slot] = new[key][name][:, 0]
+            c.select(ax, slot).copy_(new[key][name].select(ax, 0))
     return cache
 
 
@@ -175,10 +183,12 @@ class Engine:
     """Continuous batching over a request queue (see module doc).
 
     The device is the one ``params`` live on; ``recorder`` must use the
-    same one. Prompts pad with token 0 up to the nearest length bucket
-    (powers of two from 8, then ``max_prompt``). On the card the warm fused
-    step runs with host syncs made errors; ``guarded_steps`` counts those
-    steps.
+    same one. On pad-safe families prompts pad with token 0 up to the
+    nearest length bucket (``prompt_buckets``, by default powers of two from
+    8, then ``max_prompt``); recurrent families and sliding windows prefill
+    at the exact prompt length and refuse buckets. On the card the warm
+    fused step runs with host syncs made errors; ``guarded_steps`` counts
+    those steps.
     """
 
     def __init__(
@@ -195,6 +205,7 @@ class Engine:
         temperature: float = 0.0,
         top_p: float = 1.0,
         sample_seed: int = 0,
+        prompt_buckets: Optional[tuple[int, ...]] = None,
     ):
         self.cfg = cfg
         self.params = params
@@ -233,13 +244,21 @@ class Engine:
         self._sample = make_slot_sampler(
             self.temperature, self.top_p, sample_seed
         )
-        self.prompt_buckets: Optional[tuple[int, ...]] = None
-        if pad_safe(cfg):
+        if prompt_buckets is None and pad_safe(cfg):
             b, buckets = 8, []
             while b < max_prompt:
                 buckets.append(b)
                 b *= 2
-            self.prompt_buckets = (*buckets, max_prompt)
+            prompt_buckets = (*buckets, max_prompt)
+        if prompt_buckets is not None and not pad_safe(cfg):
+            raise ValueError(
+                f"{cfg.family} family (or sliding-window attention) cannot "
+                "right-pad prompts (pads perturb recurrent state / rolling "
+                "caches); use exact-length prefill (prompt_buckets=None)"
+            )
+        self.prompt_buckets: Optional[tuple[int, ...]] = (
+            tuple(sorted(prompt_buckets)) if prompt_buckets else None
+        )
 
         self._id_next = 0
         self._queue: list[Request] = []

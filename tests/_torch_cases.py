@@ -108,3 +108,39 @@ class JaxDraws:
 
         return torch.from_numpy(np.array(
             jax.random.normal(self.key, (), dtype=jnp.float32)))
+
+
+def decode_case(b, hq, hkv, d, t, seed=0, lens=None):
+    """q [b,hq,d], K/V [b,t,hkv,d] f32 and a valid mask [b,t]: row i sees
+    its first ``lens[i]`` positions (random lengths in [1, t] by default;
+    a length of 0 masks the whole row)."""
+    rs = np.random.default_rng(seed)
+    q = rs.standard_normal((b, hq, d)).astype(np.float32)
+    k = rs.standard_normal((b, t, hkv, d)).astype(np.float32)
+    v = rs.standard_normal((b, t, hkv, d)).astype(np.float32)
+    if lens is None:
+        lens = rs.integers(1, t + 1, size=b)
+    valid = np.arange(t)[None, :] < np.asarray(lens)[:, None]
+    return q, k, v, valid
+
+
+def window_mask(pos, t, window):
+    """The rolling-slot mask of ``gqa_decode`` for per-row depths ``pos``:
+    slot j holds position pos - ((pos - j) mod t), kept if it is >= 0 and
+    inside the window."""
+    pos = np.asarray(pos)[:, None]
+    slot_pos = pos - np.mod(pos - np.arange(t)[None, :], t)
+    return (slot_pos >= 0) & (slot_pos > pos - window)
+
+
+def ssd_case(bsz, s, h, p, g, n, seed=0):
+    """x [bsz,s,h,p], dt [bsz,s,h] (softplus of a normal), a [h] (-exp of
+    a normal), B/C [bsz,s,g,n] (normal × 0.5), all f32: the draws of
+    ``test_ssd_kernel_matches_sequential_ref``, from numpy."""
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal((bsz, s, h, p)).astype(np.float32)
+    dt = np.logaddexp(rs.standard_normal((bsz, s, h)), 0).astype(np.float32)
+    a = (-np.exp(rs.standard_normal(h))).astype(np.float32)
+    b = (rs.standard_normal((bsz, s, g, n)) * 0.5).astype(np.float32)
+    c = (rs.standard_normal((bsz, s, g, n)) * 0.5).astype(np.float32)
+    return x, dt, a, b, c

@@ -1,0 +1,209 @@
+"""The port's dense-cache decode against the JAX package's.
+
+``ops.decode_attn``'s plain version against the Pallas ``decode_attn`` run
+in interpret mode (the contract of ``test_decode_attn_matches_ref``: f32
+within 2e-6, bf16 within 3e-2), and the dense-cache layer functions
+(``gqa_init_cache``, ``gqa_fill_cache``, ``gqa_decode``) against JAX's on
+the llama3-8b smoke config in float32 (outputs within 1e-5) with the bf16
+layout, the int8 layout (values and scales equal) and a rolling sliding
+window, for more decode steps than the cache holds.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_cases import decode_case
+from repro import configs as jconfigs
+from repro.kernels import decode_attn as DA_mod
+from repro.kernels import ref as jref
+from repro.models import layers as JL
+from repro.models import model as JM
+from repro.models.params import materialize as jmaterialize
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import from_jax
+
+torch.set_num_threads(1)
+
+DECODE_TOL = {"float32": 2e-6, "bfloat16": 3e-2}  # test_decode_attn_matches_ref
+LAYER_ATOL = 1e-5
+JCFG = dataclasses.replace(jconfigs.get_smoke("llama3-8b"),
+                           param_dtype="float32", compute_dtype="float32")
+
+
+def _both(arrays, dtype):
+    """The same values as jnp and torch arrays in ``dtype`` (bf16 rounds
+    f32 to nearest even in both)."""
+    jx = [jnp.asarray(a).astype(dtype) if a.dtype == np.float32
+          else jnp.asarray(a) for a in arrays]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype))
+          if a.dtype == np.float32 else torch.from_numpy(a) for a in arrays]
+    return jx, tx
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,d,t",
+    [(2, 8, 2, 64, 300), (1, 4, 4, 128, 128), (3, 16, 1, 64, 700),
+     (2, 4, 2, 32, 129)],
+)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attn_plain_matches_jax_interpret_kernel(b, hq, hkv, d, t,
+                                                        dtype):
+    (jq, jk, jv, jm), (tq, tk, tv, tm) = _both(decode_case(b, hq, hkv, d, t),
+                                               dtype)
+    want = DA_mod.decode_attn(jq, jk, jv, jm, bt=128, interpret=True)
+    got = ops.decode_attn(tq, tk, tv, tm)
+    assert got.dtype == tq.dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=DECODE_TOL[dtype])
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        np.asarray(jref.decode_attn_ref(jq, jk, jv, jm), np.float32),
+        atol=DECODE_TOL[dtype])
+
+
+def test_decode_attn_plain_single_valid_position():
+    q, k, v, _ = decode_case(1, 2, 1, 16, 64, seed=4)
+    valid = (np.arange(64) == 17)[None]
+    got = ops.decode_attn(*map(torch.from_numpy, (q, k, v, valid)))
+    np.testing.assert_allclose(got[0].numpy(), np.repeat(v[0, 17], 2, 0),
+                               atol=1e-5)
+
+
+def test_decode_attn_plain_all_masked_row_is_the_mean_of_v():
+    """A row with no valid position: every score is -1e30, so the weights
+    are uniform over all T (the Pallas kernel's answer at a T that needs no
+    padding), not 0 and not NaN."""
+    q, k, v, valid = decode_case(2, 4, 2, 32, 128, seed=5, lens=[0, 50])
+    got = ops.decode_attn(*map(torch.from_numpy, (q, k, v, valid)))
+    mean = np.repeat(v[0].mean(axis=0), 2, axis=0)  # [Hq, D]
+    np.testing.assert_allclose(got[0].numpy(), mean, atol=2e-6)
+    want = DA_mod.decode_attn(*map(jnp.asarray, (q, k, v, valid)), bt=128,
+                              interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
+
+
+def test_decode_attn_dispatch_follows_the_tensor_device():
+    case = [torch.from_numpy(a) for a in decode_case(1, 4, 2, 16, 8)]
+    before = dict(ops.LAUNCHES)
+    ops.decode_attn(*case)
+    assert ops.LAUNCHES == before
+    with pytest.raises(ValueError):
+        ops.decode_attn(*case, impl="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the dense-cache layer functions
+# ---------------------------------------------------------------------------
+
+LAYOUTS = {
+    "bf16": {},
+    "int8": {"kv_cache_dtype": "int8"},
+    "window": {"sliding_window": 4},
+}
+
+
+@pytest.fixture(scope="module")
+def attn_weights():
+    specs = JM.param_specs(JCFG)
+    jp = jax.jit(lambda k: jmaterialize(specs, k, jnp.float32))(
+        jax.random.key(2))
+    ja = jax.tree.map(lambda x: x[0], jp["blocks"]["attn"])
+    return ja, from_jax(jax.tree.map(np.asarray, ja), "cpu")
+
+
+def _assert_cache_equal(tc, jc, int8):
+    assert set(tc) == set(jc)
+    for name in tc:
+        got, want = tc[name].numpy(), np.asarray(jc[name])
+        if int8 and name in ("k", "v"):
+            assert got.dtype == np.int8
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        elif int8:
+            np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_allclose(got, want, atol=LAYER_ATOL,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("per_slot", [False, True])
+def test_dense_cache_decode_matches_jax(attn_weights, layout, per_slot):
+    """Prefill 6 tokens into a cache of max_seq 9 (4 rolling slots with the
+    window), then 8 decode steps, past the cache's capacity, with the whole
+    batch at one depth (scalar pos) or each row at its own (vector pos)."""
+    ja, ta = attn_weights
+    jcfg = dataclasses.replace(JCFG, **LAYOUTS[layout])
+    cfg = ModelConfig(**dataclasses.asdict(jcfg))
+    int8 = layout == "int8"
+    b, s, max_seq = 3, 6, 9
+    rs = np.random.default_rng(11)
+    x = rs.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    empty = L.gqa_init_cache(cfg, b, max_seq, torch.float32, "cpu")
+    jempty = JL.gqa_init_cache(jcfg, b, max_seq, jnp.float32)
+    _assert_cache_equal(empty, jempty, int8)
+    jo, jc = jax.jit(JL.gqa_fill_cache, static_argnums=(2, 4))(
+        jnp.asarray(x), ja, jcfg, jnp.arange(s), max_seq)
+    decode = jax.jit(JL.gqa_decode, static_argnums=(2, 5))
+    to, tc = L.gqa_fill_cache(torch.from_numpy(x), ta, cfg,
+                              torch.arange(s), max_seq)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=LAYER_ATOL)
+    _assert_cache_equal(tc, jc, int8)
+    pos = np.array([s, s - 2, s - 5] if per_slot else s, np.int64)
+    for step in range(8):
+        xt = rs.standard_normal((b, 1, cfg.d_model)).astype(np.float32)
+        jo, jc = decode(jnp.asarray(xt), ja, jcfg, jc,
+                        jnp.asarray(pos, jnp.int32), max_seq)
+        to, tc = L.gqa_decode(torch.from_numpy(xt), ta, cfg, tc,
+                              torch.from_numpy(pos), max_seq)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo),
+                                   atol=LAYER_ATOL, err_msg=f"step {step}")
+        _assert_cache_equal(tc, jc, int8)
+        pos = np.asarray(pos + 1)
+
+
+@pytest.mark.parametrize("layout", ["int8", "window"])
+def test_dense_model_decode_with_cache_layouts_matches_jax(layout):
+    """prefill + decode_step of the whole smoke model with the int8 or the
+    rolling-window cache: logits within 1e-4 (the model tests' bound) and
+    the cache sized by ``gqa_cache_len``."""
+    jcfg = dataclasses.replace(JCFG, **LAYOUTS[layout])
+    cfg = ModelConfig(**dataclasses.asdict(jcfg))
+    specs = JM.param_specs(jcfg)
+    jp = jax.jit(lambda k: jmaterialize(specs, k, jnp.float32))(
+        jax.random.key(0))
+    tp = from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 7),
+                                             dtype=np.int32)
+    jl, jc = jax.jit(JM.prefill, static_argnums=(1, 3))(
+        jp, jcfg, jnp.asarray(toks), 12)
+    decode = jax.jit(JM.decode_step, static_argnums=1)
+    tl, tc = M.prefill(tp, cfg, torch.from_numpy(toks), 12)
+    assert M.init_cache(cfg, 2, 12, "cpu")["blocks"]["k"].shape[2] == \
+        L.gqa_cache_len(cfg, 12)
+    pos = np.array([7, 7], np.int32)
+    for step in range(6):
+        nxt = np.array(jnp.argmax(jl, -1), np.int32)[:, None]
+        jl, jc = decode(jp, jcfg, jc, jnp.asarray(nxt), jnp.asarray(pos))
+        tl, tc = M.decode_step(tp, cfg, tc, torch.from_numpy(nxt),
+                               torch.from_numpy(pos))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                                   err_msg=f"step {step}")
+        pos = pos + 1
+
+
+@pytest.mark.parametrize("change", [{"kv_cache_dtype": "int8"},
+                                    {"sliding_window": 8}])
+def test_paged_cache_refuses_int8_and_windows(change):
+    cfg = dataclasses.replace(ModelConfig(**dataclasses.asdict(JCFG)),
+                              **change)
+    with pytest.raises(NotImplementedError):
+        M.init_paged_cache(cfg, 4, 4, "cpu")

@@ -11,12 +11,15 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
-from _torch_cases import ledger_batches, paged_case, topk_logits, xent_case
+from _torch_cases import (decode_case, ledger_batches, paged_case, ssd_case,
+                          topk_logits, window_mask, xent_case)
 from repro_torch.core.history import HistoryConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.models.ssm import ssd_chunked
 
 
 @pytest.fixture
@@ -181,3 +184,88 @@ def test_ledger_kernel_matches_plain_chained(cuda, batch, variant, half_life):
             torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
         assert out_k[4][-2] == cfg.unseen_priority  # evicted in its batch
         st_k, st_r = out_k[:4], out_r[:4]
+
+
+# decode_attn at the serving shapes (llama3-8b's dense cache, zamba2's shared
+# block: D = 80, G = 1) and the JAX test's shapes, T no multiple of the tile
+DECODE_CASES = [(8, 32, 8, 128, 160), (8, 32, 32, 80, 332),
+                (2, 8, 2, 64, 300), (3, 8, 1, 64, 700), (2, 4, 2, 32, 129)]
+# test_decode_attn_matches_ref's tolerances: f32 summation order only; bf16
+# inputs rounded once, weights kept in f32 by both versions
+DECODE_TOL = {torch.float32: 2e-6, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_kernel_matches_plain(cuda, shape, dtype):
+    """Random row lengths, with row 0 masked whole (the mean of V) and
+    row 1 seeing one position."""
+    b, hq, hkv, d, t = shape
+    lens = np.random.default_rng(t).integers(1, t + 1, size=b)
+    lens[0], lens[1] = 0, 1
+    q, k, v, valid = (torch.from_numpy(a).to(cuda)
+                      for a in decode_case(b, hq, hkv, d, t, lens=lens))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    got = ops.decode_attn(q, k, v, valid, impl="cuda")
+    assert got.dtype == dtype
+    want = ref.decode_attn_ref(q.float(), k.float(), v.float(), valid)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+    mean = v[0].float().mean(dim=0).repeat_interleave(hq // hkv, dim=0)
+    torch.testing.assert_close(got[0].float(), mean, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+def test_decode_attn_kernel_refuses_groups_past_its_limit(cuda):
+    """The JAX test's G = 16 case is past the kernel's G <= 8: the wrapper
+    raises instead of launching."""
+    q, k, v, valid = (torch.from_numpy(a).to(cuda)
+                      for a in decode_case(1, 16, 1, 64, 40))
+    with pytest.raises(ValueError, match="G <= 8"):
+        ops.decode_attn(q, k, v, valid, impl="cuda")
+
+
+@pytest.mark.gpu
+def test_decode_attn_kernel_matches_plain_with_rolling_window(cuda):
+    """The mask of a rolling 64-slot window at depths past the cache."""
+    b, hq, hkv, d, t = 4, 8, 2, 64, 64
+    q, k, v, _ = decode_case(b, hq, hkv, d, t, seed=9)
+    valid = window_mask([3, 63, 64, 200], t, 48)
+    q, k, v, valid = (torch.from_numpy(a).to(cuda) for a in (q, k, v, valid))
+    got = ops.decode_attn(q, k, v, valid, impl="cuda")
+    torch.testing.assert_close(got, ref.decode_attn_ref(q, k, v, valid),
+                               rtol=0, atol=DECODE_TOL[torch.float32])
+
+
+# the JAX test's shapes (S no multiple of the chunk, G = 2) and the serving
+# prefills of zamba2 (H 80, N 64) and mamba2 (H 32, N 128) at 300 tokens
+SSD_CASES = [(2, 64, 4, 16, 1, 32, 16, torch.float32),
+             (1, 96, 2, 32, 2, 16, 32, torch.float32),
+             (2, 50, 4, 16, 1, 16, 16, torch.float32),
+             (1, 300, 80, 64, 1, 64, 128, torch.float32),
+             (1, 300, 32, 64, 1, 128, 128, torch.bfloat16)]
+SSD_TOL = dict(atol=3e-4, rtol=1e-3)  # test_ssd_kernel_matches_sequential_ref
+# bf16 y: both versions compute in f32 from the same bf16 inputs and round
+# once, so an entry may differ by one bf16 unit in the last place
+SSD_BF16_RTOL, SSD_BF16_ATOL = 2**-7, 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz,s,h,p,g,n,chunk,dtype", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, bsz, s, h, p, g, n, chunk, dtype):
+    x, dt, a, b, c = (torch.from_numpy(t).to(cuda)
+                      for t in ssd_case(bsz, s, h, p, g, n, seed=s))
+    x, b, c = x.to(dtype), b.to(dtype), c.to(dtype)
+    y, st = ops.ssd_scan(x, dt, a, b, c, chunk=chunk, impl="cuda")
+    assert y.dtype == dtype and st.dtype == torch.float32
+    cy, cst = ssd_chunked(x, dt, a, b, c, chunk=min(chunk, s))
+    torch.testing.assert_close(st, cst, **SSD_TOL)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, cy, **SSD_TOL)
+        ry, rst = ref.ssd_ref(x, dt, a, b, c)
+        torch.testing.assert_close(y, ry, **SSD_TOL)
+        torch.testing.assert_close(st, rst, **SSD_TOL)
+    else:
+        torch.testing.assert_close(y.float(), cy.float(), rtol=SSD_BF16_RTOL,
+                                   atol=SSD_BF16_ATOL)
