@@ -15,9 +15,13 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    least time the card could take (bytes over 3.35 TB/s, operations over
    the published peak): top-k + lse, paged decode attention, dense-cache
    decode attention (zamba2's D = 80, G = 1 and llama3-8b's shapes, an
-   all-masked row, a rolling window, f32), the SSD scan (zamba2's and
-   mamba2's 300-token prefills, a long case, the JAX test's odd shapes in
-   f32, against the chunked scan and the sequential oracle);
+   all-masked row, a rolling window, f32 (also D = 256), the JAX test's
+   G = 16 and a granite-34b-like G = 48 with a row valid in one span only,
+   contexts of 50 to 2048 in a 2048-slot cache; also timed
+   with a cold L2 and as device time alone), the SSD scan (zamba2's and
+   mamba2's 300-token prefills, a long case, one chunk, an exact multiple
+   of the chunk, N = 256, the JAX test's odd shapes in f32, against the
+   chunked scan and the sequential oracle; each grid's device time);
 4. serve — ``repro_torch.launch.serve.main`` at the full width of
    llama3-8b (32 layers, bf16, random weights from a seed): 8 slots, 16
    requests, prompt 128, 32 new tokens, paged KV (16-token pages), top-k
@@ -330,14 +334,102 @@ def decode_check(torch, ops, ref, q, k, v, valid) -> float:
 # up to 32 new tokens) in a 332-slot cache; the dense-cache llama3-8b phase's
 # at 81-160 in a 160-slot one (SERVE_POS: every row in the top half)
 HYBRID_POS = tuple(300 + 31 - 4 * i for i in range(8))
+# rows of a 2048-slot cache at contexts spread from 50 to 2048: the cache is
+# sized for the longest request, the rows hold prompts of every length
+MIXED_POS = tuple(49 + (2047 - 49) * i // 7 for i in range(8))
+
+
+def time_ms_cold(fn, copies, iters: int = 20, warmup: int = 2) -> float:
+    """As ``time_ms``, but each batch is one pass of ``fn`` over ``copies``
+    (argument tuples whose bytes together exceed the 50 MB L2): every call
+    finds its inputs out of L2, as a layer of the serve step finds its own
+    cache; host launch costs count as in ``time_ms``."""
+    import torch
+
+    for _ in range(warmup):
+        for c in copies:
+            fn(*c)
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for c in copies:
+            fn(*c)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / len(copies))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def time_ms_graph(fn, copies, iters: int = 20) -> float:
+    """Device time per call: one call of ``fn`` on each argument tuple of
+    ``copies`` captured in a CUDA graph, the graph replayed ``iters`` times
+    (median, CUDA events), so no host launch cost sits between the calls.
+    With copies whose bytes together exceed the 50 MB L2, every call finds
+    its inputs out of L2, as a layer of the serve step finds its own
+    cache; with one tuple repeated, they stay in L2."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up: build, opt in, scratch
+        for c in copies:
+            fn(*c)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in copies:
+            fn(*c)
+    graph.replay()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / len(copies))
+    del graph
+    times.sort()
+    return times[len(times) // 2]
+
+
+def kernel_ms(torch, fn, n: int = 10) -> dict:
+    """Device ms per call of ``fn`` by kernel name (torch.profiler over
+    ``n`` calls after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0.0)
+            out[e.key] = us / 1e3 / n
+    return out
+
+
+COLD_BYTES = 128 << 20  # input copies a cold timing rotates through
 
 
 def decode_attn_phase(torch, ops, ref) -> dict:
     """The dense-cache kernel at zamba2's shared-block shape (G = 1, D = 80,
     T = 332) and llama3-8b's dense-cache shape (G = 4, D = 128, T = 160) in
-    bf16, an all-masked and a one-position row, f32 cases, and a rolling
-    window; timed at both serving shapes."""
+    bf16, an all-masked and a one-position row, f32 cases, a rolling
+    window, the JAX test's G = 16 and a granite-34b-like G = 48, a row whose
+    valid positions lie in one span and T no multiple of the span; timed
+    at both serving shapes, warm (inputs in L2) and cold."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import dense_split_plan
 
     g = torch.Generator(device="cuda").manual_seed(2)
     zamba = decode_inputs(torch, g, 8, 32, 32, 80, 332, torch.bfloat16)
@@ -356,25 +448,85 @@ def decode_attn_phase(torch, ops, ref) -> dict:
             ((2, 8, 2, 64, 300), depth_mask(torch, (299, 40), 300)),
             ((8, 32, 32, 80, 332), window_mask(
                 torch, (10, 331, 332, 500, 700, 1000, 0, 400), 332, 256)),
-            ((4, 32, 8, 128, 129), depth_mask(torch, (-1, 0, 64, 128), 129))):
+            ((4, 32, 8, 128, 129), depth_mask(torch, (-1, 0, 64, 128), 129)),
+            # D = 256 with a group of 16: the largest block the plan makes
+            ((2, 16, 1, 256, 300), depth_mask(torch, (299, 40), 300))):
         case = decode_inputs(torch, g, *shape, torch.float32)
         err32 = max(err32, decode_check(torch, ops, ref, *case, mask))
+    # mixed prompt lengths in a long cache: spans of several tiles, the
+    # empty ones not read
+    mixed = decode_inputs(torch, g, 8, 32, 8, 128, 2048, torch.bfloat16)
+    err = max(err, decode_check(torch, ops, ref, *mixed,
+                                depth_mask(torch, MIXED_POS, 2048)))
+    del mixed
+    # wide groups: the JAX test's G = 16 (T = 700, no multiple of its span)
+    # and 48 query heads on one kv head (three head slices); row 1 valid in
+    # one span only, row 2 at both ends with empty spans between
+    wide = []
+    for shape in ((3, 16, 1, 64, 700), (8, 48, 1, 128, 512)):
+        b_, hq_, hkv_, d_, t_ = shape
+        _, _, nsplit, span, _ = dense_split_plan(b_, hq_, hkv_, t_, d_, 2)
+        mask = depth_mask(torch, tuple(range(t_ - 1, -1, -(t_ // b_)))[:b_],
+                          t_)
+        mask[0] = False
+        mask[1] = False
+        mask[1, span + 2:span + 9] = True
+        mask[2] = False
+        mask[2, :3] = True
+        mask[2, t_ - 3:] = True
+        for dtype in (torch.bfloat16, torch.float32):
+            case = decode_inputs(torch, g, *shape, dtype)
+            e = decode_check(torch, ops, ref, *case, mask)
+            if dtype == torch.float32:
+                err32 = max(err32, e)
+            else:
+                err = max(err, e)
+        wide.append(f"B={b_} Hq={hq_} Hkv={hkv_} T={t_}: {nsplit} spans of "
+                    f"{span}")
 
     def timed(q, k, v, valid):
         b, hq, d = q.shape
-        hkv = k.shape[2]
+        hkv, t = k.shape[2], k.shape[1]
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
         ntok = int(valid.sum().item())  # attended positions, all rows
         moved = (2 * ntok * hkv * d * k.element_size()
                  + 2 * q.numel() * q.element_size() + valid.numel())
-        return dict(
-            ms=time_ms(lambda: ops.decode_attn(q, k, v, valid, impl="cuda")),
-            plain_ms=time_ms(lambda: ref.decode_attn_ref(q, k, v, valid)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+
+        def kernel(q, k, v, valid):
+            return ops.decode_attn(q, k, v, valid, impl="cuda")
+
+        def library(q, kt, vt, valid):
+            return F.scaled_dot_product_attention(
                 q[:, :, None], kt, vt, attn_mask=valid[:, None, None],
-                enable_gqa=True)),
+                enable_gqa=True)
+
+        n = -(-COLD_BYTES // (2 * k.numel() * k.element_size()))
+        copies = [tuple(x.clone() for x in (q, k, v, valid))
+                  for _ in range(n)]
+        lib_copies = [(q_, k_.transpose(1, 2), v_.transpose(1, 2), m_)
+                      for q_, k_, v_, m_ in copies]
+        out = dict(
+            ms=time_ms(lambda: kernel(q, k, v, valid)),
+            plain_ms=time_ms(lambda: ref.decode_attn_ref(q, k, v, valid)),
+            library_ms=time_ms(lambda: library(q, kt, vt, valid)),
+            cold_ms=time_ms_cold(kernel, copies),
+            cold_library_ms=time_ms_cold(library, lib_copies),
+            dev_ms=time_ms_graph(kernel, [(q, k, v, valid)] * 10),
+            dev_library_ms=time_ms_graph(library, [(q, kt, vt, valid)] * 10),
+            dev_cold_ms=time_ms_graph(kernel, copies),
+            dev_cold_library_ms=time_ms_graph(library, lib_copies),
             bound=bound(moved, 4.0 * ntok * hq * d, "bf16"),
+            plan=dense_split_plan(b, hq, hkv, t, d, k.element_size()),
         )
+        del copies, lib_copies
+        return out
+
+    def more_times(r):
+        return (f"cold L2 {r['cold_ms']:.4f} ms, library cold "
+                f"{r['cold_library_ms']:.4f}; device time alone (CUDA graph "
+                f"replay) warm {r['dev_ms']:.4f}, cold {r['dev_cold_ms']:.4f}, "
+                f"library warm {r['dev_library_ms']:.4f}, cold "
+                f"{r['dev_cold_library_ms']:.4f}")
 
     z, lt = timed(*zamba, zmask), timed(*llama, lmask)
     return dict(
@@ -387,11 +539,17 @@ def decode_attn_phase(torch, ops, ref) -> dict:
         tol=f"{DECODE_TOL['torch.bfloat16']} bf16, "
             f"{DECODE_TOL['torch.float32']} f32",
         shape=(f"B=8 Hq=32 Hkv=32 D=80 T=332 ctx {min(HYBRID_POS) + 1}-"
-               f"{max(HYBRID_POS) + 1} bf16; at llama3-8b's B=8 Hq=32 Hkv=8 "
-               f"D=128 T=160: {lt['ms']:.4f} ms, plain {lt['plain_ms']:.4f}, "
-               f"library {lt['library_ms']:.4f}, bound {lt['bound'][0]:.5f}; "
-               f"checked also with an all-masked row, one valid position, a "
-               f"rolling window and in f32 (err {err32:.3g})"),
+               f"{max(HYBRID_POS) + 1} bf16, {z['plan'][2]} spans of "
+               f"{z['plan'][3]}; {more_times(z)}; at llama3-8b's B=8 Hq=32 "
+               f"Hkv=8 D=128 T=160 ({lt['plan'][2]} spans of "
+               f"{lt['plan'][3]}): {lt['ms']:.4f} ms, plain "
+               f"{lt['plain_ms']:.4f}, library {lt['library_ms']:.4f}, bound "
+               f"{lt['bound'][0]:.5f}, {more_times(lt)}; one grid per call, "
+               f"spans merged in a thread-block cluster; checked also with "
+               f"an all-masked row, one valid position, a rolling window, "
+               f"{'; '.join(wide)} (a row valid in one span, empty spans "
+               f"between valid ones), contexts 50-2048 of T=2048, and in f32 "
+               f"(also D=256, G=16; err {err32:.3g})"),
     )
 
 
@@ -441,22 +599,44 @@ def ssd_check(torch, ops, ref, case, chunk) -> tuple[float, float, float]:
     return ey, es, used
 
 
-def ssd_flops(bsz, s, h, p, n, chunk) -> float:
-    """f32 operations of the chunk scan: per head and chunk of Lc steps,
-    the scores and their product with x on and below the diagonal,
-    (N + P) Lc (Lc + 1), and the inter-chunk output and the state update,
-    4 N P Lc."""
+def ssd_flops(bsz, s, h, p, n, chunk, part="all") -> float:
+    """Operations of the chunk scan: per head and chunk of Lc steps, the
+    scores on and below the diagonal, n Lc (Lc + 1) ("scores", C . B^T),
+    their product with x, p Lc (Lc + 1), and the inter-chunk output and
+    the state update, 4 n p Lc ("rest" is all but the scores)."""
     total = 0.0
     for c0 in range(0, s, chunk):
         lc = min(chunk, s - c0)
-        total += (n + p) * lc * (lc + 1) + 4 * n * p * lc
+        sc = n * lc * (lc + 1)
+        rest = p * lc * (lc + 1) + 4 * n * p * lc
+        total += {"all": sc + rest, "scores": sc, "rest": rest}[part]
     return bsz * h * total
+
+
+def ssd_bounds(bsz, s, h, p, gr, n, dtype) -> dict:
+    """Least times of one call, each against the input and output bytes at
+    3.35 TB/s: "design", the kernel's bound, at the rate of the units it
+    uses: in bf16 every product on the tensor cores at 989 TFLOP/s, the
+    three with an f32 operand (all but the scores) counted twice for their
+    hi and lo halves, the fastest rate that keeps them near f32; "f32",
+    every operation at the CUDA cores' 67 TFLOP/s, the bound the first,
+    CUDA-core design of the kernel was read against."""
+    isz = dtype.itemsize
+    moved = (2 * bsz * s * h * p * isz + 2 * bsz * s * gr * n * isz
+             + bsz * s * h * 4 + h * 4 + bsz * h * p * n * 4)
+    sc = ssd_flops(bsz, s, h, p, n, 128, "scores")
+    rest = ssd_flops(bsz, s, h, p, n, 128, "rest")
+    design = ((sc + 2 * rest, "bf16") if isz == 2 else (sc + rest, "f32"))
+    return {"f32": bound(moved, sc + rest, "f32"),
+            "design": bound(moved, *design)}
 
 
 def ssd_phase(torch, ops, ref) -> dict:
     """The scan at zamba2's and mamba2's 300-token prefills (three chunks,
-    the last one short) and a long case in bf16, and the JAX test's odd
-    shapes in f32; timed at zamba2's prefill, the hybrid serve's call."""
+    the last one short), a long case, one chunk (a 100-token prompt), an
+    exact multiple of the chunk and N = 256 in bf16, and the JAX test's odd
+    shapes in f32; timed at the prefills and the long case."""
+    from repro_torch.kernels import ssd as SSD
     from repro_torch.models.ssm import ssd_chunked
 
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -469,40 +649,61 @@ def ssd_phase(torch, ops, ref) -> dict:
     for case in cases.values():
         a, b, u = ssd_check(torch, ops, ref, case, 128)
         ey, es, used = max(ey, a), max(es, b), max(used, u)
+    for shape in ((1, 100, 80, 64, 1, 64, bf), (1, 256, 32, 64, 1, 128, bf),
+                  (1, 300, 8, 64, 1, 256, bf)):
+        a, b, u = ssd_check(torch, ops, ref, ssd_inputs(torch, g, *shape),
+                            128)
+        ey, es, used = max(ey, a), max(es, b), max(used, u)
     ey32 = 0.0
     for shape, chunk in (((2, 50, 4, 16, 2, 16), 16),
                          ((2, 64, 4, 16, 1, 32), 16),
-                         ((1, 96, 2, 32, 2, 16), 32)):
+                         ((1, 96, 2, 32, 2, 16), 32),
+                         ((1, 100, 8, 64, 1, 64), 128)):
         a, b, _ = ssd_check(torch, ops, ref, ssd_inputs(
             torch, g, *shape, torch.float32), chunk)
         ey32, es = max(ey32, a), max(es, b)
     times = {k: time_ms(lambda c=c: ops.ssd_scan(*c, chunk=128, impl="cuda"))
              for k, c in cases.items()}
-
-    def bound_of(bsz, s, h, p, gr, n, dtype):
-        isz = 2 if dtype == bf else 4
-        moved = (2 * bsz * s * h * p * isz + 2 * bsz * s * gr * n * isz
-                 + bsz * s * h * 4 + h * 4 + bsz * h * p * n * 4)
-        return bound(moved, ssd_flops(bsz, s, h, p, n, 128), "f32")
-
-    bnd = {k: bound_of(*v) for k, v in shapes.items()}
+    grids = {}  # device ms of each of the call's two grids
+    for k, c in cases.items():
+        per = kernel_ms(torch, lambda c=c: ops.ssd_scan(*c, chunk=128,
+                                                        impl="cuda"))
+        grids[k] = tuple(sum(v for n, v in per.items() if key in n)
+                         for key in ("ssd_scan_state", "ssd_scan_out"))
+    bnd = {k: ssd_bounds(*v) for k, v in shapes.items()}
+    smem = {k: SSD.smem_bytes(128, v[3], v[5], 2) for k, v in shapes.items()}
     z = cases["zamba2"]
+
+    def others(k):
+        b = bnd[k]
+        return (f"{times[k]:.4f} ms, bound {b['design'][0]:.5f} "
+                f"({b['design'][1]} at the design's units), "
+                f"{b['f32'][0]:.5f} ({b['f32'][1]} at the f32 rate)")
+
+    split = ", ".join(f"{k} {a:.4f} + {b:.4f}" for k, (a, b) in grids.items())
+
     return dict(
         name="ssd", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
         replaces="src/repro/kernels/ssd.py:89", max_abs_err=max(ey, ey32),
         ms=times["zamba2"],
         plain_ms=time_ms(lambda: ssd_chunked(*z, chunk=128)),
-        bound_ms=bnd["zamba2"][0], bound_by=bnd["zamba2"][1],
-        library_ms=None,
+        bound_ms=bnd["zamba2"]["design"][0],
+        bound_by=bnd["zamba2"]["design"][1],
+        bound_f32_ms=bnd["zamba2"]["f32"][0], library_ms=None,
         tol=(f"y bf16 {SSD_BF16_ATOL} + 2^-7·|plain|, f32 {SSD_ATOL} + "
              f"{SSD_RTOL}·|plain|; state {SSD_ATOL} + {SSD_RTOL}·|plain|"),
-        shape=(f"x [1,300,80,64] G=1 N=64 chunk 128 bf16 (zamba2 prefill); "
-               f"mamba2 [1,300,32,64] N=128: {times['mamba2']:.4f} ms, bound "
-               f"{bnd['mamba2'][0]:.5f}; long [4,2048,80,64] N=64: "
-               f"{times['long']:.4f} ms, bound {bnd['long'][0]:.5f}; max "
-               f"err y bf16 {ey:.3g} (at most {used:.2f} of an entry's "
-               f"tolerance), y f32 {ey32:.3g}, state {es:.3g}; no single "
-               f"PyTorch call computes the scan"),
+        shape=(f"x [1,300,80,64] G=1 N=64 chunk 128 bf16 (zamba2 prefill), "
+               f"bound at the design's units; at the CUDA cores' f32 rate "
+               f"{bnd['zamba2']['f32'][0]:.5f} ({bnd['zamba2']['f32'][1]}); "
+               f"mamba2 [1,300,32,64] N=128: {others('mamba2')}; long "
+               f"[4,2048,80,64] N=64: {others('long')}; two grids per call, "
+               f"device ms of the state grid + the output grid "
+               f"(torch.profiler): {split}; "
+               f"shared memory per block {smem['zamba2']} B (zamba2), "
+               f"{smem['mamba2']} B (mamba2); checked also at S=100 (one "
+               f"chunk), S=256 and N=256; max err y bf16 {ey:.3g} (at most "
+               f"{used:.2f} of an entry's tolerance), y f32 {ey32:.3g}, "
+               f"state {es:.3g}; no single PyTorch call computes the scan"),
     )
 
 
@@ -1388,7 +1589,10 @@ def main() -> int:
     print(f"train profile: {train_profile_phase(torch)}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
+    extra = ("bound_f32_ms",)  # ssd: its bound at the CUDA cores' f32 rate
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + extra if k in keys or k in r}
+        for r in kernels]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,8 +41,14 @@ SIGNATURES = {
     "paged_decode_attn": [
         _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ],
-    "decode_attn": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "ssd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "decode_attn": [
+        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+        _I, _P,
+    ],
+    "ssd": [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _P,
+    ],
     "xent_fwd": [_I, _P, _P, _I, _I, _I, _P, _P, _P],
     "xent_bwd": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "ledger_record_priority": [

@@ -1,5 +1,5 @@
 // Single-token GQA decode attention against a dense KV cache with a validity
-// mask, hand-written for Hopper (sm_90a).
+// mask, hand-written for Hopper (sm_90a): flash-decoding, any group size.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/decode_attn.py::decode_attn (_decode_kernel):
@@ -15,43 +15,87 @@
 // about 5.2 MB, 1.6 us); the arithmetic is 4 * Hq * D flops per position,
 // two orders of magnitude under the bf16 rate.
 //
-// Design: the TPU grid (B, Hkv, T / bt) carries the online-softmax state
-// across its sequential T axis in VMEM scratch. Here one block owns one
-// (row, kv head) and turns the T axis into a loop over tiles of kTile
-// positions, staged in shared memory as f32 (K rows padded by one float).
-// It scores the G = Hq / Hkv query heads of the group together: each score
-// is split over 8 lanes that each sum every eighth element of D and meet
-// by warp shuffles, so all 128 threads work at G = 1 and any D (zamba2's
-// 80 is no multiple of 32). The f32 running (max, sum) of each query head
-// lives in shared memory, its accumulator in registers. The block first
-// asks whether its row has any valid position; if it has, tiles with none
-// are skipped (their weights are exactly 0, so the result is unchanged),
-// otherwise every tile is read and weighted alike. T needs no padding.
-// Blocks per call are B * Hkv (256 at zamba2's shape, 64 at llama3-8b's):
-// splitting long caches across blocks is the next step.
+// Design: the TPU grid (B, Hkv, T / bt) carries the online softmax across
+// its sequential T axis in VMEM scratch. Here the T axis of one (row, kv
+// head) is cut into `nsplit` spans, one block each, and a group of more
+// than kGroupMax = 16 query heads into slices, one block each: a block is
+// one (row, kv head, head slice, span). A decode call is short, so what
+// costs time is the chain of round trips to memory inside a block, not the
+// arithmetic: a block first issues 16-byte cp.async copies of every K and
+// V row of its first tile (up to 128 positions, the wrapper sizes the tile
+// to about 36 KB of shared memory; rows padded by 16 bytes so that the
+// 16-byte reads of eight lanes hit distinct banks; a row whose bytes are
+// no multiple of 16, or an unaligned pointer, takes a scalar copy into the
+// same layout), reads q while they fly, and then scores the whole tile at
+// once: one thread (or up to 8 lanes meeting by shuffles) per (head,
+// position) score, one warp per head for the softmax, and a P.V product
+// in which each thread owns fixed (head, 16-byte column chunk) outputs and,
+// where there are fewer outputs than threads, a share of the positions
+// (the shares are added in shared memory at the end); accumulators live in
+// registers, at most 32 floats a thread. At the serving shapes a span is
+// one tile; a longer span walks its tiles with the online softmax. A
+// masked score is -1e30, so a tile with no valid position adds weight
+// exp(-1e30 - M) = 0 when its row has a valid position elsewhere: such a
+// tile is not read at all (the block checks the tile's mask bytes, read
+// with q, before it issues the copies; a row that a short prompt leaves
+// mostly empty reads only its valid tiles), and an all-masked row reads
+// and averages V over all T. With nsplit = 1 the block writes the output
+// itself.
+// Otherwise the spans of one (row, kv head, slice), at most kMaxSplit = 8
+// (Hopper's portable cluster size), run as one thread-block cluster: each
+// leaves its partial (max, sum, unnormalised accumulator, f32) in shared
+// memory and, after a cluster barrier, merges a slice of the output
+// (weights exp(m_i - M)) reading the others' partials through distributed
+// shared memory: no scratch, no fence, no atomics, one launch per call (no
+// second grid on a host-bound decode step). A longer cache walks more
+// tiles a span.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxG = 8;    // query heads per kv head
-constexpr int kMaxD = 256;  // head dim
-constexpr int kDPT = kMaxD / kThreads;
-constexpr int kTile = 16;   // positions staged per loop step
-constexpr int kSplit = 8;   // lanes that share one score
+constexpr int kWarps = kThreads / 32;
+constexpr int kGroupMax = 16;  // query heads per block
+constexpr int kMaxD = 256;     // head dim
+constexpr int kMaxTile = 128;  // positions staged at once
+constexpr int kMaxSplit = 8;   // spans per (row, kv head): one cluster
+constexpr int kAcc = 32;       // accumulator floats per thread
 constexpr float kMasked = -1e30f;
 
-constexpr size_t smem_bytes(int G, int D) {
-  return sizeof(float) * ((size_t)G * D + (size_t)kTile * (2 * D + 1) +
-                          (size_t)G * kTile + 3 * (size_t)G);
-}
-static_assert(smem_bytes(kMaxG, kMaxD) <= 48 * 1024,
-              "the largest (G, D) must fit the default shared memory");
-static_assert(kThreads % kSplit == 0 && 32 % kSplit == 0, "lane groups");
+// 16-byte chunks of a row in shared memory, as floats
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int E = 4;
+  __device__ static void load(const unsigned char* p, float* f) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int E = 8;
+  __device__ static void load(const unsigned char* p, float* f) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is exact: the high half
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -68,153 +112,413 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__host__ __device__ constexpr size_t align16(size_t x) {
+  return (x + 15) / 16 * 16;
+}
+
+// Shared memory of a block with a slice of gsz heads and tiles of `tile`
+// positions, in bytes from the start: K and V tiles [tile, rowb] each
+// (later the P.V shares, then the span's partial), q [gsz, nchunk * E]
+// f32, scores [gsz, tile] f32, running (m, l, rescale) [gsz] f32, the
+// merge's span weights [gsz, kMaxSplit] and sums [gsz], the tile's mask
+// bytes.
+struct Layout {
+  int nchunk;  // 16-byte chunks of a K/V row (zero-padded past D)
+  int rowb;    // bytes between staged rows
+  size_t q, s, m, l, c, w, lsum, mask, total;
+};
+__host__ __device__ inline Layout layout(int D, int esize, int gsz,
+                                         int tile) {
+  Layout y;
+  y.nchunk = (D * esize + 15) / 16;
+  y.rowb = y.nchunk * 16 + 16;
+  const int E = 16 / esize;
+  size_t o = align16((size_t)2 * tile * y.rowb);
+  // at the end the tile's bytes hold the P.V shares, then the partial
+  const size_t red = sizeof(float) * kThreads * E;
+  const size_t partial = sizeof(float) * gsz * (D + 2);
+  if (o < red) o = align16(red);
+  if (o < partial) o = align16(partial);
+  y.q = o;
+  o += align16(sizeof(float) * gsz * y.nchunk * E);
+  y.s = o;
+  o += align16(sizeof(float) * gsz * tile);
+  y.m = o;
+  o += align16(sizeof(float) * gsz);
+  y.l = o;
+  o += align16(sizeof(float) * gsz);
+  y.c = o;
+  o += align16(sizeof(float) * gsz);
+  y.w = o;
+  o += align16(sizeof(float) * gsz * kMaxSplit);
+  y.lsum = o;
+  o += align16(sizeof(float) * gsz);
+  y.mask = o;
+  o += align16(tile);
+  y.total = o;
+  return y;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dense_decode(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const uint8_t* __restrict__ valid,
                  T* __restrict__ out, int Hq, int Hkv, int D, int Tn,
-                 float scale) {
-  extern __shared__ float sm[];
-  const int G = Hq / Hkv;
-  const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
-  const int tid = threadIdx.x;
-  float* q_s = sm;                     // [G, D]
-  float* k_s = q_s + G * D;            // [kTile, D + 1]
-  float* v_s = k_s + kTile * (D + 1);  // [kTile, D]
-  float* p_s = v_s + kTile * D;        // [G, kTile] scores, then weights
-  float* m_s = p_s + G * kTile;        // [G] running max
-  float* l_s = m_s + G;                // [G] running sum
-  float* c_s = l_s + G;                // [G] this tile's rescale factor
+                 float scale, int gslices, int gsz, int nsplit, int span,
+                 int tile, int vec) {
+  constexpr int E = Vec<T>::E;
+  constexpr int R = kAcc / E;  // output items a thread can own
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout ly = layout(D, sizeof(T), gsz, tile);
+  unsigned char* kv = smem;
+  float* q_s = reinterpret_cast<float*>(smem + ly.q);  // [gsz, Dp]
+  float* s_s = reinterpret_cast<float*>(smem + ly.s);  // [gsz, tile]
+  float* m_s = reinterpret_cast<float*>(smem + ly.m);
+  float* l_s = reinterpret_cast<float*>(smem + ly.l);
+  float* c_s = reinterpret_cast<float*>(smem + ly.c);
+  uint8_t* mask_s = smem + ly.mask;  // [tile]
 
-  const size_t qbase = ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int x = tid; x < G * D; x += kThreads) q_s[x] = to_f(q[qbase + x]);
-  if (tid < G) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // spans fastest (a cluster's blocks are consecutive), then slices, then
+  // (row, kv head)
+  const int split = blockIdx.x % nsplit;
+  const int gs = (blockIdx.x / nsplit) % gslices;
+  const int bh = blockIdx.x / nsplit / gslices;
+  const int b = bh / Hkv, h = bh - b * Hkv;
+  const int G = Hq / Hkv;
+  const int g0 = gs * gsz, gn = min(gsz, G - g0);
+  const int lo = split * span, hi = min(Tn, lo + span);
+  const int nchunk = ly.nchunk, rowb = ly.rowb, Dp = nchunk * E;
+
+  const size_t kstride = (size_t)Hkv * D;  // elements between positions
+  const T* kbase = k + ((size_t)b * Tn * Hkv + h) * D;
+  const T* vbase = v + ((size_t)b * Tn * Hkv + h) * D;
+  auto load_tile = [&](int t0) {
+    const int ntok = min(tile, hi - t0);
+    if (vec) {
+      const int n16 = ntok * nchunk;
+      for (int x = tid; x < 2 * n16; x += kThreads) {
+        const int which = x >= n16, y = x - which * n16;
+        const int j = y / nchunk, c = y - j * nchunk;
+        const T* src = (which ? vbase : kbase) + (t0 + j) * kstride + c * E;
+        cp_async16(kv + (which * tile + j) * rowb + c * 16, src);
+      }
+      cp_async_commit();
+    } else {
+      const int n = ntok * Dp;
+      for (int x = tid; x < 2 * n; x += kThreads) {
+        const int which = x >= n, y = x - which * n;
+        const int j = y / Dp, d = y - j * Dp;
+        const T* src = (which ? vbase : kbase) + (t0 + j) * kstride;
+        T* dst = reinterpret_cast<T*>(kv + (which * tile + j) * rowb);
+        dst[d] = d < D ? src[d] : from_f<T>(0.f);
+      }
+    }
+  };
+  // thread tid holds the mask byte of the tile's position tid (tile <=
+  // kThreads); the first tile's is read with q, each later one's while the
+  // tile before it is scored
+  const uint8_t* vrow = valid + (size_t)b * Tn;
+  auto mask_byte = [&](int t0) -> uint8_t {
+    return (t0 < hi && tid < min(tile, hi - t0)) ? vrow[t0 + tid] : 0;
+  };
+  uint8_t mine = mask_byte(lo);
+  // whether a tile is read (block-uniform): when it holds a valid position,
+  // or when its row holds none at all (the mean of V); a tile with no valid
+  // position in a row with one elsewhere adds exp(-1e30 - m) = 0 wherever
+  // it would be merged, so its K/V are not read. The row is scanned once,
+  // and only if a tile of the span is empty.
+  int row_any = -1;
+  auto tile_live = [&](uint8_t byte) -> bool {
+    if (__syncthreads_or(byte)) return true;
+    if (row_any < 0) {
+      int any = 0;
+      for (int t = tid; t < Tn; t += kThreads) any |= vrow[t];
+      row_any = __syncthreads_or(any);
+    }
+    return !row_any;
+  };
+
+  // q as f32, its loads in flight together
+  const size_t qbase = ((size_t)b * Hq + (size_t)h * G + g0) * D;
+  constexpr int kQ = 8;
+  for (int x0 = tid; x0 < gn * Dp; x0 += kQ * kThreads) {
+    float qv[kQ];
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) {
+      const int x = x0 + u * kThreads, g = x / Dp, d = x - g * Dp;
+      qv[u] = (x < gn * Dp && d < D) ? to_f(q[qbase + (size_t)g * D + d])
+                                     : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kQ; ++u)
+      if (x0 + u * kThreads < gn * Dp) q_s[x0 + u * kThreads] = qv[u];
+  }
+  if (tid < gn) {
     m_s[tid] = kMasked;
     l_s[tid] = 0.f;
   }
-  float acc[kMaxG][kDPT];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-#pragma unroll
-    for (int u = 0; u < kDPT; ++u) acc[g][u] = 0.f;
+  bool live = tile_live(mine);  // also the barrier after q and the state
+  if (live) {
+    if (tid < tile) mask_s[tid] = mine;
+    load_tile(lo);  // every copy of the tile in flight at once
+  }
 
-  const uint8_t* vrow = valid + (size_t)b * Tn;
-  int mine = 0;
-  for (int t = tid; t < Tn; t += kThreads) mine |= vrow[t];
-  // also the barrier after q_s and the running state are set
-  const int row_any = __syncthreads_or(mine);
+  // P.V outputs: `items` (head, chunk) pairs; with fewer items than threads
+  // each item's positions are shared by `jparts` threads
+  const int items = gn * nchunk;
+  const int jparts = items >= kThreads ? 1 : kThreads / items;
+  float acc[R][E];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+  int sl = 1;  // lanes that share one score
+  while (sl < 8 && gn * tile * sl < kThreads) sl <<= 1;
 
-  const int part = tid % kSplit;
-  for (int t0 = 0; t0 < Tn; t0 += kTile) {
-    const int ntok = min(kTile, Tn - t0);
-    const int tile_any = __syncthreads_or(tid < ntok && vrow[t0 + tid]);
-    if (row_any && !tile_any) continue;  // uniform across the block
-    for (int x = tid; x < ntok * D; x += kThreads) {
-      const int j = x / D, d = x - j * D;
-      const size_t off = (((size_t)b * Tn + t0 + j) * Hkv + h) * D + d;
-      k_s[j * (D + 1) + d] = to_f(k[off]);
-      v_s[j * D + d] = to_f(v[off]);
-    }
-    __syncthreads();
-    // every thread runs the same number of rounds, so the shuffles below
-    // always see full warps
-    const int items = G * ntok * kSplit;
-    for (int base = 0; base < items; base += kThreads) {
-      const int x = base + tid;
-      const int gj = x / kSplit;
-      const int g = gj / ntok, j = gj - g * ntok;
-      float s = 0.f;
-      if (x < items) {
-        const float* qr = q_s + g * D;
-        const float* kr = k_s + j * (D + 1);
-        for (int d = part; d < D; d += kSplit) s += qr[d] * kr[d];
+  for (int t0 = lo; t0 < hi; t0 += tile) {
+    const int ntok = min(tile, hi - t0);
+    const uint8_t next = mask_byte(t0 + tile);
+    if (live) {
+      if (vec) cp_async_wait_all();
+      __syncthreads();  // the tile is in place
+
+      // scores; every thread runs the same rounds, so the shuffles always see
+      // full warps
+      const int nscore = gn * ntok * sl;
+      for (int base = 0; base < nscore; base += kThreads) {
+        const int x = base + tid;
+        const int part_ = x & (sl - 1), sid = x / sl;
+        const int g = sid / ntok, j = sid - g * ntok;
+        float s = 0.f;
+        if (x < nscore) {
+          const unsigned char* kr = kv + j * rowb;
+          const float* qr = q_s + g * Dp;
+          for (int c = part_; c < nchunk; c += sl) {
+            float kf[E];
+            Vec<T>::load(kr + c * 16, kf);
+#pragma unroll
+            for (int e = 0; e < E; ++e) s += qr[c * E + e] * kf[e];
+          }
+        }
+        for (int o = sl / 2; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (x < nscore && part_ == 0)
+          s_s[g * tile + j] = mask_s[j] ? s * scale : kMasked;
       }
+      __syncthreads();
+
+      // online softmax, one warp per query head
+      for (int g = warp; g < gn; g += kWarps) {
+        float* sr = s_s + g * tile;
+        float mt = -INFINITY;
+        for (int j = lane; j < ntok; j += 32) mt = fmaxf(mt, sr[j]);
 #pragma unroll
-      for (int o = kSplit / 2; o > 0; o >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (x < items && part == 0)
-        p_s[g * kTile + j] = vrow[t0 + j] ? s * scale : kMasked;
-    }
-    __syncthreads();
-    if (tid < G) {
-      float* pr = p_s + tid * kTile;
-      const float m_old = m_s[tid];
-      float m_new = m_old;
-      for (int j = 0; j < ntok; ++j) m_new = fmaxf(m_new, pr[j]);
-      float sum = 0.f;
-      for (int j = 0; j < ntok; ++j) {
-        const float e = expf(pr[j] - m_new);
-        pr[j] = e;
-        sum += e;
+        for (int o = 16; o > 0; o >>= 1)
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+        const float m_old = m_s[g];
+        const float m_new = fmaxf(m_old, mt);
+        float sum = 0.f;
+        for (int j = lane; j < ntok; j += 32) {
+          const float e = expf(sr[j] - m_new);
+          sr[j] = e;
+          sum += e;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (lane == 0) {
+          const float corr = expf(m_old - m_new);
+          l_s[g] = l_s[g] * corr + sum;
+          m_s[g] = m_new;
+          c_s[g] = corr;
+        }
       }
-      const float corr = expf(m_old - m_new);
-      l_s[tid] = l_s[tid] * corr + sum;
-      m_s[tid] = m_new;
-      c_s[tid] = corr;
-    }
-    __syncthreads();
+      __syncthreads();
+
+      // acc = acc * corr + P . V
+      const unsigned char* vb = kv + tile * rowb;
 #pragma unroll
-    for (int u = 0; u < kDPT; ++u) {
-      const int d = tid + u * kThreads;
-      if (d < D) {
+      for (int r = 0; r < R; ++r) {
+        const int x = tid + r * kThreads;
+        if (x < items * jparts) {
+          const int item = x % items, jp = x / items;
+          const int g = item / nchunk, c = item - g * nchunk;
+          const float corr = c_s[g];
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
-          if (g < G) {
-            const float* pr = p_s + g * kTile;
-            float a = acc[g][u] * c_s[g];
-            for (int j = 0; j < ntok; ++j) a += pr[j] * v_s[j * D + d];
-            acc[g][u] = a;
+          for (int e = 0; e < E; ++e) acc[r][e] *= corr;
+          const float* pr = s_s + g * tile;
+          for (int j = jp; j < ntok; j += jparts) {
+            float vf[E];
+            Vec<T>::load(vb + j * rowb + c * 16, vf);
+            const float p = pr[j];
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[r][e] += p * vf[e];
           }
         }
       }
     }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int u = 0; u < kDPT; ++u) {
-    const int d = tid + u * kThreads;
-    if (d < D) {
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G)
-          out[qbase + (size_t)g * D + d] =
-              from_f<T>(acc[g][u] / fmaxf(l_s[g], 1e-30f));
+    if (t0 + tile < hi) {  // a longer span: the next tile into the same bytes
+      __syncthreads();
+      live = tile_live(next);
+      if (live) {
+        if (tid < tile) mask_s[tid] = next;
+        load_tile(t0 + tile);
       }
     }
   }
+  __syncthreads();  // the tile's bytes are free
+
+  if (jparts > 1) {  // add the position shares of each item (R = 1 here)
+    float* red = reinterpret_cast<float*>(kv);
+    if (tid < items * jparts)
+#pragma unroll
+      for (int e = 0; e < E; ++e) red[tid * E + e] = acc[0][e];
+    __syncthreads();
+    if (tid < items)
+      for (int p = 1; p < jparts; ++p)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[0][e] += red[(tid + p * items) * E + e];
+  }
+
+  // this span's partial in the tile's bytes: [gsz] m, [gsz] l, [gsz, D] acc
+  float* pm = reinterpret_cast<float*>(kv);
+  if (jparts > 1 && nsplit > 1) __syncthreads();  // the shares are read
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int x = tid + r * kThreads;
+    if (x < items) {
+      const int g = x / nchunk, c = x - g * nchunk;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int d = c * E + e;
+        if (d < D) {
+          if (nsplit == 1)
+            out[qbase + (size_t)g * D + d] =
+                from_f<T>(acc[r][e] / fmaxf(l_s[g], 1e-30f));
+          else
+            pm[2 * gsz + g * D + d] = acc[r][e];
+        }
+      }
+    }
+  }
+  if (nsplit == 1) return;
+  if (tid < gn) {
+    pm[tid] = m_s[tid];
+    pm[gsz + tid] = l_s[tid];
+  }
+
+  // each block of the cluster merges a slice of the outputs
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  float* w_s = reinterpret_cast<float*>(smem + ly.w);  // [gsz, kMaxSplit]
+  float* lsum_s = reinterpret_cast<float*>(smem + ly.lsum);
+  if (tid < gn) {
+    float M = -INFINITY;
+    for (int i = 0; i < nsplit; ++i)
+      M = fmaxf(M, cl.map_shared_rank(pm, i)[tid]);
+    float L = 0.f;
+    for (int i = 0; i < nsplit; ++i) {
+      const float* pi = cl.map_shared_rank(pm, i);
+      const float w = expf(pi[tid] - M);
+      w_s[tid * kMaxSplit + i] = w;
+      L += pi[gsz + tid] * w;
+    }
+    lsum_s[tid] = fmaxf(L, 1e-30f);
+  }
+  __syncthreads();
+  const int per = (gn * D + nsplit - 1) / nsplit;
+  for (int x = split * per + tid; x < min(gn * D, (split + 1) * per);
+       x += kThreads) {
+    const int g = x / D;
+    float o = 0.f;
+    for (int i = 0; i < nsplit; ++i)
+      o += w_s[g * kMaxSplit + i] * cl.map_shared_rank(pm, i)[2 * gsz + x];
+    out[qbase + x] = from_f<T>(o / lsum_s[g]);
+  }
+  cl.sync();  // keep this block's partial alive until all have read it
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const uint8_t* valid,
            void* out, int B, int Hq, int Hkv, int D, int Tn, float scale,
+           int gslices, int gsz, int nsplit, int span, int tile, int vec,
            cudaStream_t s) {
-  const size_t smem = smem_bytes(Hq / Hkv, D);
-  dense_decode<T><<<B * Hkv, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), valid, static_cast<T*>(out), Hq, Hkv, D, Tn,
-      scale);
+  const size_t smem = layout(D, sizeof(T), gsz, tile).total;
+  static size_t opted = 48 * 1024;  // per T: the most asked for so far
+  if (smem > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dense_decode<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    opted = smem;
+  }
+  const long long blocks = (long long)B * Hkv * gslices * nsplit;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;  // the spans of a (row, kv head, slice)
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, dense_decode<T>, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), valid,
+      static_cast<T*>(out), Hq, Hkv, D, Tn, scale, gslices, gsz, nsplit,
+      span, tile, vec);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it); valid holds
-// one byte per (row, position). Launches on `stream`, returns the launch's
-// cudaError_t (0 on success), never synchronises.
+// one byte per (row, position). The group G = Hq / Hkv is cut into
+// `gslices` slices of at most `gsz` <= 16 heads and T into `nsplit` <= 8
+// spans of `span` positions (the last one shorter), each staged `tile` <=
+// 128 positions at a time. `vec` = 1 when every K/V row starts 16-byte
+// aligned. Launches on `stream`, returns the launch's cudaError_t (0 on
+// success), never synchronises.
 extern "C" int decode_attn(int dtype, const void* q, const void* k,
                            const void* v, const void* valid, void* out, int B,
                            int Hq, int Hkv, int D, int Tn, float scale,
-                           void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxG || D <= 0 ||
-      D > kMaxD || Tn <= 0)
+                           int gslices, int gsz, int nsplit, int span,
+                           int tile, int vec, void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > kMaxD || Tn <= 0 ||
+      gsz <= 0 || gsz > kGroupMax || gslices <= 0 ||
+      (long long)gslices * gsz < Hq / Hkv ||
+      (long long)(gslices - 1) * gsz >= Hq / Hkv || nsplit <= 0 ||
+      nsplit > kMaxSplit || span <= 0 || (long long)nsplit * span < Tn ||
+      (long long)(nsplit - 1) * span >= Tn || tile <= 0 || tile > kMaxTile)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(valid);
-  if (dtype == 0)
-    return launch<float>(q, k, v, m, out, B, Hq, Hkv, D, Tn, scale, s);
-  if (dtype == 1)
+  if (dtype == 0) {
+    if (vec && (D * 4) % 16) return (int)cudaErrorInvalidValue;
+    return launch<float>(q, k, v, m, out, B, Hq, Hkv, D, Tn, scale, gslices,
+                         gsz, nsplit, span, tile, vec, s);
+  }
+  if (dtype == 1) {
+    if (vec && (D * 2) % 16) return (int)cudaErrorInvalidValue;
     return launch<__nv_bfloat16>(q, k, v, m, out, B, Hq, Hkv, D, Tn, scale,
-                                 s);
+                                 gslices, gsz, nsplit, span, tile, vec, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

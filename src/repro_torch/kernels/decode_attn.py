@@ -11,10 +11,12 @@ and ``kernels.ref.decode_attn_ref``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # mirror the constants of csrc/paged_decode_attn.cu and csrc/decode_attn.cu
-MAX_GROUP = 8  # query heads per kv head
+MAX_GROUP = 8  # query heads per kv head, paged kernel
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -75,6 +77,48 @@ def paged_decode_attn_cuda(
     return out
 
 
+# mirror the constants of csrc/decode_attn.cu
+DENSE_GROUP_PER_BLOCK = 16  # query heads per block; a larger group is sliced
+DENSE_MAX_SPLIT = 8  # spans per (row, kv head): one thread-block cluster
+DENSE_MAX_TILE = 128  # positions a block stages at once
+# shared memory for one tile's K and V rows: a block issues every copy of
+# its tile at once, and about six such blocks fit an SM's 227 KB
+DENSE_TILE_BYTES = 36 * 1024
+# blocks a call aims at when its tiles alone would leave SMs idle (about
+# two and a half per SM of an H100): more spans, each merged in a cluster
+DENSE_TARGET_BLOCKS = 330
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)  # a decode loop repeats its few shapes
+def dense_split_plan(b: int, hq: int, hkv: int, t: int, d: int,
+                     itemsize: int) -> tuple[int, int, int, int, int]:
+    """How the dense-cache kernel cuts one call over blocks -> (gslices,
+    gsz, nsplit, span, tile): the group of G = hq / hkv query heads in
+    ``gslices`` slices of at most ``gsz`` heads; T in ``nsplit`` spans of
+    ``span`` positions (the last one shorter), one block each; a block
+    stages ``tile`` positions at once, as many as DENSE_TILE_BYTES of
+    padded K and V rows hold (a multiple of 16, at most DENSE_MAX_TILE).
+    A span is at most one tile where DENSE_MAX_SPLIT spans allow it, so a
+    block makes one round trip to memory; where that leaves the call short
+    of DENSE_TARGET_BLOCKS, T is cut into more spans (of at least 16
+    positions); spans are of equal length."""
+    g = hq // hkv
+    gslices = _cdiv(g, DENSE_GROUP_PER_BLOCK)
+    gsz = _cdiv(g, gslices)
+    rows = b * hkv * gslices
+    rowb = _cdiv(d * itemsize, 16) * 16 + 16
+    tile = max(16, min(DENSE_MAX_TILE, DENSE_TILE_BYTES // (2 * rowb) // 16
+                       * 16))
+    want = min(_cdiv(t, 16), round(DENSE_TARGET_BLOCKS / rows))
+    nsplit = max(1, min(DENSE_MAX_SPLIT, max(_cdiv(t, tile), want)))
+    span = _cdiv(t, nsplit)
+    return gslices, gsz, _cdiv(t, span), span, min(tile, span)
+
+
 def decode_attn_cuda(
     q: torch.Tensor,  # [B, Hq, D]
     k: torch.Tensor,  # [B, T, Hkv, D]
@@ -82,11 +126,13 @@ def decode_attn_cuda(
     valid: torch.Tensor,  # [B, T] bool
 ) -> torch.Tensor:
     """Launch the dense-cache kernel on the current stream -> [B, Hq, D] in
-    q's dtype. A row with no valid position gets the mean of V over all T,
-    as the plain version does."""
+    q's dtype: one grid over (row, kv head, head slice, span), the spans of
+    a (row, kv head, slice) merged through shared memory within a
+    thread-block cluster (``dense_split_plan``). A row with no valid position
+    gets the mean of V over all T, as the plain version does."""
     from repro_torch.kernels import _build
 
-    for name, x in {"q": q, "k": k, "v": v, "valid": valid}.items():
+    for name, x in (("q", q), ("k", k), ("v", v), ("valid", valid)):
         if not x.is_cuda or x.device != q.device:
             raise ValueError(f"decode_attn: {name} must be on q's CUDA "
                              f"device, got {x.device}")
@@ -103,23 +149,25 @@ def decode_attn_cuda(
             f"decode_attn: shapes q {tuple(q.shape)} k {tuple(k.shape)} v "
             f"{tuple(v.shape)} valid {tuple(valid.shape)} disagree"
         )
-    g = hq // hkv
-    if g > MAX_GROUP or d > MAX_HEAD_DIM:
-        raise ValueError(
-            f"decode_attn kernel supports G <= {MAX_GROUP} and D <= "
-            f"{MAX_HEAD_DIM}; got G={g}, D={d}"
-        )
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"decode_attn kernel supports D <= {MAX_HEAD_DIM}; "
+                         f"got D={d}")
     if t == 0:
         raise ValueError("decode_attn: a cache of 0 positions")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    valid = valid.contiguous()
+    q, k, v, valid = (x if x.is_contiguous() else x.contiguous()
+                      for x in (q, k, v, valid))
     out = torch.empty_like(q)
     if b == 0:
         return out
+    gslices, gsz, nsplit, span, tile = dense_split_plan(
+        b, hq, hkv, t, d, q.element_size())
+    vec = int((d * q.element_size()) % 16 == 0
+              and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
     lib = _build.libraries()["decode_attn"]
     err = lib.decode_attn(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         valid.data_ptr(), out.data_ptr(), b, hq, hkv, d, t, float(d**-0.5),
+        gslices, gsz, nsplit, span, tile, vec,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "decode_attn")

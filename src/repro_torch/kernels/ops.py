@@ -90,7 +90,9 @@ def decode_attn(
     valid position gets the mean of V."""
     if _resolve(impl, q) == "ref":
         return _ref.decode_attn_ref(q, k, v, valid)
-    out = _da.decode_attn_cuda(q, k, v, valid.to(torch.bool))
+    if valid.dtype != torch.bool:
+        valid = valid.to(torch.bool)
+    out = _da.decode_attn_cuda(q, k, v, valid)
     LAUNCHES["decode_attn"] += 1
     return out
 
@@ -233,7 +235,8 @@ def ssd_scan(
         from repro_torch.models.ssm import ssd_chunked
 
         return ssd_chunked(x, dt, a, b, c, chunk=chunk)
-    out = _ssd.ssd_cuda(x, dt.to(torch.float32), a.to(torch.float32), b, c,
-                        chunk)
+    dt, a = (t if t.dtype == torch.float32 else t.to(torch.float32)
+             for t in (dt, a))
+    out = _ssd.ssd_cuda(x, dt, a, b, c, chunk)
     LAUNCHES["ssd"] += 1
     return out

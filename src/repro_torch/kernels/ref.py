@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 F32 = torch.float32
 I32 = torch.int32
@@ -114,6 +115,64 @@ def decode_attn_ref(
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", w, v.to(F32))
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def decode_attn_partials(
+    q: torch.Tensor,  # [B, Hq, D]
+    k: torch.Tensor,  # [B, T, Hkv, D]
+    v: torch.Tensor,  # [B, T, Hkv, D]
+    valid: torch.Tensor,  # [B, T] bool
+    span: int,
+    read_empty: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense-cache kernel's spans, in f32: T cut into ceil(T / span)
+    spans of ``span`` positions (the last one shorter) -> (m [B,Hkv,G,n]
+    max score, l [B,Hkv,G,n] sum of exp(s - m), acc [B,Hkv,G,n,D] the
+    unnormalised exp(s - m) . V) per span. Masked scores are -1e30, so a
+    span with no valid position has m = -1e30. As in the kernel, such a
+    span is not read when its row has a valid position elsewhere: its
+    partial is (-1e30, 0, 0); with ``read_empty`` it is computed, with
+    uniform weights (an all-masked row's spans always are).
+    ``decode_attn_merge`` combines the spans."""
+    b, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    nsplit = -(-t // span)
+    pad = nsplit * span - t
+    qr = q.reshape(b, hkv, hq // hkv, d).to(F32)
+    s = torch.einsum("bkgd,btkd->bkgt", qr, k.to(F32)) * (d**-0.5)
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    # positions past T do not exist: exp(-inf - m) = 0 in every span
+    s = F.pad(s, (0, pad), value=float("-inf"))
+    s = s.reshape(*s.shape[:3], nsplit, span)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    vv = F.pad(v.to(F32), (0, 0, 0, 0, 0, pad)).reshape(b, nsplit, span,
+                                                        hkv, d)
+    acc = torch.einsum("bkgns,bnskd->bkgnd", p, vv)
+    l_ = p.sum(dim=-1)
+    if not read_empty:
+        vs = F.pad(valid, (0, pad)).reshape(b, nsplit, span).any(dim=-1)
+        skip = (~vs & vs.any(dim=-1, keepdim=True))[:, None, None, :]
+        m = torch.where(skip, -1e30, m)
+        l_ = torch.where(skip, 0.0, l_)
+        acc = torch.where(skip[..., None], 0.0, acc)
+    return m, l_, acc
+
+
+def decode_attn_merge(
+    m: torch.Tensor, l_: torch.Tensor, acc: torch.Tensor, dtype=F32
+) -> torch.Tensor:
+    """Merge ``decode_attn_partials``' spans -> [B, Hq, D] in ``dtype``:
+    weights exp(m_i - M) with M the largest m_i, out = sum_i w_i acc_i /
+    sum_i w_i l_i. A span with no valid position has weight
+    exp(-1e30 - M) = 0 when its row has a valid score; an all-masked row
+    weighs its spans by their lengths, which gives the mean of V."""
+    mx = m.amax(dim=-1, keepdim=True)
+    w = torch.exp(m - mx)
+    den = (l_ * w).sum(dim=-1).clamp_min(1e-30)
+    out = (acc * w[..., None]).sum(dim=-2) / den[..., None]
+    b, hkv, g, d = out.shape
+    return out.reshape(b, hkv * g, d).to(dtype)
 
 
 def paged_decode_attn_ref(

@@ -1,27 +1,99 @@
-"""Wrapper of the CUDA SSD chunk-scan kernel (``csrc/ssd.cu``).
+"""Wrapper of the CUDA SSD chunk-scan kernels (``csrc/ssd.cu``).
 
 Replaces the Pallas TPU kernel ``repro.kernels.ssd.ssd``. The source's
 header says what bounds it on the H100 and what its design does about that;
 its plain version is the chunked scan ``repro_torch.models.ssm.ssd_chunked``
-(and the sequential oracle ``kernels.ref.ssd_ref``).
+(and the sequential oracle ``kernels.ref.ssd_ref``). One call is two grids:
+the chunks' state contributions (and their fold into the state entering
+each chunk), then the outputs.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# mirror csrc/ssd.cu: rows of the score matrix built at a time, and the
-# shared memory one block may use on sm_90
-SCORE_ROWS = 32
+# mirror csrc/ssd.cu: output rows per block of the f32 second grid, warps'
+# scan sums, and the shared memory one block may use on sm_90
+OUT_ROWS = 64
+_WARPS = 8
 MAX_SMEM = 232448
+H100_SMS = 132
 
 
-def smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Shared memory of one block: the [P, N] state, a chunk's B, C and x
-    rows, SCORE_ROWS rows of scores and three [L] vectors, in f32."""
-    return 4 * (p * (n + 1) + chunk * (n + 1) + chunk * n + chunk * p
-                + SCORE_ROWS * chunk + 3 * chunk)
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _a16(x: int) -> int:
+    return _up(x, 16)
+
+
+def state_smem_bytes(chunk: int, p: int, nb: int, itemsize: int) -> int:
+    """Shared memory of a block of the first grid for its ``nb`` columns of
+    N: in bf16 (``state_tc``) x [L16, P16 + 8] and B * w's hi and lo
+    [L16, nb + 8] in bf16, three [L16] f32 vectors; in f32 (``state_f32``)
+    x [L, P8], B * w [L, nb4] and three [L] vectors; then the scan's sums
+    and a flag."""
+    if itemsize == 2:
+        l16, ps = _up(chunk, 16), _up(p, 16) + 8
+        return (_a16(l16 * ps * 2) + 2 * _a16(l16 * (nb + 8) * 2)
+                + 3 * _a16(l16 * 4) + _a16(4 * _WARPS) + 16)
+    return (_a16(chunk * _up(p, 8) * 4) + _a16(chunk * _up(nb, 4) * 4)
+            + 3 * _a16(4 * chunk) + _a16(4 * _WARPS) + 16)
+
+
+def out_smem_bytes(chunk: int, p: int, n: int, itemsize: int) -> int:
+    """Shared memory of a block of the second grid: in bf16 (``out_tc``, a
+    whole chunk) C and B [L16, Np + 8], x [L16, P16 + 8] and the entering
+    state's hi and lo [P16, Np + 8] in bf16, dt and cum [L16] f32; in f32
+    (``out_f32``, 64 rows of a chunk) x [L, P8], the scores^T [L8, 68],
+    C [64, Np + 4], then B [L8, Np + 4] or the state^T [Np, P8 + 4], and
+    small f32 vectors."""
+    np_ = _up(n, 16)
+    if itemsize == 2:
+        cs, l16, p16 = np_ + 8, _up(chunk, 16), _up(p, 16)
+        return (2 * _a16(l16 * cs * 2) + _a16(l16 * (p16 + 8) * 2)
+                + 2 * _a16(p16 * cs * 2) + 2 * _a16(l16 * 4)
+                + _a16(_WARPS * 4))
+    cs, l8, p8 = np_ + 4, _up(chunk, 8), _up(p, 8)
+    return (_a16(chunk * p8 * 4) + _a16(l8 * (OUT_ROWS + 4) * 4)
+            + _a16(OUT_ROWS * cs * 4) + _a16(max(l8 * cs, np_ * (p8 + 4)) * 4)
+            + 2 * _a16(l8 * 4) + _a16(OUT_ROWS * 4) + _a16(_WARPS * 4))
+
+
+@functools.lru_cache(maxsize=64)
+def smem_bytes(chunk: int, p: int, n: int, itemsize: int = 2) -> int:
+    """The larger of the two grids' shared memory per block (the first
+    grid's with all of N in one block, its largest)."""
+    return max(state_smem_bytes(chunk, p, _up(n, 8), itemsize),
+               out_smem_bytes(chunk, p, n, itemsize))
+
+
+def n_parts(bsz: int, h: int, nchunks: int, n: int,
+            sms: int = H100_SMS) -> int:
+    """Blocks per chunk of the first grid: N is cut in two when one block
+    per (batch, head, chunk) would leave the card with fewer than two
+    blocks per SM."""
+    return 2 if bsz * h * nchunks < 2 * sms and n >= 32 else 1
+
+
+_TICKETS: dict = {}
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` int32 counters on ``device`` that are 0 between calls: each
+    block of the scan's first grid takes a ticket from its (batch, head)'s
+    counter, and the last to arrive folds the chunks and puts the counter
+    back to 0, so the counters are zeroed once, when first made or grown,
+    and shared by the calls on the device (which run in stream order)."""
+    buf = _TICKETS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[device] = buf
+    return buf
 
 
 def ssd_cuda(
@@ -37,8 +109,7 @@ def ssd_cuda(
     chunk runs as it is."""
     from repro_torch.kernels import _build
 
-    tensors = {"x": x, "dt": dt, "a": a, "b": b, "c": c}
-    for name, t in tensors.items():
+    for name, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"ssd: {name} must be on x's CUDA device, got "
                              f"{t.device}")
@@ -58,23 +129,33 @@ def ssd_cuda(
         )
     if chunk <= 0:
         raise ValueError(f"ssd: chunk {chunk} must be positive")
-    if smem_bytes(chunk, p, n) > MAX_SMEM:
+    need = smem_bytes(chunk, p, n, x.element_size())
+    if need > MAX_SMEM:
         raise ValueError(
-            f"ssd kernel: chunk {chunk}, P={p}, N={n} need "
-            f"{smem_bytes(chunk, p, n)} bytes of shared memory, past the "
-            f"card's {MAX_SMEM}"
+            f"ssd kernel: chunk {chunk}, P={p}, N={n} in {x.dtype} need "
+            f"{need} bytes of shared memory, past the card's {MAX_SMEM}"
         )
-    x, dt, a = x.contiguous(), dt.contiguous(), a.contiguous()
-    b, c = b.contiguous(), c.contiguous()
+    x, dt, a, b, c = (t if t.is_contiguous() else t.contiguous()
+                      for t in (x, dt, a, b, c))
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     if bsz == 0 or s == 0:
         return y, state.zero_()
+    nchunks = -(-s // chunk)
+    # f32 scratch: the chunks' [P, N] contributions, then their decays
+    ncontrib = bsz * h * nchunks * p * n
+    scratch = torch.empty(ncontrib + bsz * h * nchunks, dtype=torch.float32,
+                          device=x.device)
+    per16 = 16 // x.element_size()
+    vec = int(p % per16 == 0 and n % per16 == 0
+              and all(t.data_ptr() % 16 == 0 for t in (x, b, c)))
     lib = _build.libraries()["ssd"]
     err = lib.ssd(
         _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
         b.data_ptr(), c.data_ptr(), y.data_ptr(), state.data_ptr(),
-        bsz, s, h, p, g, n, chunk,
+        scratch.data_ptr(), scratch.data_ptr() + 4 * ncontrib,
+        tickets(x.device, bsz * h).data_ptr(),
+        bsz, s, h, p, g, n, chunk, n_parts(bsz, h, nchunks, n), vec,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "ssd")

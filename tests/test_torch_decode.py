@@ -101,6 +101,145 @@ def test_decode_attn_dispatch_follows_the_tensor_device():
 
 
 # ---------------------------------------------------------------------------
+# the kernel's spans and their merge (its arithmetic, in plain PyTorch)
+# ---------------------------------------------------------------------------
+
+
+def _span_mask(b, t, span, rng):
+    """Row 0 masked whole; row 1 valid only inside span 1 (every other span
+    has no valid position); other rows random prefixes."""
+    lens = rng.integers(1, t + 1, size=b)
+    valid = np.arange(t)[None, :] < lens[:, None]
+    valid[0] = False
+    valid[1] = False
+    valid[1, span + 3:min(t, 2 * span - 5)] = True
+    return valid
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,d,t",
+    [(3, 16, 1, 64, 700),  # the JAX test's G = 16
+     (3, 48, 1, 32, 203)],  # granite-34b's MQA group, G = 48
+)
+def test_decode_attn_partials_merge_matches_plain_and_jax(b, hq, hkv, d, t):
+    """The spans the kernel would cut at this shape (``dense_split_plan``;
+    the last span shorter), merged: within 2e-6 of the plain version, and
+    of the Pallas kernel in interpret mode on the rows with a valid
+    position (at a T that is no multiple of its block the Pallas kernel
+    averages an all-masked row over the padded length); an all-masked row
+    is the mean of V."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.decode_attn import dense_split_plan
+
+    _, _, nsplit, span, _ = dense_split_plan(b, hq, hkv, t, d, 4)
+    assert nsplit > 1 and t % span != 0  # spans of unequal length
+    q, k, v, _ = decode_case(b, hq, hkv, d, t, seed=t)
+    valid = _span_mask(b, t, span, np.random.default_rng(t))
+    tq, tk, tv, tm = map(torch.from_numpy, (q, k, v, valid))
+    m, l_, acc = R.decode_attn_partials(tq, tk, tv, tm, span)
+    assert m.shape == (b, hkv, hq // hkv, nsplit)
+    # span 0 of row 1 has no valid position: its merge weight is exactly 0
+    assert (m[1, ..., 0] == -1e30).all()
+    assert (torch.exp(m[1, ..., 0] - m[1].amax(dim=-1)) == 0).all()
+    # and it is not read; an all-masked row's spans all are
+    assert (l_[1, ..., 0] == 0).all() and (acc[1, ..., 0, :] == 0).all()
+    assert (l_[0] > 0).all()
+    got = R.decode_attn_merge(m, l_, acc)
+    np.testing.assert_allclose(
+        got.numpy(), R.decode_attn_ref(tq, tk, tv, tm).numpy(),
+        atol=DECODE_TOL["float32"])
+    want = DA_mod.decode_attn(*map(jnp.asarray, (q, k, v, valid)), bt=128,
+                              interpret=True)
+    np.testing.assert_allclose(got[1:].numpy(), np.asarray(want)[1:],
+                               atol=DECODE_TOL["float32"])
+    mean = np.repeat(v[0].mean(axis=0), hq // hkv, axis=0)
+    np.testing.assert_allclose(got[0].numpy(), mean, atol=2e-6)
+
+
+@pytest.mark.parametrize("span", [16, 64, 100])
+def test_decode_attn_partials_skipping_empty_spans_changes_nothing(span):
+    """Rows of mixed lengths in a 512-slot cache, an all-masked row and a
+    row valid in one span only: the merge of partials that skip the spans
+    with no valid position (as the kernel does) equals, within 2e-6, the
+    merge of partials that read every span, and the plain version."""
+    from repro_torch.kernels import ref as R
+
+    b, hq, hkv, d, t = 5, 8, 2, 32, 512
+    q, k, v, _ = decode_case(b, hq, hkv, d, t, seed=span)
+    valid = _span_mask(b, t, span, np.random.default_rng(span))
+    valid[2] = np.arange(t) < 50  # a short prompt in a long cache
+    tq, tk, tv, tm = map(torch.from_numpy, (q, k, v, valid))
+    skipped = R.decode_attn_partials(tq, tk, tv, tm, span)
+    assert (skipped[1][2, ..., -1] == 0).all()  # row 2's last span
+    read = R.decode_attn_partials(tq, tk, tv, tm, span, read_empty=True)
+    got = R.decode_attn_merge(*skipped)
+    np.testing.assert_allclose(got.numpy(),
+                               R.decode_attn_merge(*read).numpy(),
+                               atol=DECODE_TOL["float32"])
+    np.testing.assert_allclose(
+        got.numpy(), R.decode_attn_ref(tq, tk, tv, tm).numpy(),
+        atol=DECODE_TOL["float32"])
+
+
+@pytest.mark.parametrize(
+    "shape,plan",
+    [((8, 32, 32, 332, 80, 2), (1, 1, 4, 83, 83)),  # zamba2's shared block
+     ((8, 32, 8, 160, 128, 2), (1, 4, 5, 32, 32)),  # llama3-8b, dense cache
+     ((8, 48, 1, 512, 128, 2), (3, 16, 8, 64, 64)),  # granite-34b-like MQA
+     ((3, 16, 1, 700, 64, 4), (1, 16, 8, 88, 64)),  # the JAX test's G = 16
+     # llama3-8b's heads at mixed lengths: four tiles a span, each skipped
+     # where it holds no valid position
+     ((8, 32, 8, 2048, 128, 2), (1, 4, 8, 256, 64)),
+     ((2, 16, 1, 300, 256, 4), (1, 16, 8, 38, 16)),  # D = 256 in f32
+     ((1, 4, 4, 32768, 128, 2), (1, 1, 8, 4096, 64))],  # a long cache
+)
+def test_dense_split_plan(shape, plan):
+    """Spans, head slices and tiles per call: one tile per span at the
+    serving shapes (more spans than tiles where the call would be short of
+    blocks), several tiles a span past eight spans (a cluster's most),
+    every position in exactly one span, a tile's K and V rows within the
+    shared-memory budget."""
+    from repro_torch.kernels import decode_attn as DA
+
+    b, hq, hkv, t, d, itemsize = shape
+    got = DA.dense_split_plan(b, hq, hkv, t, d, itemsize)
+    assert got == plan
+    gslices, gsz, nsplit, span, tile = got
+    assert gsz <= DA.DENSE_GROUP_PER_BLOCK and gslices * gsz >= hq // hkv
+    assert nsplit <= DA.DENSE_MAX_SPLIT and tile <= DA.DENSE_MAX_TILE
+    assert (nsplit - 1) * span < t <= nsplit * span
+    rowb = -(-d * itemsize // 16) * 16 + 16
+    assert 2 * tile * rowb <= DA.DENSE_TILE_BYTES
+
+
+@pytest.mark.parametrize(
+    "chunk,p,n,itemsize,blocks_per_sm",
+    [(128, 64, 128, 2, 1),  # mamba2-370m, bf16: 96 blocks at its prefill
+     (128, 64, 64, 2, 3),  # zamba2-2.7b, bf16
+     (128, 64, 256, 2, 1),  # N = 256 at L = 128: past the old kernel's room
+     (128, 64, 64, 4, 1)],  # the f32 path
+)
+def test_ssd_shared_memory_fits(chunk, p, n, itemsize, blocks_per_sm):
+    """The scan's shared memory per block against the card's 227 KB: a
+    block of the output grid stages a whole chunk, and zamba2's shape
+    leaves room for three of them on an SM."""
+    from repro_torch.kernels import ssd as SSD
+
+    need = SSD.smem_bytes(chunk, p, n, itemsize)
+    assert blocks_per_sm * need <= SSD.MAX_SMEM
+    assert SSD.smem_bytes(chunk, p, n, itemsize) >= SSD.out_smem_bytes(
+        chunk, p, n, itemsize)
+
+
+def test_ssd_shared_memory_refuses_f32_at_n_256():
+    from repro_torch.kernels import ssd as SSD
+
+    assert SSD.smem_bytes(128, 64, 256, 4) > SSD.MAX_SMEM
+    assert SSD.n_parts(1, 32, 3, 128) == 2  # mamba2's prefill: 96 chunks
+    assert SSD.n_parts(4, 80, 16, 64) == 1  # 5120 chunks
+
+
+# ---------------------------------------------------------------------------
 # the dense-cache layer functions
 # ---------------------------------------------------------------------------
 

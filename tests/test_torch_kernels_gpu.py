@@ -187,9 +187,14 @@ def test_ledger_kernel_matches_plain_chained(cuda, batch, variant, half_life):
 
 
 # decode_attn at the serving shapes (llama3-8b's dense cache, zamba2's shared
-# block: D = 80, G = 1) and the JAX test's shapes, T no multiple of the tile
+# block: D = 80, G = 1), the JAX test's shapes (T no multiple of the tile or
+# of the span, G = 16), a granite-34b-like MQA group (G = 48, sliced over
+# three blocks), D = 256 with a group of 16 (the most shared memory a block
+# takes) and rows of mixed lengths in a 2048-slot cache (empty tiles skipped)
 DECODE_CASES = [(8, 32, 8, 128, 160), (8, 32, 32, 80, 332),
-                (2, 8, 2, 64, 300), (3, 8, 1, 64, 700), (2, 4, 2, 32, 129)]
+                (2, 8, 2, 64, 300), (3, 8, 1, 64, 700), (2, 4, 2, 32, 129),
+                (3, 16, 1, 64, 700), (8, 48, 1, 128, 512),
+                (2, 16, 1, 256, 300), (8, 32, 8, 128, 2048)]
 # test_decode_attn_matches_ref's tolerances: f32 summation order only; bf16
 # inputs rounded once, weights kept in f32 by both versions
 DECODE_TOL = {torch.float32: 2e-6, torch.bfloat16: 3e-2}
@@ -217,12 +222,35 @@ def test_decode_attn_kernel_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.gpu
-def test_decode_attn_kernel_refuses_groups_past_its_limit(cuda):
-    """The JAX test's G = 16 case is past the kernel's G <= 8: the wrapper
-    raises instead of launching."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_kernel_matches_plain_at_wide_groups(cuda, dtype):
+    """The JAX test's G = 16 case (past the first kernel's G <= 8) and a
+    group of 64, with the valid positions of a row inside one span, spans
+    with none between valid ones, and an all-masked row."""
+    for b, hq, hkv, d, t in ((3, 16, 1, 64, 700), (2, 64, 1, 64, 333)):
+        q, k, v, _ = decode_case(b, hq, hkv, d, t, seed=hq)
+        valid = np.zeros((b, t), bool)
+        valid[1, 40:60] = True  # one span only
+        valid[-1, :5] = valid[-1, t - 5:] = True  # the two ends
+        q, k, v, valid = (torch.from_numpy(a).to(cuda)
+                          for a in (q, k, v, valid))
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        got = ops.decode_attn(q, k, v, valid, impl="cuda")
+        want = ref.decode_attn_ref(q.float(), k.float(), v.float(), valid)
+        torch.testing.assert_close(got.float(), want, rtol=0,
+                                   atol=DECODE_TOL[dtype])
+        mean = v[0].float().mean(dim=0).repeat_interleave(hq // hkv, dim=0)
+        torch.testing.assert_close(got[0].float(), mean, rtol=0,
+                                   atol=DECODE_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_decode_attn_kernel_refuses_head_dims_past_its_limit(cuda):
+    """Any group size runs; a head dim past 256 raises instead of
+    launching."""
     q, k, v, valid = (torch.from_numpy(a).to(cuda)
-                      for a in decode_case(1, 16, 1, 64, 40))
-    with pytest.raises(ValueError, match="G <= 8"):
+                      for a in decode_case(1, 4, 2, 264, 40))
+    with pytest.raises(ValueError, match="D <= 256"):
         ops.decode_attn(q, k, v, valid, impl="cuda")
 
 
@@ -244,7 +272,13 @@ SSD_CASES = [(2, 64, 4, 16, 1, 32, 16, torch.float32),
              (1, 96, 2, 32, 2, 16, 32, torch.float32),
              (2, 50, 4, 16, 1, 16, 16, torch.float32),
              (1, 300, 80, 64, 1, 64, 128, torch.float32),
-             (1, 300, 32, 64, 1, 128, 128, torch.bfloat16)]
+             (1, 300, 32, 64, 1, 128, 128, torch.bfloat16),
+             # one chunk (a short prompt), an exact multiple of the chunk,
+             # N = 256 at L = 128, and the long case's two batch rows
+             (1, 100, 80, 64, 1, 64, 128, torch.bfloat16),
+             (1, 256, 32, 64, 1, 128, 128, torch.bfloat16),
+             (1, 300, 8, 64, 1, 256, 128, torch.bfloat16),
+             (2, 1024, 8, 64, 2, 64, 128, torch.bfloat16)]
 SSD_TOL = dict(atol=3e-4, rtol=1e-3)  # test_ssd_kernel_matches_sequential_ref
 # bf16 y: both versions compute in f32 from the same bf16 inputs and round
 # once, so an entry may differ by one bf16 unit in the last place
