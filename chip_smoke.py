@@ -13,7 +13,12 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    the shapes of the serving paths, with its time, the plain version's
    time, a PyTorch library yardstick (never called by the port) and the
    least time the card could take (bytes over 3.35 TB/s, operations over
-   the published peak): top-k + lse, paged decode attention, dense-cache
+   the published peak): top-k + lse (bf16 logits as the recorder passes
+   them, and f32; k of 1 to 4096 and k = V, ±0 and -inf ties; timed warm,
+   cold and as device time alone, also by k and route), paged decode
+   attention (pages of 5, 16 and 256, G = 16 and 48, D = 36, rows that
+   attend nothing; timed as the dense kernel is, also in a 2048-position
+   table), dense-cache
    decode attention (zamba2's D = 80, G = 1 and llama3-8b's shapes, an
    all-masked row, a rolling window, f32 (also D = 256), the JAX test's
    G = 16 and a granite-34b-like G = 48 with a row valid in one span only,
@@ -26,9 +31,9 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    llama3-8b (32 layers, bf16, random weights from a seed): 8 slots, 16
    requests, prompt 128, 32 new tokens, paged KV (16-token pages), top-k
    retention (k = 64), device ledger, greedy. The engine runs its warm fused
-   step with host syncs made errors. Every kernel's launch count over this
-   phase must be > 0, every request must finish and the ledger must hold
-   every instance id;
+   step with host syncs made errors. ``paged_decode_attn`` must launch 32
+   times a step and ``topk_lse`` once a step and once an admission, every
+   request must finish and the ledger must hold every instance id;
 5. profile — the same configuration again, five warm decode steps timed
    by the host clock and five under torch.profiler: device time per step,
    kernel launches per step and the kernels that take the most time;
@@ -162,40 +167,123 @@ def bound(bytes_moved: float, flops: float, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def topk_check(torch, ops, ref, x, k) -> float:
+    """Kernel against the plain version: indices and values exact, the lse
+    within TOPK_TOL -> its max abs error."""
+    vals, idx, lse = ops.topk_lse(x, k, impl="cuda")
+    rv, ri, rl = ref.topk_lse_ref(x, k)
+    what = f"topk_lse {x.dtype} {tuple(x.shape)} k={k}"
+    if not torch.equal(idx, ri):
+        raise AssertionError(f"{what}: indices differ from the plain version")
+    if not torch.equal(vals, rv):
+        raise AssertionError(f"{what}: values differ from the plain version")
+    err = (lse - rl).abs().max().item()
+    if not err <= TOPK_TOL:
+        raise AssertionError(f"{what}: lse err {err} > {TOPK_TOL}")
+    return err
+
+
+def topk_edges(torch, x):
+    """``x`` with row 1 at or below 0 and -0.0 and +0.0 among its largest
+    values (they tie: the lower index first), and a run of -inf in row 2."""
+    x = x.clone()
+    v = x.shape[1]
+    x[1] = -x[1].abs()
+    x[1, [5, 17, v // 2 + 1, v - 1]] = torch.tensor([-0.0, 0.0, -0.0, 0.0],
+                                                    device=x.device)
+    x[2, v // 3:v // 3 + 100] = float("-inf")
+    return x
+
+
+TOPK_KS = (1, 64, 65, 256, 4096)  # 4096: the most sorted in shared memory
+
+
 def topk_phase(torch, ops, ref) -> dict:
+    """The recorder's call at the serve shape (T = 8 slots, llama3's vocab,
+    k = 64) on bf16 logits, as the model gives them, and on f32; k of 1 to
+    4096, V = 4097 with k = 64 and k = V (sorted in global scratch), ties
+    across blocks, ±0 and -inf ties. Timed eager, with a cold L2 and as
+    device time alone (CUDA graph replay) beside torch.topk + logsumexp;
+    device time at each k and route."""
     t, v, k = 8, 128256, 64  # slots, llama3 vocab, --topk default
     g = torch.Generator(device="cuda").manual_seed(0)
     logits = torch.randn((t, v), device="cuda", generator=g) * 3
     logits[:, 1000:1100] = logits[:, 5:6]  # a 100-way tie on every row
     logits[:, 70000] = logits.amax(dim=1)  # a tie with the row's maximum
-    vals, idx, lse = ops.topk_lse(logits, k, impl="cuda")
-    rv, ri, rl = ref.topk_lse_ref(logits, k)
-    torch.cuda.synchronize()
-    if not torch.equal(idx, ri):
-        raise AssertionError("topk_lse: indices differ from the plain version")
-    err = max((vals - rv).abs().max().item(), (lse - rl).abs().max().item())
-    if err > TOPK_TOL:
-        raise AssertionError(f"topk_lse: max abs err {err} > {TOPK_TOL}")
-    ms = time_ms(lambda: ops.topk_lse(logits, k, impl="cuda"))
-    plain_ms = time_ms(lambda: ref.topk_lse_ref(logits, k))
-    lib_ms = time_ms(lambda: (torch.topk(logits, k, dim=-1),
-                              torch.logsumexp(logits, dim=-1)))
-    b, by = bound(t * v * 4 + t * k * 8 + t * 4, 3.0 * t * v, "f32")
+    edges = topk_edges(torch, logits)
+    small = topk_edges(torch, torch.randn((3, 4097), device="cuda",
+                                          generator=g) * 3)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for x in (logits, edges):
+            for kk in TOPK_KS:
+                err = max(err, topk_check(torch, ops, ref, x.to(dtype), kk))
+        for kk in (64, 4097):
+            err = max(err, topk_check(torch, ops, ref, small.to(dtype), kk))
+    x = logits.to(torch.bfloat16)
+
+    def kernel(x, kk=k):
+        return ops.topk_lse(x, kk, impl="cuda")
+
+    def library(x, kk=k):
+        return (torch.topk(x, kk, dim=-1),
+                torch.logsumexp(x.to(torch.float32), dim=-1))
+
+    copies = [(x.clone(),) for _ in range(-(-COLD_BYTES // (x.numel() * 2)))]
+    r = dict(
+        ms=time_ms(lambda: kernel(x)),
+        plain_ms=time_ms(lambda: ref.topk_lse_ref(x, k)),
+        library_ms=time_ms(lambda: library(x)),
+        cold_ms=time_ms_cold(kernel, copies),
+        cold_library_ms=time_ms_cold(library, copies),
+        dev_ms=time_ms_graph(kernel, [(x,)] * 10),
+        dev_library_ms=time_ms_graph(library, [(x,)] * 10),
+        dev_cold_ms=time_ms_graph(kernel, copies),
+        dev_cold_library_ms=time_ms_graph(library, copies),
+        f32_ms=time_ms(lambda: kernel(logits)),
+        f32_dev_ms=time_ms_graph(kernel, [(logits,)] * 10),
+        f32_dev_library_ms=time_ms_graph(library, [(logits,)] * 10),
+    )
+    del copies
+    per_k = {kk: time_ms_graph(lambda x, kk=kk: kernel(x, kk), [(x,)] * 10)
+             for kk in (1, 64, 256, 4096, 8192)}  # 8192: global scratch
+    xs = small.to(torch.bfloat16)
+    per_k["V=4097, k=V"] = time_ms_graph(lambda x: kernel(x, 4097),
+                                         [(xs,)] * 10)
+    b, by = bound(t * v * 2 + t * k * 8 + t * 4, 3.0 * t * v, "f32")
+    b32 = bound(t * v * 4 + t * k * 8 + t * 4, 3.0 * t * v, "f32")[0]
     return dict(
         name="topk_lse", route="cuda",
         source="src/repro_torch/kernels/csrc/topk_lse.cu",
         replaces="src/repro/kernels/topk_lse.py:118",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-        library_ms=lib_ms, shape=f"T={t} V={v} k={k} f32", tol=TOPK_TOL,
+        max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b,
+        bound_by=by, library_ms=r["library_ms"], dev_ms=r["dev_ms"],
+        dev_cold_ms=r["dev_cold_ms"], dev_library_ms=r["dev_library_ms"],
+        shape=(f"T={t} V={v} k={k} bf16; cold L2 {r['cold_ms']:.4f} ms, "
+               f"library cold {r['cold_library_ms']:.4f}; device time alone "
+               f"(CUDA graph replay) warm {r['dev_ms']:.4f}, cold "
+               f"{r['dev_cold_ms']:.4f}, library warm "
+               f"{r['dev_library_ms']:.4f}, cold "
+               f"{r['dev_cold_library_ms']:.4f}; f32 logits {r['f32_ms']:.4f} "
+               f"ms, device {r['f32_dev_ms']:.4f}, library device "
+               f"{r['f32_dev_library_ms']:.4f}, bound {b32:.5f}; device warm "
+               f"by k (bf16): "
+               + ", ".join(f"{kk} {ms:.4f}" for kk, ms in per_k.items())
+               + f"; one launch per call, a cluster per row; checked at k "
+               f"{', '.join(map(str, TOPK_KS))} in f32 and bf16, V=4097 at "
+               f"k=64 and k=V, ties across blocks, ±0 and -inf ties"),
+        tol=f"{TOPK_TOL} lse; values and indices exact",
     )
 
 
 def paged_case(torch, dtype, g, page=16, npg=10,
-               pos=(0, 15, 16, 31, 47, 100, 127, 159), hole=True):
-    """llama3-8b decode shapes: 8 rows, 32 query / 8 kv heads of 128, a
-    shuffled pool; -1 past every row's pos and, with ``hole``, a -1 page
-    inside row 5's context."""
-    b, hq, hkv, d = len(pos), 32, 8, 128
+               pos=(0, 15, 16, 31, 47, 100, 127, 159), hole=True,
+               heads=(32, 8, 128), empty=False):
+    """llama3-8b decode shapes by default: 8 rows, 32 query / 8 kv heads of
+    128, a shuffled pool; -1 past every row's pos and, with ``hole``, a -1
+    page inside row 5's context; with ``empty``, row 1's pages all -1 and
+    row 2's pos -1 (both attend nothing: the mean of V)."""
+    b, (hq, hkv, d) = len(pos), heads
     p_ = b * npg + 3
     kp = torch.randn((p_, page, hkv, d), device="cuda", generator=g).to(dtype)
     vp = torch.randn((p_, page, hkv, d), device="cuda", generator=g).to(dtype)
@@ -209,6 +297,10 @@ def paged_case(torch, dtype, g, page=16, npg=10,
         used += n
     if hole:
         pt[5, 1] = -1
+    pos = list(pos)
+    if empty:
+        pt[1] = -1
+        pos[2] = -1
     return (q, kp, vp, pt.cuda(),
             torch.tensor(pos, dtype=torch.int32, device="cuda"))
 
@@ -217,24 +309,87 @@ def paged_check(torch, ops, ref, case, tol) -> float:
     """Kernel against the plain version run in f32 -> max abs error."""
     q, kp, vp, pt, pos = case
     out = ops.paged_decode_attn(q, kp, vp, pt, pos, impl="cuda")
+    if out.dtype != q.dtype:
+        raise AssertionError(f"paged_decode_attn gave {out.dtype} for "
+                             f"{q.dtype}")
     want = ref.paged_decode_attn_ref(q.float(), kp.float(), vp.float(), pt,
                                      pos)
     diff = (out.float() - want).abs()
-    if (diff > tol * (1 + want.abs())).any():
+    if not (diff <= tol * (1 + want.abs())).all():
         raise AssertionError(f"paged_decode_attn {q.dtype} page "
-                             f"{kp.shape[1]}: err {diff.max().item()}")
+                             f"{kp.shape[1]} heads {q.shape[1]}/"
+                             f"{kp.shape[2]}: err {diff.max().item()}")
     return diff.max().item()
 
 
 # the serve phase's rows decode at contexts 81-160 (prompts 80-128 plus up
 # to 32 new tokens); the timed case puts every row in its top half
 SERVE_POS = (159, 151, 147, 143, 139, 135, 131, 128)
+# (Hq, Hkv, D): llama3-8b's heads, the JAX test's G = 16, a granite-34b-like
+# G = 48 (three head slices) and D = 36 (144-byte rows in f32, 72-byte ones
+# in bf16, which take the scalar copy)
+PAGED_HEADS = ((32, 8, 128), (16, 1, 64), (48, 1, 128), (8, 2, 36))
+# pages of 256 (spans inside one page) and of 5 (a tile crosses many)
+PAGED_LAYOUTS = ({}, dict(page=256, npg=3,
+                          pos=(0, 255, 256, 300, 511, 600, 700, 767)),
+                 dict(page=5, npg=32, pos=(0, 4, 5, 77, 100, 120, 150, 159)))
+
+
+def paged_timings(torch, ops, ref, case, plain=False) -> dict:
+    """Eager, cold-L2 and device-alone (CUDA graph replay) times of the
+    kernel and of page gather + SDPA on ``case``, and the bound."""
+    import torch.nn.functional as F
+
+    q, kp, vp, pt, pos = case
+    b, hq, d = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    t = pt.shape[1] * page
+    tpos = torch.arange(t, device="cuda")
+    valid = (tpos[None] <= pos[:, None]) & (pt >= 0).repeat_interleave(page, 1)
+
+    def kernel(q, kp, vp, pt, pos, valid):
+        return ops.paged_decode_attn(q, kp, vp, pt, pos, impl="cuda")
+
+    def library(q, kp, vp, pt, pos, valid):
+        k = kp[pt.long().clamp(min=0)].reshape(b, t, hkv, d).transpose(1, 2)
+        v = vp[pt.long().clamp(min=0)].reshape(b, t, hkv, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=valid[:, None, None],
+            enable_gqa=True,
+        )
+
+    args = (q, kp, vp, pt, pos, valid)
+    n = -(-COLD_BYTES // (2 * kp.numel() * kp.element_size()))
+    copies = [tuple(x.clone() for x in args) for _ in range(n)]
+    ntok = int(valid.sum().item())  # attended positions, summed over rows
+    moved = (2 * ntok * hkv * d * kp.element_size()
+             + 2 * q.numel() * q.element_size() + pt.numel() * 4
+             + pos.numel() * 4)
+    out = dict(
+        ms=time_ms(lambda: kernel(*args)),
+        library_ms=time_ms(lambda: library(*args)),
+        cold_ms=time_ms_cold(kernel, copies),
+        cold_library_ms=time_ms_cold(library, copies),
+        dev_ms=time_ms_graph(kernel, [args] * 10),
+        dev_library_ms=time_ms_graph(library, [args] * 10),
+        dev_cold_ms=time_ms_graph(kernel, copies),
+        dev_cold_library_ms=time_ms_graph(library, copies),
+        bound=bound(moved, 4.0 * ntok * hq * d, "bf16"),
+    )
+    if plain:
+        out["plain_ms"] = time_ms(
+            lambda: ref.paged_decode_attn_ref(q, kp, vp, pt, pos))
+    del copies
+    return out
 
 
 def paged_phase(torch, ops, ref) -> dict:
-    """Correctness at page edges, holes and pages of 256 (larger than the
-    kernel's tile); time and bound at the serve phase's shapes and load."""
-    import torch.nn.functional as F
+    """Correctness at page edges, holes, pages of 5 and 256, G = 16 and 48,
+    D = 36, rows that attend nothing (all pages -1, pos = -1), f32 and bf16;
+    time and bound at the serve phase's shapes and load, warm, cold and as
+    device time alone, beside page gather + SDPA; device time at a
+    2048-position table with contexts 50-2048 and 129-160."""
+    from repro_torch.kernels.decode_attn import split_plan
 
     g = torch.Generator(device="cuda").manual_seed(1)
     err32 = max(
@@ -251,40 +406,56 @@ def paged_phase(torch, ops, ref) -> dict:
             torch, torch.bfloat16, g, page=256, npg=3,
             pos=(0, 255, 256, 300, 511, 600, 700, 767)), PAGED_BF16_TOL),
     )
+    for heads in PAGED_HEADS:
+        for kw in PAGED_LAYOUTS:
+            err32 = max(err32, paged_check(torch, ops, ref, paged_case(
+                torch, torch.float32, g, heads=heads, empty=True, **kw),
+                PAGED_F32_TOL))
+            err = max(err, paged_check(torch, ops, ref, paged_case(
+                torch, torch.bfloat16, g, heads=heads, empty=True, **kw),
+                PAGED_BF16_TOL))
     case = paged_case(torch, torch.bfloat16, g, pos=SERVE_POS, hole=False)
     err = max(err, paged_check(torch, ops, ref, case, PAGED_BF16_TOL))
-    q, kp, vp, pt, pos = case
-    ms = time_ms(lambda: ops.paged_decode_attn(q, kp, vp, pt, pos, impl="cuda"))
-    plain_ms = time_ms(lambda: ref.paged_decode_attn_ref(q, kp, vp, pt, pos))
+    r = paged_timings(torch, ops, ref, case, plain=True)
+    q, kp = case[0], case[1]
     b, hq, d = q.shape
     page, hkv = kp.shape[1], kp.shape[2]
-    t = pt.shape[1] * page
-    tpos = torch.arange(t, device="cuda")
-    valid = (tpos[None] <= pos[:, None]) & (pt >= 0).repeat_interleave(page, 1)
-
-    def library():
-        k = kp[pt.long().clamp(min=0)].reshape(b, t, hkv, d).transpose(1, 2)
-        v = vp[pt.long().clamp(min=0)].reshape(b, t, hkv, d).transpose(1, 2)
-        return F.scaled_dot_product_attention(
-            q[:, :, None], k, v, attn_mask=valid[:, None, None],
-            enable_gqa=True,
-        )
-
-    lib_ms = time_ms(library)
-    ntok = int(valid.sum().item())  # attended positions, summed over rows
-    moved = (2 * ntok * hkv * d * 2 + 2 * q.numel() * 2 + pt.numel() * 4
-             + pos.numel() * 4)
-    bnd, by = bound(moved, 4.0 * ntok * (hq // hkv) * hkv * d, "bf16")
+    plan = split_plan(b, hq, hkv, case[3].shape[1] * page, d, 2)
+    del case
+    longs = {}
+    for name, pos in (("contexts 50-2048", MIXED_POS),
+                      ("contexts 129-160", SERVE_POS)):
+        case = paged_case(torch, torch.bfloat16, g, npg=128, pos=pos,
+                          hole=False)
+        err = max(err, paged_check(torch, ops, ref, case, PAGED_BF16_TOL))
+        longs[name] = paged_timings(torch, ops, ref, case)
+        del case
+    lp = split_plan(b, hq, hkv, 2048, d, 2)
     return dict(
         name="paged_decode_attn", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_decode_attn.cu",
+        source="src/repro_torch/kernels/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn.py:115",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-        bound_by=by, library_ms=lib_ms, f32_max_abs_err=err32,
-        shape=f"B={b} Hq={hq} Hkv={hkv} D={d} page={page} ctx "
-              f"{min(SERVE_POS) + 1}-{max(SERVE_POS) + 1} bf16 (checked "
-              f"also at page 256 and in f32, f32 err {err32:.3g})",
-        tol=PAGED_BF16_TOL,
+        max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound"][0], bound_by=r["bound"][1],
+        library_ms=r["library_ms"], dev_ms=r["dev_ms"],
+        dev_cold_ms=r["dev_cold_ms"], dev_library_ms=r["dev_library_ms"],
+        f32_max_abs_err=err32,
+        shape=(f"B={b} Hq={hq} Hkv={hkv} D={d} page={page} ctx "
+               f"{min(SERVE_POS) + 1}-{max(SERVE_POS) + 1} bf16, "
+               f"{plan[2]} spans of {plan[3]}; cold L2 {r['cold_ms']:.4f} "
+               f"ms, library cold {r['cold_library_ms']:.4f}; device time "
+               f"alone (CUDA graph replay) warm {r['dev_ms']:.4f}, cold "
+               f"{r['dev_cold_ms']:.4f}, library warm "
+               f"{r['dev_library_ms']:.4f}, cold "
+               f"{r['dev_cold_library_ms']:.4f}; a 2048-position table "
+               f"({lp[2]} spans of {lp[3]}), device cold kernel / library: "
+               + "; ".join(f"{n} {x['dev_cold_ms']:.4f} / "
+                           f"{x['dev_cold_library_ms']:.4f} (bound "
+                           f"{x['bound'][0]:.5f})" for n, x in longs.items())
+               + f"; library = page gather + SDPA; checked also at pages of "
+               f"5 and 256, G=16 and 48, D=36, rows with every page -1 and "
+               f"pos=-1, and in f32 (err {err32:.3g})"),
+        tol=f"{PAGED_BF16_TOL} bf16, {PAGED_F32_TOL} f32 (times 1 + |plain|)",
     )
 
 
@@ -429,7 +600,7 @@ def decode_attn_phase(torch, ops, ref) -> dict:
     at both serving shapes, warm (inputs in L2) and cold."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attn import dense_split_plan
+    from repro_torch.kernels.decode_attn import split_plan
 
     g = torch.Generator(device="cuda").manual_seed(2)
     zamba = decode_inputs(torch, g, 8, 32, 32, 80, 332, torch.bfloat16)
@@ -465,7 +636,7 @@ def decode_attn_phase(torch, ops, ref) -> dict:
     wide = []
     for shape in ((3, 16, 1, 64, 700), (8, 48, 1, 128, 512)):
         b_, hq_, hkv_, d_, t_ = shape
-        _, _, nsplit, span, _ = dense_split_plan(b_, hq_, hkv_, t_, d_, 2)
+        _, _, nsplit, span, _ = split_plan(b_, hq_, hkv_, t_, d_, 2)
         mask = depth_mask(torch, tuple(range(t_ - 1, -1, -(t_ // b_)))[:b_],
                           t_)
         mask[0] = False
@@ -516,7 +687,7 @@ def decode_attn_phase(torch, ops, ref) -> dict:
             dev_cold_ms=time_ms_graph(kernel, copies),
             dev_cold_library_ms=time_ms_graph(library, lib_copies),
             bound=bound(moved, 4.0 * ntok * hq * d, "bf16"),
-            plan=dense_split_plan(b, hq, hkv, t, d, k.element_size()),
+            plan=split_plan(b, hq, hkv, t, d, k.element_size()),
         )
         del copies, lib_copies
         return out
@@ -1545,6 +1716,11 @@ def main() -> int:
         show(phase(torch, ops, ref))
     with tempfile.TemporaryDirectory() as tmp:
         s = serve_phase(torch, ops, tmp)
+    _per_path(s, {"paged_decode_attn": (32, "step"),
+                  "decode_attn": (0, "step")})
+    if s["launches"]["topk_lse"] != s["steps"] + s["admitted"]:
+        raise AssertionError(f"topk_lse launched {s['launches']['topk_lse']} "
+                             f"times, not one per step and per admission")
     print(serve_line("serve: llama3-8b 32 layers bf16, paged", s), flush=True)
     print(f"profile: {profile_phase(torch)}", flush=True)
     print(f"reference: {reference_phase(torch)}", flush=True)
@@ -1589,7 +1765,9 @@ def main() -> int:
     print(f"train profile: {train_profile_phase(torch)}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("bound_f32_ms",)  # ssd: its bound at the CUDA cores' f32 rate
+    # ssd: its bound at the CUDA cores' f32 rate; topk_lse and
+    # paged_decode_attn: device time alone, warm and cold, and the library's
+    extra = ("bound_f32_ms", "dev_ms", "dev_cold_ms", "dev_library_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in keys or k in r}
         for r in kernels]}))

@@ -37,9 +37,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # exported C function -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    "topk_lse_f32": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "topk_lse": [
+        _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
+    ],
     "paged_decode_attn": [
-        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+        _I, _I, _I, _I, _P,
     ],
     "decode_attn": [
         _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,

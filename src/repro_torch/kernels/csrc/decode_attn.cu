@@ -1,46 +1,63 @@
-// Single-token GQA decode attention against a dense KV cache with a validity
-// mask, hand-written for Hopper (sm_90a): flash-decoding, any group size.
+// Single-token GQA decode attention, hand-written for Hopper (sm_90a):
+// flash-decoding over a dense cache with a validity mask or over a paged
+// pool read through a page table, any group size. One kernel body serves
+// both; a template parameter says how a position is found and whether it
+// is attended.
 //
-// Replaces the Pallas TPU kernel
+// Replaces the Pallas TPU kernels
 // src/repro/kernels/decode_attn.py::decode_attn (_decode_kernel):
 // q [B, Hq, D], K/V [B, T, Hkv, D], valid [B, T] (bytes, 0 or 1) ->
 // out [B, Hq, D] in q's dtype. The mask carries every cache layout: slot
-// occupancy, rolling sliding-window slots, windows. A masked score is
-// -1e30, as in the Pallas kernel and the plain version, so a row with no
-// valid position gets uniform weights: the mean of V over all T.
+// occupancy, rolling sliding-window slots, windows;
+// and src/repro/kernels/decode_attn.py::paged_decode_attn
+// (_paged_decode_kernel): the same q against page pools K/V [P, page, Hkv,
+// D] through a page table [B, NP] i32 (-1 = unallocated) and pos [B] i32.
+// Position t of row b lives at row pt[b, t / page] * page + t % page of the
+// pool and is attended iff t <= pos[b] and its page is allocated; the
+// kernel works on the logical cache of T = NP * page positions.
+// A masked score is -1e30, as in the Pallas kernels and the plain versions,
+// so a row with no attended position gets uniform weights: the mean of V
+// over all T (for the paged cache, over the NP * page positions the table
+// addresses, a -1 page read as page 0, as the Pallas kernel's DMA clamps
+// it and the plain version's gather does).
 //
 // Bound on the H100: memory. Each attended K and V row is read once (at
 // zamba2-2.7b's decode, B = 8, T = 332, Hkv = 32, D = 80 in bf16: about
-// 27 MB, 8 us at 3.35 TB/s; at llama3-8b's, Hkv = 8, D = 128, T = 160:
-// about 5.2 MB, 1.6 us); the arithmetic is 4 * Hq * D flops per position,
-// two orders of magnitude under the bf16 rate.
+// 27 MB, 8 us at 3.35 TB/s; at llama3-8b's, paged or dense, Hkv = 8, D =
+// 128, context 160: about 5.2 MB, 1.6 us); the arithmetic is 4 * Hq * D
+// flops per position, two orders of magnitude under the bf16 rate.
 //
-// Design: the TPU grid (B, Hkv, T / bt) carries the online softmax across
-// its sequential T axis in VMEM scratch. Here the T axis of one (row, kv
-// head) is cut into `nsplit` spans, one block each, and a group of more
-// than kGroupMax = 16 query heads into slices, one block each: a block is
-// one (row, kv head, head slice, span). A decode call is short, so what
-// costs time is the chain of round trips to memory inside a block, not the
-// arithmetic: a block first issues 16-byte cp.async copies of every K and
-// V row of its first tile (up to 128 positions, the wrapper sizes the tile
-// to about 36 KB of shared memory; rows padded by 16 bytes so that the
-// 16-byte reads of eight lanes hit distinct banks; a row whose bytes are
-// no multiple of 16, or an unaligned pointer, takes a scalar copy into the
-// same layout), reads q while they fly, and then scores the whole tile at
-// once: one thread (or up to 8 lanes meeting by shuffles) per (head,
-// position) score, one warp per head for the softmax, and a P.V product
-// in which each thread owns fixed (head, 16-byte column chunk) outputs and,
-// where there are fewer outputs than threads, a share of the positions
-// (the shares are added in shared memory at the end); accumulators live in
-// registers, at most 32 floats a thread. At the serving shapes a span is
-// one tile; a longer span walks its tiles with the online softmax. A
-// masked score is -1e30, so a tile with no valid position adds weight
-// exp(-1e30 - M) = 0 when its row has a valid position elsewhere: such a
-// tile is not read at all (the block checks the tile's mask bytes, read
-// with q, before it issues the copies; a row that a short prompt leaves
-// mostly empty reads only its valid tiles), and an all-masked row reads
-// and averages V over all T. With nsplit = 1 the block writes the output
-// itself.
+// Design: the TPU grid (B, Hkv, T / bt) or (B, Hkv, NP) carries the online
+// softmax across its sequential last axis in VMEM scratch. Here the T axis
+// of one (row, kv head) is cut into `nsplit` spans, one block each, and a
+// group of more than kGroupMax = 16 query heads into slices, one block
+// each: a block is one (row, kv head, head slice, span). A decode call is
+// short, so what costs time is the chain of round trips to memory inside a
+// block, not the arithmetic. A block first reads, with q, what says where
+// each position of its first tile lives and whether it is attended (dense:
+// the tile's mask bytes; paged: pos[b] and the page id of each position,
+// so a 128-position tile at page 16 reads 8 table entries), keeps the
+// tile's row indices in shared memory, then issues 16-byte cp.async copies
+// of every K and V row of the tile at once (up to 128 positions, the
+// wrapper sizes the tile to about 36 KB of shared memory; a tile may cross
+// any number of pages; rows padded by 16 bytes so that the 16-byte reads of
+// eight lanes hit distinct banks; a row whose bytes are no multiple of 16,
+// or an unaligned pointer, takes a scalar copy into the same layout), and
+// scores the whole tile at once: one thread (or up to 8 lanes meeting by
+// shuffles) per (head, position) score, one warp per head for the softmax,
+// and a P.V product in which each thread owns fixed (head, 16-byte column
+// chunk) outputs and, where there are fewer outputs than threads, a share
+// of the positions (the shares are added in shared memory at the end);
+// accumulators live in registers, at most 32 floats a thread. At the
+// serving shapes a span is one tile; a longer span walks its tiles with the
+// online softmax. A masked score is -1e30, so a tile with no attended
+// position adds weight exp(-1e30 - M) = 0 when its row has an attended
+// position elsewhere: such a tile is not read at all (tiles past pos[b] or
+// on -1 pages, and the empty tiles of a row that a short prompt leaves
+// mostly empty), and a row with none reads and averages V over all T. A
+// page id past the pool's end is a caller's bug: a device assert stops the
+// kernel, as an out-of-range index stops the plain version. With
+// nsplit = 1 the block writes the output itself.
 // Otherwise the spans of one (row, kv head, slice), at most kMaxSplit = 8
 // (Hopper's portable cluster size), run as one thread-block cluster: each
 // leaves its partial (max, sum, unnormalised accumulator, f32) in shared
@@ -48,8 +65,10 @@
 // (weights exp(m_i - M)) reading the others' partials through distributed
 // shared memory: no scratch, no fence, no atomics, one launch per call (no
 // second grid on a host-bound decode step). A longer cache walks more
-// tiles a span.
+// tiles a span. The split comes from shapes alone, never from pos, so a
+// call makes no host sync.
 
+#include <assert.h>
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +76,29 @@
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
+
+// Phase stamps for tools/kernel_phases.py, compiled in only with
+// -DKERNEL_PHASES: thread 0 of blocks 0 and 1 writes clock64() at each
+// numbered point of its life (PHASE below), read back by read_phases.
+#ifdef KERNEL_PHASES
+__device__ unsigned long long g_phases[2][32];
+#define PHASE(i)                                                   \
+  do {                                                             \
+    if (threadIdx.x == 0 && blockIdx.x < 2 && (i) < 32)            \
+      g_phases[blockIdx.x][(i)] = clock64();                       \
+  } while (0)
+extern "C" int read_phases(unsigned long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_phases, sizeof(g_phases));
+}
+extern "C" int clear_phases() {
+  static const unsigned long long zero[2][32] = {};
+  return (int)cudaMemcpyToSymbol(g_phases, zero, sizeof(g_phases));
+}
+#else
+#define PHASE(i) \
+  do {           \
+  } while (0)
+#endif
 
 namespace {
 
@@ -68,6 +110,14 @@ constexpr int kMaxTile = 128;  // positions staged at once
 constexpr int kMaxSplit = 8;   // spans per (row, kv head): one cluster
 constexpr int kAcc = 32;       // accumulator floats per thread
 constexpr float kMasked = -1e30f;
+
+// where the positions of a row live and which are attended
+struct Cache {
+  const uint8_t* valid;  // dense: [B, T] bytes
+  const int* pt;         // paged: [B, NP] page ids, -1 = unallocated
+  const int* pos;        // paged: [B], position pos[b] is attended
+  int page, NP, P;       // paged: page size, table width, pool pages
+};
 
 // 16-byte chunks of a row in shared memory, as floats
 template <typename T>
@@ -132,12 +182,12 @@ __host__ __device__ constexpr size_t align16(size_t x) {
 // positions, in bytes from the start: K and V tiles [tile, rowb] each
 // (later the P.V shares, then the span's partial), q [gsz, nchunk * E]
 // f32, scores [gsz, tile] f32, running (m, l, rescale) [gsz] f32, the
-// merge's span weights [gsz, kMaxSplit] and sums [gsz], the tile's mask
-// bytes.
+// merge's span weights [gsz, kMaxSplit] and sums [gsz], the tile's cache
+// rows [tile] i32 and mask bytes [tile].
 struct Layout {
   int nchunk;  // 16-byte chunks of a K/V row (zero-padded past D)
   int rowb;    // bytes between staged rows
-  size_t q, s, m, l, c, w, lsum, mask, total;
+  size_t q, s, m, l, c, w, lsum, rows, mask, total;
 };
 __host__ __device__ inline Layout layout(int D, int esize, int gsz,
                                          int tile) {
@@ -165,19 +215,24 @@ __host__ __device__ inline Layout layout(int D, int esize, int gsz,
   o += align16(sizeof(float) * gsz * kMaxSplit);
   y.lsum = o;
   o += align16(sizeof(float) * gsz);
+  y.rows = o;
+  o += align16(sizeof(int) * tile);
   y.mask = o;
   o += align16(tile);
   y.total = o;
   return y;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dense_decode(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const uint8_t* __restrict__ valid,
-                 T* __restrict__ out, int Hq, int Hkv, int D, int Tn,
-                 float scale, int gslices, int gsz, int nsplit, int span,
-                 int tile, int vec) {
+// One (row, kv head, head slice, span) block; kPaged picks how a position
+// is found (the pool row through the page table, or row b's own slot) and
+// whether it is attended (t <= pos[b] on an allocated page, or its mask
+// byte).
+template <typename T, bool kPaged>
+__device__ __forceinline__ void decode_block(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const Cache cache, T* __restrict__ out, int Hq,
+    int Hkv, int D, int Tn, float scale, int gslices, int gsz, int nsplit,
+    int span, int tile, int vec) {
   constexpr int E = Vec<T>::E;
   constexpr int R = kAcc / E;  // output items a thread can own
   extern __shared__ __align__(16) unsigned char smem[];
@@ -188,8 +243,10 @@ __global__ void __launch_bounds__(kThreads)
   float* m_s = reinterpret_cast<float*>(smem + ly.m);
   float* l_s = reinterpret_cast<float*>(smem + ly.l);
   float* c_s = reinterpret_cast<float*>(smem + ly.c);
-  uint8_t* mask_s = smem + ly.mask;  // [tile]
+  int* rows_s = reinterpret_cast<int*>(smem + ly.rows);  // [tile]
+  uint8_t* mask_s = smem + ly.mask;                      // [tile]
 
+  PHASE(0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // spans fastest (a cluster's blocks are consecutive), then slices, then
   // (row, kv head)
@@ -202,9 +259,11 @@ __global__ void __launch_bounds__(kThreads)
   const int lo = split * span, hi = min(Tn, lo + span);
   const int nchunk = ly.nchunk, rowb = ly.rowb, Dp = nchunk * E;
 
-  const size_t kstride = (size_t)Hkv * D;  // elements between positions
-  const T* kbase = k + ((size_t)b * Tn * Hkv + h) * D;
-  const T* vbase = v + ((size_t)b * Tn * Hkv + h) * D;
+  // K/V row r of the cache (dense: b * T + t; paged: a pool row) starts at
+  // base + r * kstride
+  const size_t kstride = (size_t)Hkv * D;
+  const T* kbase = k + (size_t)h * D;
+  const T* vbase = v + (size_t)h * D;
   auto load_tile = [&](int t0) {
     const int ntok = min(tile, hi - t0);
     if (vec) {
@@ -212,7 +271,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int x = tid; x < 2 * n16; x += kThreads) {
         const int which = x >= n16, y = x - which * n16;
         const int j = y / nchunk, c = y - j * nchunk;
-        const T* src = (which ? vbase : kbase) + (t0 + j) * kstride + c * E;
+        const T* src =
+            (which ? vbase : kbase) + (size_t)rows_s[j] * kstride + c * E;
         cp_async16(kv + (which * tile + j) * rowb + c * 16, src);
       }
       cp_async_commit();
@@ -221,31 +281,62 @@ __global__ void __launch_bounds__(kThreads)
       for (int x = tid; x < 2 * n; x += kThreads) {
         const int which = x >= n, y = x - which * n;
         const int j = y / Dp, d = y - j * Dp;
-        const T* src = (which ? vbase : kbase) + (t0 + j) * kstride;
+        const T* src = (which ? vbase : kbase) + (size_t)rows_s[j] * kstride;
         T* dst = reinterpret_cast<T*>(kv + (which * tile + j) * rowb);
         dst[d] = d < D ? src[d] : from_f<T>(0.f);
       }
     }
   };
-  // thread tid holds the mask byte of the tile's position tid (tile <=
-  // kThreads); the first tile's is read with q, each later one's while the
-  // tile before it is scored
-  const uint8_t* vrow = valid + (size_t)b * Tn;
-  auto mask_byte = [&](int t0) -> uint8_t {
-    return (t0 < hi && tid < min(tile, hi - t0)) ? vrow[t0 + tid] : 0;
+  // thread tid probes the tile's position tid (tile <= kThreads): its cache
+  // row and whether it is attended; the first tile's probe is read with q,
+  // each later one's while the tile before it is scored
+  const uint8_t* vrow = kPaged ? nullptr : cache.valid + (size_t)b * Tn;
+  const int* ptrow = kPaged ? cache.pt + (size_t)b * cache.NP : nullptr;
+  const int last = kPaged ? cache.pos[b] : 0;  // inclusive
+  struct Probe {
+    int row;
+    uint8_t ok;
   };
-  uint8_t mine = mask_byte(lo);
-  // whether a tile is read (block-uniform): when it holds a valid position,
-  // or when its row holds none at all (the mean of V); a tile with no valid
-  // position in a row with one elsewhere adds exp(-1e30 - m) = 0 wherever
+  auto probe = [&](int t0) -> Probe {
+    Probe p{0, 0};
+    if (t0 < hi && tid < min(tile, hi - t0)) {
+      const int t = t0 + tid;
+      if constexpr (kPaged) {
+        const int pg = ptrow[t / cache.page];
+        assert(pg < cache.P);  // a page id past the pool: a corrupt table
+        p.row = max(pg, 0) * cache.page + t % cache.page;
+        p.ok = t <= last && pg >= 0;
+      } else {
+        p.row = b * Tn + t;
+        p.ok = vrow[t];
+      }
+    }
+    return p;
+  };
+  auto stage = [&](const Probe& p) {
+    if (tid < tile) {
+      rows_s[tid] = p.row;
+      mask_s[tid] = p.ok;
+    }
+  };
+  Probe mine = probe(lo);
+  // whether a tile is read (block-uniform): when it holds an attended
+  // position, or when its row holds none at all (the mean of V); a tile
+  // with none in a row with one elsewhere adds exp(-1e30 - m) = 0 wherever
   // it would be merged, so its K/V are not read. The row is scanned once,
   // and only if a tile of the span is empty.
   int row_any = -1;
-  auto tile_live = [&](uint8_t byte) -> bool {
-    if (__syncthreads_or(byte)) return true;
+  auto tile_live = [&](uint8_t ok) -> bool {
+    if (__syncthreads_or(ok)) return true;
     if (row_any < 0) {
       int any = 0;
-      for (int t = tid; t < Tn; t += kThreads) any |= vrow[t];
+      if constexpr (kPaged) {
+        for (int pi = tid; pi < cache.NP && pi * cache.page <= last;
+             pi += kThreads)
+          any |= ptrow[pi] >= 0;
+      } else {
+        for (int t = tid; t < Tn; t += kThreads) any |= vrow[t];
+      }
       row_any = __syncthreads_or(any);
     }
     return !row_any;
@@ -270,11 +361,10 @@ __global__ void __launch_bounds__(kThreads)
     m_s[tid] = kMasked;
     l_s[tid] = 0.f;
   }
-  bool live = tile_live(mine);  // also the barrier after q and the state
-  if (live) {
-    if (tid < tile) mask_s[tid] = mine;
-    load_tile(lo);  // every copy of the tile in flight at once
-  }
+  stage(mine);
+  bool live = tile_live(mine.ok);  // also the barrier after q and the state
+  PHASE(1);
+  if (live) load_tile(lo);  // every copy of the tile in flight at once
 
   // P.V outputs: `items` (head, chunk) pairs; with fewer items than threads
   // each item's positions are shared by `jparts` threads
@@ -290,10 +380,11 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int t0 = lo; t0 < hi; t0 += tile) {
     const int ntok = min(tile, hi - t0);
-    const uint8_t next = mask_byte(t0 + tile);
+    const Probe next = probe(t0 + tile);
     if (live) {
       if (vec) cp_async_wait_all();
       __syncthreads();  // the tile is in place
+      PHASE(2 + 4 * min(5, (t0 - lo) / tile));  // 2-25: four a tile
 
       // scores; every thread runs the same rounds, so the shuffles always see
       // full warps
@@ -320,6 +411,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();
 
+      PHASE(3 + 4 * min(5, (t0 - lo) / tile));
       // online softmax, one warp per query head
       for (int g = warp; g < gn; g += kWarps) {
         float* sr = s_s + g * tile;
@@ -348,6 +440,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();
 
+      PHASE(4 + 4 * min(5, (t0 - lo) / tile));
       // acc = acc * corr + P . V
       const unsigned char* vb = kv + tile * rowb;
 #pragma unroll
@@ -370,16 +463,16 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
+    PHASE(5 + 4 * min(5, (t0 - lo) / tile));
     if (t0 + tile < hi) {  // a longer span: the next tile into the same bytes
       __syncthreads();
-      live = tile_live(next);
-      if (live) {
-        if (tid < tile) mask_s[tid] = next;
-        load_tile(t0 + tile);
-      }
+      stage(next);
+      live = tile_live(next.ok);
+      if (live) load_tile(t0 + tile);
     }
   }
   __syncthreads();  // the tile's bytes are free
+  PHASE(26);
 
   if (jparts > 1) {  // add the position shares of each item (R = 1 here)
     float* red = reinterpret_cast<float*>(kv);
@@ -421,8 +514,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // each block of the cluster merges a slice of the outputs
+  PHASE(27);
   cg::cluster_group cl = cg::this_cluster();
   cl.sync();
+  PHASE(28);
   float* w_s = reinterpret_cast<float*>(smem + ly.w);  // [gsz, kMaxSplit]
   float* lsum_s = reinterpret_cast<float*>(smem + ly.lsum);
   if (tid < gn) {
@@ -448,20 +543,44 @@ __global__ void __launch_bounds__(kThreads)
       o += w_s[g * kMaxSplit + i] * cl.map_shared_rank(pm, i)[2 * gsz + x];
     out[qbase + x] = from_f<T>(o / lsum_s[g]);
   }
+  PHASE(29);
   cl.sync();  // keep this block's partial alive until all have read it
 }
 
+// two kernels (not one template) so that a profile tells them apart by name
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const uint8_t* valid,
+__global__ void __launch_bounds__(kThreads)
+    dense_decode(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const Cache cache,
+                 T* __restrict__ out, int Hq, int Hkv, int D, int Tn,
+                 float scale, int gslices, int gsz, int nsplit, int span,
+                 int tile, int vec) {
+  decode_block<T, false>(q, k, v, cache, out, Hq, Hkv, D, Tn, scale, gslices,
+                         gsz, nsplit, span, tile, vec);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const Cache cache,
+                 T* __restrict__ out, int Hq, int Hkv, int D, int Tn,
+                 float scale, int gslices, int gsz, int nsplit, int span,
+                 int tile, int vec) {
+  decode_block<T, true>(q, k, v, cache, out, Hq, Hkv, D, Tn, scale, gslices,
+                        gsz, nsplit, span, tile, vec);
+}
+
+template <typename T, bool kPaged>
+int launch(const void* q, const void* k, const void* v, const Cache& cache,
            void* out, int B, int Hq, int Hkv, int D, int Tn, float scale,
            int gslices, int gsz, int nsplit, int span, int tile, int vec,
            cudaStream_t s) {
+  auto kernel = kPaged ? paged_decode<T> : dense_decode<T>;
   const size_t smem = layout(D, sizeof(T), gsz, tile).total;
-  static size_t opted = 48 * 1024;  // per T: the most asked for so far
+  static size_t opted = 48 * 1024;  // per kernel: the most asked for so far
   if (smem > opted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dense_decode<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     opted = smem;
   }
@@ -479,46 +598,89 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* valid,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, dense_decode<T>, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), valid,
-      static_cast<T*>(out), Hq, Hkv, D, Tn, scale, gslices, gsz, nsplit,
-      span, tile, vec);
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), cache, static_cast<T*>(out), Hq, Hkv, D, Tn,
+      scale, gslices, gsz, nsplit, span, tile, vec);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// the split shared by both entry points: the group G = Hq / Hkv in
+// `gslices` slices of at most `gsz` <= 16 heads, T in `nsplit` <= 8 spans
+// of `span` positions (the last one shorter), each staged `tile` <= 128
+// positions at a time
+bool plan_ok(int B, int Hq, int Hkv, int D, int Tn, int gslices, int gsz,
+             int nsplit, int span, int tile) {
+  return !(B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > kMaxD ||
+           Tn <= 0 || gsz <= 0 || gsz > kGroupMax || gslices <= 0 ||
+           (long long)gslices * gsz < Hq / Hkv ||
+           (long long)(gslices - 1) * gsz >= Hq / Hkv || nsplit <= 0 ||
+           nsplit > kMaxSplit || span <= 0 || (long long)nsplit * span < Tn ||
+           (long long)(nsplit - 1) * span >= Tn || tile <= 0 ||
+           tile > kMaxTile);
+}
+
+template <bool kPaged>
+int dispatch(int dtype, const void* q, const void* k, const void* v,
+             const Cache& cache, void* out, int B, int Hq, int Hkv, int D,
+             int Tn, float scale, int gslices, int gsz, int nsplit, int span,
+             int tile, int vec, void* stream) {
+  if (!plan_ok(B, Hq, Hkv, D, Tn, gslices, gsz, nsplit, span, tile))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (vec && (D * 4) % 16) return (int)cudaErrorInvalidValue;
+    return launch<float, kPaged>(q, k, v, cache, out, B, Hq, Hkv, D, Tn,
+                                 scale, gslices, gsz, nsplit, span, tile, vec,
+                                 s);
+  }
+  if (dtype == 1) {
+    if (vec && (D * 2) % 16) return (int)cudaErrorInvalidValue;
+    return launch<__nv_bfloat16, kPaged>(q, k, v, cache, out, B, Hq, Hkv, D,
+                                         Tn, scale, gslices, gsz, nsplit,
+                                         span, tile, vec, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it); valid holds
-// one byte per (row, position). The group G = Hq / Hkv is cut into
-// `gslices` slices of at most `gsz` <= 16 heads and T into `nsplit` <= 8
-// spans of `span` positions (the last one shorter), each staged `tile` <=
-// 128 positions at a time. `vec` = 1 when every K/V row starts 16-byte
-// aligned. Launches on `stream`, returns the launch's cudaError_t (0 on
-// success), never synchronises.
+// one byte per (row, position). The plan (gslices, gsz, nsplit, span,
+// tile) is the wrapper's, checked by plan_ok. `vec` = 1 when every K/V row
+// starts 16-byte aligned. Launches on `stream`, returns the launch's
+// cudaError_t (0 on success), never synchronises.
 extern "C" int decode_attn(int dtype, const void* q, const void* k,
                            const void* v, const void* valid, void* out, int B,
                            int Hq, int Hkv, int D, int Tn, float scale,
                            int gslices, int gsz, int nsplit, int span,
                            int tile, int vec, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > kMaxD || Tn <= 0 ||
-      gsz <= 0 || gsz > kGroupMax || gslices <= 0 ||
-      (long long)gslices * gsz < Hq / Hkv ||
-      (long long)(gslices - 1) * gsz >= Hq / Hkv || nsplit <= 0 ||
-      nsplit > kMaxSplit || span <= 0 || (long long)nsplit * span < Tn ||
-      (long long)(nsplit - 1) * span >= Tn || tile <= 0 || tile > kMaxTile)
+  Cache cache = {};
+  cache.valid = static_cast<const uint8_t*>(valid);
+  if ((long long)B * Tn > INT32_MAX) return (int)cudaErrorInvalidValue;
+  return dispatch<false>(dtype, q, k, v, cache, out, B, Hq, Hkv, D, Tn, scale,
+                         gslices, gsz, nsplit, span, tile, vec, stream);
+}
+
+// The paged pool: kp/vp [P, page, Hkv, D], pt [B, NP] i32 (-1 =
+// unallocated), pos [B] i32; the plan is made for T = NP * page positions,
+// as for a dense cache of that length.
+extern "C" int paged_decode_attn(int dtype, const void* q, const void* kp,
+                                 const void* vp, const int* pt, const int* pos,
+                                 void* out, int B, int Hq, int Hkv, int D,
+                                 int page, int NP, int P, float scale,
+                                 int gslices, int gsz, int nsplit, int span,
+                                 int tile, int vec, void* stream) {
+  if (page <= 0 || NP <= 0 || P <= 0 || (long long)NP * page > INT32_MAX ||
+      (long long)P * page > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* m = static_cast<const uint8_t*>(valid);
-  if (dtype == 0) {
-    if (vec && (D * 4) % 16) return (int)cudaErrorInvalidValue;
-    return launch<float>(q, k, v, m, out, B, Hq, Hkv, D, Tn, scale, gslices,
-                         gsz, nsplit, span, tile, vec, s);
-  }
-  if (dtype == 1) {
-    if (vec && (D * 2) % 16) return (int)cudaErrorInvalidValue;
-    return launch<__nv_bfloat16>(q, k, v, m, out, B, Hq, Hkv, D, Tn, scale,
-                                 gslices, gsz, nsplit, span, tile, vec, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  Cache cache = {};
+  cache.pt = pt;
+  cache.pos = pos;
+  cache.page = page;
+  cache.NP = NP;
+  cache.P = P;
+  return dispatch<true>(dtype, q, kp, vp, cache, out, B, Hq, Hkv, D,
+                        NP * page, scale, gslices, gsz, nsplit, span, tile,
+                        vec, stream);
 }

@@ -49,11 +49,14 @@ def topk_lse(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Retained-outcome summary of logits [T,V]: (top-k values [T,k] f32
     descending, their indices [T,k] i32, exact lse [T] f32); ties go to the
-    lowest index. ``k`` must lie in (0, V]."""
+    lowest index. ``k`` must lie in (0, V]. The kernel reads f32 and bf16
+    logits in their own dtype; other float dtypes are cast to f32 first."""
     _topk.check_k(k, logits.shape[-1])
     if _resolve(impl, logits) == "ref":
         return _ref.topk_lse_ref(logits, k)
-    out = _topk.topk_lse_cuda(logits.to(torch.float32), k)
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        logits = logits.to(torch.float32)
+    out = _topk.topk_lse_cuda(logits, k)
     LAUNCHES["topk_lse"] += 1
     return out
 
@@ -68,7 +71,8 @@ def paged_decode_attn(
 ) -> torch.Tensor:
     """Decode attention through the paged KV pool: q [B,Hq,D], pools
     [P,page,Hkv,D], page_table [B,NP] (-1 = unallocated), pos [B] ->
-    [B,Hq,D]."""
+    [B,Hq,D] in q's dtype, any group size. A row with no attended position
+    gets the mean of V over the positions the table addresses."""
     if _resolve(impl, q) == "ref":
         return _ref.paged_decode_attn_ref(q, kp, vp, page_table, pos)
     out = _da.paged_decode_attn_cuda(
@@ -106,7 +110,7 @@ def xent_fwd(
     logits: torch.Tensor, labels: torch.Tensor, impl: Optional[str] = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """logits [T,V], labels [T] -> (loss [T] f32, lse [T] f32); a label
-    below 0 picks nothing (loss = lse)."""
+    outside [0, V) picks nothing (loss = lse)."""
     if _resolve(impl, logits) == "ref":
         return _ref.xent_ref(logits, labels)
     out = _xent.xent_fwd_cuda(logits, labels.to(torch.int32))

@@ -20,12 +20,16 @@ def xent_ref(
     logits: torch.Tensor, labels: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token CE: logits [T,V], labels [T] -> (loss [T], lse [T]) f32.
-    A label below 0 picks nothing, so its loss is the lse (the recorder's
-    -1 "unknown" sentinel; the model masks those tokens afterwards)."""
+    A label outside [0, V) picks nothing, so its loss is the lse (below 0:
+    the recorder's -1 "unknown" sentinel, which the model masks afterwards;
+    at or past V, as the kernel does: the JAX package has no single answer
+    there, its oracle gives NaN and its Pallas kernel 1e30)."""
     x = logits.to(F32)
     lse = torch.logsumexp(x, dim=-1)
-    picked = x.gather(-1, labels.long().clamp(min=0)[:, None])[:, 0]
-    return lse - torch.where(labels >= 0, picked, 0.0), lse
+    lab = labels.long()
+    hit = (lab >= 0) & (lab < x.shape[-1])
+    picked = x.gather(-1, torch.where(hit, lab, 0)[:, None])[:, 0]
+    return lse - torch.where(hit, picked, 0.0), lse
 
 
 def xent_grad_ref(
@@ -33,7 +37,7 @@ def xent_grad_ref(
     g: torch.Tensor,
 ) -> torch.Tensor:
     """d(sum(g * loss))/d logits from the saved lse -> [T,V] in logits'
-    dtype; a label below 0 subtracts no one-hot (a zero row)."""
+    dtype; a label outside [0, V) subtracts no one-hot."""
     p = torch.exp(logits.to(F32) - lse[:, None])
     cols = torch.arange(logits.shape[-1], device=logits.device)
     onehot = (cols[None] == labels[:, None].long()).to(F32)

@@ -158,8 +158,9 @@ class OutcomeRecorder:
         return g * (self.topk * (4 + 4) + 4)
 
     def _summarize(self, logits: torch.Tensor):
-        """[T, V] -> (vals [T,K], idx [T,K], lse [T]) via the kernel."""
-        return kops.topk_lse(logits.to(F32), self.topk)
+        """[T, V] -> (vals [T,K], idx [T,K], lse [T]) via the kernel, which
+        reads the logits in their own dtype (bf16 -> f32 is exact)."""
+        return kops.topk_lse(logits, self.topk)
 
     # -- state ---------------------------------------------------------------
 

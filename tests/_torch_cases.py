@@ -11,6 +11,20 @@ def topk_logits(t, v, seed=0):
     return x
 
 
+def topk_edge_rows(x):
+    """``x`` [t, v] with, where it has the rows, row 1 at or below 0 with
+    -0.0 and +0.0 among its largest values (equal, so the lower index goes
+    first) and row 2 holding a run of -inf (ties among the smallest)."""
+    x = x.copy()
+    v = x.shape[1]
+    if len(x) > 1:
+        x[1] = -np.abs(x[1])
+        x[1, [5 % v, 17 % v, (v // 2 + 1) % v, v - 1]] = [-0.0, 0.0, -0.0, 0.0]
+    if len(x) > 2:
+        x[2, v // 3:v // 3 + min(100, v // 3)] = -np.inf
+    return x
+
+
 def paged_case(b, hq, hkv, d, page, npg, seed=3, hole=False):
     """Random pool and tables: each row owns a shuffled subset of pages,
     -1 past its pos (and, with ``hole``, one -1 inside row 0's context)."""

@@ -122,16 +122,16 @@ def _span_mask(b, t, span, rng):
      (3, 48, 1, 32, 203)],  # granite-34b's MQA group, G = 48
 )
 def test_decode_attn_partials_merge_matches_plain_and_jax(b, hq, hkv, d, t):
-    """The spans the kernel would cut at this shape (``dense_split_plan``;
+    """The spans the kernel would cut at this shape (``split_plan``;
     the last span shorter), merged: within 2e-6 of the plain version, and
     of the Pallas kernel in interpret mode on the rows with a valid
     position (at a T that is no multiple of its block the Pallas kernel
     averages an all-masked row over the padded length); an all-masked row
     is the mean of V."""
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.decode_attn import dense_split_plan
+    from repro_torch.kernels.decode_attn import split_plan
 
-    _, _, nsplit, span, _ = dense_split_plan(b, hq, hkv, t, d, 4)
+    _, _, nsplit, span, _ = split_plan(b, hq, hkv, t, d, 4)
     assert nsplit > 1 and t % span != 0  # spans of unequal length
     q, k, v, _ = decode_case(b, hq, hkv, d, t, seed=t)
     valid = _span_mask(b, t, span, np.random.default_rng(t))
@@ -202,14 +202,45 @@ def test_dense_split_plan(shape, plan):
     from repro_torch.kernels import decode_attn as DA
 
     b, hq, hkv, t, d, itemsize = shape
-    got = DA.dense_split_plan(b, hq, hkv, t, d, itemsize)
+    got = DA.split_plan(b, hq, hkv, t, d, itemsize)
     assert got == plan
     gslices, gsz, nsplit, span, tile = got
-    assert gsz <= DA.DENSE_GROUP_PER_BLOCK and gslices * gsz >= hq // hkv
-    assert nsplit <= DA.DENSE_MAX_SPLIT and tile <= DA.DENSE_MAX_TILE
+    assert gsz <= DA.GROUP_PER_BLOCK and gslices * gsz >= hq // hkv
+    assert nsplit <= DA.MAX_SPLIT and tile <= DA.MAX_TILE
     assert (nsplit - 1) * span < t <= nsplit * span
     rowb = -(-d * itemsize // 16) * 16 + 16
-    assert 2 * tile * rowb <= DA.DENSE_TILE_BYTES
+    assert 2 * tile * rowb <= DA.TILE_BYTES
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [(8, 32, 8, 10, 16, 128, 2),  # the paged llama3-8b serve: T = 160
+     (8, 32, 8, 128, 16, 128, 2),  # a 2048-position table
+     (8, 48, 1, 32, 16, 128, 2),  # granite-34b-like MQA, G = 48
+     (3, 16, 1, 3, 5, 64, 4),  # the JAX test's G = 16, pages of 5
+     (4, 32, 8, 3, 256, 128, 2),  # pages of 256: spans inside one page
+     (2, 8, 2, 7, 5, 36, 4),  # f32 rows of 144 bytes
+     (1, 4, 4, 256, 128, 128, 2)],  # a 32768-position table
+)
+def test_paged_split_plan(shape):
+    """The paged kernel's plan, ``split_plan`` at T = NP * page, from
+    shapes alone (never pos): its spans cover the positions the table
+    addresses, each exactly once, at most eight to a cluster; its head
+    slices cover G; a tile fits the shared-memory budget."""
+    from repro_torch.kernels import decode_attn as DA
+
+    b, hq, hkv, npg, page, d, itemsize = shape
+    t = npg * page
+    gslices, gsz, nsplit, span, tile = DA.split_plan(
+        b, hq, hkv, t, d, itemsize)
+    g = hq // hkv
+    assert gsz <= DA.GROUP_PER_BLOCK
+    assert (gslices - 1) * gsz < g <= gslices * gsz
+    assert 1 <= nsplit <= DA.MAX_SPLIT
+    assert (nsplit - 1) * span < t <= nsplit * span
+    assert 1 <= tile <= min(DA.MAX_TILE, span)
+    rowb = -(-d * itemsize // 16) * 16 + 16
+    assert 2 * tile * rowb <= DA.TILE_BYTES
 
 
 @pytest.mark.parametrize(

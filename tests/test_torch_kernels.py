@@ -40,12 +40,45 @@ def test_topk_lse_plain_matches_jax_ref(t, v, k):
                        jref.topk_lse_ref(jnp.asarray(x), k))
 
 
-@pytest.mark.parametrize("t,v,k", [(5, 300, 16), (6, 130, 130)])
+@pytest.mark.parametrize("t,v,k", [(5, 300, 16), (6, 130, 130),
+                                   (5, 300, 200)])
 def test_topk_lse_plain_matches_jax_interpret_kernel(t, v, k):
-    """Includes k == V (a value-sorted permutation of the row)."""
+    """Includes k == V (a value-sorted permutation of the row) and k = 200
+    of 300."""
     x = _topk_logits(t, v, seed=1)
     want = TK_mod.topk_lse(jnp.asarray(x), k, bt=8, bv=128, interpret=True)
     _assert_topk_equal(ops.topk_lse(torch.from_numpy(x), k), want)
+
+
+def test_topk_lse_plain_matches_jax_interpret_kernel_on_bf16_logits():
+    """bf16 logits, which the kernels read in their own dtype: rounding to
+    bf16 makes many ties, each going to the lowest index; indices exact."""
+    x = _topk_logits(6, 300, seed=2)
+    xb = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    want = TK_mod.topk_lse(jnp.asarray(xb, jnp.bfloat16), 200, bt=8, bv=128,
+                           interpret=True)
+    got = ops.topk_lse(torch.from_numpy(xb.copy()).to(torch.bfloat16), 200)
+    top = np.sort(xb, axis=1)[:, -200:]
+    assert all(len(np.unique(r)) < 200 for r in top)  # ties in every top-k
+    _assert_topk_equal(got, want)
+
+
+def test_topk_lse_signed_zeros_tie_to_the_lowest_index():
+    """-0.0 and +0.0 are equal to the Pallas kernel (its max and argmax
+    compare values): they tie, and the lower index comes first whichever of
+    the two it holds. The jnp oracle's jax.lax.top_k orders +0.0 above
+    -0.0; the port follows the kernel."""
+    row = np.full(64, -1.0, np.float32)
+    row[50] = 2.0
+    row[[3, 10, 20, 40]] = [0.0, -0.0, 0.0, -0.0]
+    row2 = row.copy()
+    row2[[3, 10]] = [-0.0, 0.0]
+    x = np.stack([row, row2, np.tile(row[:32], 2)])
+    got = ops.topk_lse(torch.from_numpy(x), 5)
+    assert got[1][0].tolist() == [50, 3, 10, 20, 40]
+    assert got[1][1].tolist() == [50, 3, 10, 20, 40]
+    _assert_topk_equal(got, TK_mod.topk_lse(jnp.asarray(x), 5, bt=8,
+                                            bv=128, interpret=True))
 
 
 def test_topk_lse_tie_break_lowest_index():
@@ -75,12 +108,38 @@ def test_topk_lse_rejects_k_out_of_range(k):
 
 @pytest.mark.parametrize("shape,hole", [((2, 8, 2, 32, 16, 4), False),
                                         ((3, 4, 4, 16, 4, 5), True),
-                                        ((2, 4, 1, 8, 64, 2), True)])
+                                        ((2, 4, 1, 8, 64, 2), True),
+                                        # the JAX test's G = 16, and a
+                                        # granite-34b-like G = 48
+                                        ((2, 16, 1, 16, 5, 3), True),
+                                        ((2, 48, 1, 8, 4, 3), False)])
 def test_paged_decode_attn_plain_matches_jax_interpret_kernel(shape, hole):
     case = _paged_case(*shape, hole=hole)
     want = DA_mod.paged_decode_attn(*map(jnp.asarray, case), interpret=True)
     got = ops.paged_decode_attn(*map(torch.from_numpy, case))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=PAGED_ATOL)
+
+
+@pytest.mark.parametrize("hq", [4, 48])
+def test_paged_decode_attn_rows_with_nothing_attended(hq):
+    """A row whose pages are all -1 and a row with pos = -1 attend nothing:
+    every score is -1e30, so the weights are equal over the NP * page
+    positions the table addresses, a -1 page read as page 0 (the Pallas
+    kernel's DMA clamps it, the plain version's gather does): the mean of
+    V there, in both packages."""
+    q, kp, vp, pt, pos = _paged_case(4, hq, 1, 16, 4, 3, seed=6)
+    pt[0] = -1
+    pos[1] = -1
+    want = DA_mod.paged_decode_attn(*map(jnp.asarray, (q, kp, vp, pt, pos)),
+                                    interpret=True)
+    got = ops.paged_decode_attn(*map(torch.from_numpy, (q, kp, vp, pt, pos)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=PAGED_ATOL)
+    for row in (0, 1):
+        pages = np.maximum(pt[row], 0)
+        mean = vp[pages].reshape(-1, 16).mean(axis=0)  # hkv = 1
+        np.testing.assert_allclose(got[row].numpy(),
+                                   np.broadcast_to(mean, (hq, 16)),
+                                   atol=PAGED_ATOL)
 
 
 def test_paged_decode_attn_plain_matches_jax_ref_without_holes():

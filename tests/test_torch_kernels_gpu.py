@@ -16,9 +16,10 @@ import pytest
 import torch
 
 from _torch_cases import (decode_case, ledger_batches, paged_case, ssd_case,
-                          topk_logits, window_mask, xent_case)
+                          topk_edge_rows, topk_logits, window_mask, xent_case)
 from repro_torch.core.history import HistoryConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import topk_lse as TK
 from repro_torch.models.ssm import ssd_chunked
 
 
@@ -29,10 +30,19 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("t,v,k", [(8, 128256, 64), (3, 4097, 64), (5, 97, 7)])
-def test_topk_lse_kernel_matches_plain(cuda, t, v, k):
-    x = torch.from_numpy(topk_logits(t, v)).to(cuda)
+# the serve shape (llama3's vocab, k = 64) and k of 1, 65, a few hundred and
+# 4096 (past a block's threads: no bound, the cluster-wide select, survivors
+# sorted in shared memory); a vocabulary no multiple of a 16-byte load with
+# k = 64 and k = V (sorted in global scratch); a row shorter than a warp's
+# loads
+TOPK_CASES = [(8, 128256, 64), (8, 128256, 1), (8, 128256, 65),
+              (8, 128256, 256), (4, 128256, 4096), (3, 4097, 64),
+              (3, 4097, 4097), (5, 97, 7)]
+
+
+def _topk_check(x, k):
+    """Indices and values exact, lse within 1e-4 (f32 sums in another
+    order)."""
     got = ops.topk_lse(x, k, impl="cuda")
     want = ref.topk_lse_ref(x, k)
     assert torch.equal(got[1], want[1])
@@ -42,18 +52,62 @@ def test_topk_lse_kernel_matches_plain(cuda, t, v, k):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,v,k", TOPK_CASES)
+def test_topk_lse_kernel_matches_plain(cuda, t, v, k, dtype):
+    """Ties across blocks, -0.0 tied with +0.0 among a row's largest values,
+    and a run of -inf; bf16 logits read in their own dtype."""
+    x = torch.from_numpy(topk_edge_rows(topk_logits(t, v))).to(cuda)
+    _topk_check(x.to(dtype), k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_lse_kernel_routes_match_plain(cuda, monkeypatch, dtype):
+    """Each route at a small size: survivors sorted in global scratch (the
+    shared-memory sort capped at 64) and keys past a block's shared-memory
+    cache read again (the cache capped at 1024 keys); an all-equal row
+    (every logit ties)."""
+    x = torch.from_numpy(topk_edge_rows(topk_logits(4, 40000, seed=5)))
+    x[3] = 1.5
+    x = x.to(cuda).to(dtype)
+    monkeypatch.setattr(TK, "SORT_SMEM_MAX", 64)
+    for k in (64, 65, 300):
+        _topk_check(x, k)
+    monkeypatch.setattr(TK, "KEY_CACHE_MAX", 1024)
+    for k in (1, 64, 300):
+        _topk_check(x, k)
+
+
+# (Hq, Hkv, D): llama3-8b's heads, the JAX test's G = 16, a granite-34b-like
+# G = 48 (three head slices) and D = 36 (rows of 144 bytes in f32, of 72 in
+# bf16, which take the scalar copy)
+PAGED_HEADS = [(32, 8, 128), (16, 1, 64), (48, 1, 128), (8, 2, 36)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("page,npg", [(16, 10), (256, 3), (5, 7)])
-def test_paged_decode_attn_kernel_matches_plain(cuda, dtype, page, npg):
-    """llama3-8b heads; pages smaller than, equal to and larger than the
-    kernel's 16-position tile, with a -1 page inside a row's context."""
-    case = paged_case(4, 32, 8, 128, page, npg, hole=True)
+@pytest.mark.parametrize("heads", PAGED_HEADS)
+def test_paged_decode_attn_kernel_matches_plain(cuda, dtype, page, npg,
+                                                heads):
+    """Pages that a 128-position tile crosses (16 and 5) and pages longer
+    than a tile (256), a -1 page inside a row's context, a row whose pages
+    are all -1 and a row with pos = -1 (both the mean of V over the
+    positions the table addresses, a -1 page read as page 0)."""
+    hq, hkv, d = heads
+    case = paged_case(5, hq, hkv, d, page, npg, hole=True)
     q, kp, vp, pt, pos = (torch.from_numpy(a).to(cuda) for a in case)
+    pt[1] = -1
+    pos[2] = -1
     q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
     got = ops.paged_decode_attn(q, kp, vp, pt, pos, impl="cuda")
+    assert got.dtype == dtype
     want = ref.paged_decode_attn_ref(q.float(), kp.float(), vp.float(), pt,
                                      pos)
     tol = 2e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    mean = vp[0].float().mean(dim=0).repeat_interleave(hq // hkv, dim=0)
+    torch.testing.assert_close(got[1].float(), mean, rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
@@ -137,6 +191,21 @@ def test_xent_bwd_kernel_matches_plain(cuda, t, v, dtype):
                          * g[0], 0.0)
     closed[labels[0].long()] = -g[0]
     _assert_grad_close(got[0], closed.to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xent_kernels_pick_nothing_for_labels_past_the_vocab(cuda, dtype):
+    """Labels V and V + 2: loss = lse exactly, and the gradient is the
+    softmax times g with no one-hot, as the plain versions give."""
+    logits, labels, g = _xent_inputs(cuda, 64, 128256, dtype)
+    labels[3], labels[5] = 128256, 128258
+    loss, lse = ops.xent_fwd(logits, labels, impl="cuda")
+    rl, rlse = ref.xent_ref(logits, labels)
+    torch.testing.assert_close(loss, rl, rtol=1e-6, atol=1e-5)
+    assert loss[3] == lse[3] and loss[5] == lse[5]
+    got = ops.xent_bwd(logits, labels, rlse, g, impl="cuda")
+    _assert_grad_close(got, ref.xent_grad_ref(logits, labels, rlse, g))
 
 
 @pytest.mark.gpu

@@ -74,6 +74,30 @@ def test_xent_fwd_plain_matches_jax_ref(dtype):
                                rtol=XENT_RTOL)
 
 
+def test_xent_labels_at_or_past_the_vocab_pick_nothing():
+    """A label at or past V picks nothing, as the kernel does: loss = lse
+    and the gradient subtracts no one-hot. The JAX package has no single
+    answer there (its oracle gives NaN, its Pallas kernel 1e30), so the
+    rows with labels in [0, V) are held against the JAX oracle and the
+    others against their own lse and softmax."""
+    x, labels, g = xent_case(6, 40, seed=2)
+    labels[2], labels[4] = 40, 42
+    loss, lse = ops.xent_fwd(*_t(x, labels))
+    assert loss[2] == lse[2] and loss[4] == lse[4]
+    inside = (labels >= 0) & (labels < 40)
+    want = jref.xent_ref(jnp.asarray(x[inside]), jnp.asarray(labels[inside]))
+    np.testing.assert_allclose(loss.numpy()[inside], np.asarray(want[0]),
+                               rtol=XENT_RTOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(
+        jref.xent_ref(jnp.asarray(x), jnp.zeros(6, jnp.int32))[1]),
+        rtol=XENT_RTOL)
+    grad = ops.xent_bwd(*_t(x, labels, lse, g))
+    soft = torch.softmax(torch.from_numpy(x), dim=-1) * torch.from_numpy(
+        g)[:, None]
+    np.testing.assert_allclose(grad.numpy()[[2, 4]], soft.numpy()[[2, 4]],
+                               atol=GRAD_ATOL)
+
+
 def test_xent_extreme_logits_stable():
     x = np.asarray([[1e4, -1e4, 0.0, 5e3]] * 8, np.float32)
     loss, _ = ops.xent_fwd(*_t(x, np.zeros(8, np.int32)))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's dense-cache decode attention beyond the serving shapes.
+"""Time the port's decode attention beyond the serving shapes.
 
-    python3 tools/decode_attn_sweep.py [--src DIR] [--sweep] [--json FILE]
+    python3 tools/decode_attn_sweep.py [--src DIR] [--paged] [--sweep]
+                                       [--json FILE]
 
 Needs one CUDA card. ``--src`` names the ``src`` directory of the tree
 whose ``repro_torch`` is timed (default: this checkout's), so two versions
@@ -19,11 +20,21 @@ B = 8:
   from 50 to 2048 (a cache sized for the longest request holding prompts
   of every length).
 
-``--sweep`` (trees with ``dense_split_plan``) adds, at zamba2's heads
+``--sweep`` (trees with ``split_plan``) adds, at zamba2's heads
 (G = 1, D = 80), device time against T with every position valid, and at
 T = 332 against the plan's tile bytes and target block count: whether the
-time follows the bytes read or a fixed cost per call. Each result is one
-JSON line on stdout (and in ``--json``).
+time follows the bytes read or a fixed cost per call.
+
+``--paged`` (trees with the paged wrapper in ``decode_attn.py``) times
+the paged kernel
+instead, beside page gather + SDPA, at llama3-8b's heads in bf16 with
+16-token pages: the serve shape (a 160-position table, contexts
+129-160), and a 2048-position table with contexts 50-2048 and with
+contexts 129-160 (spans past pos read nothing: the plan comes from
+shapes, never from pos). With ``--sweep`` it then times each of those
+three cases as device time alone, warm and cold, against the plan's tile
+bytes and target block count. Each result is one JSON line on stdout
+(and in ``--json``).
 """
 
 from __future__ import annotations
@@ -80,10 +91,51 @@ def timings(torch, ops, ref, q, k, v, valid, library_too=True) -> dict:
     return out
 
 
+PAGED_CASES = (("serve: table 160, contexts 129-160", 10, cs.SERVE_POS),
+               ("table 2048, contexts 50-2048", 128, cs.MIXED_POS),
+               ("table 2048, contexts 129-160", 128, cs.SERVE_POS))
+
+
+def paged(torch, ops, ref, DA, emit, sweep: bool) -> None:
+    """The paged kernel's cases and, with ``sweep``, its plan constants."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, hq, hkv, d = 8, 32, 8, 128
+    for name, npg, pos in PAGED_CASES:
+        case = cs.paged_case(torch, torch.bfloat16, g, npg=npg, pos=pos,
+                             hole=False)
+        cs.paged_check(torch, ops, ref, case, cs.PAGED_BF16_TOL)
+        r = cs.paged_timings(torch, ops, ref, case)
+        r["bound_ms"], _ = r.pop("bound")
+        emit(dict(case=f"paged {name}",
+                  plan=DA.split_plan(b, hq, hkv, npg * 16, d, 2), **r))
+        if not sweep:
+            continue
+
+        def kernel(q, kp, vp, pt, pos):
+            return ops.paged_decode_attn(q, kp, vp, pt, pos, impl="cuda")
+
+        n = -(-cs.COLD_BYTES // (2 * case[1].numel() * 2))
+        copies = [tuple(x.clone() for x in case) for _ in range(n)]
+        base = (DA.TILE_BYTES, DA.TARGET_BLOCKS)
+        for tile_bytes in (18 << 10, 36 << 10, 72 << 10):
+            for target in (132, 330, 660):
+                DA.TILE_BYTES, DA.TARGET_BLOCKS = tile_bytes, target
+                DA.split_plan.cache_clear()
+                emit(dict(case=f"paged {name}, plan sweep",
+                          tile_bytes=tile_bytes, target_blocks=target,
+                          plan=DA.split_plan(b, hq, hkv, npg * 16, d, 2),
+                          dev_ms=cs.time_ms_graph(kernel, [case] * 10),
+                          dev_cold_ms=cs.time_ms_graph(kernel, copies)))
+        DA.TILE_BYTES, DA.TARGET_BLOCKS = base
+        DA.split_plan.cache_clear()
+        del copies, case
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--paged", action="store_true")
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
     import torch
@@ -105,6 +157,11 @@ def main() -> int:
         if sink:
             sink.write(line + "\n")
 
+    if args.paged:
+        paged(torch, ops, ref, DA, emit, args.sweep)
+        if sink:
+            sink.close()
+        return 0
     g = torch.Generator(device="cuda").manual_seed(2)
     bf = torch.bfloat16
     heads = {"zamba2": (32, 32, 80), "llama3-8b": (32, 8, 128)}
@@ -128,23 +185,23 @@ def main() -> int:
             case = cs.decode_inputs(torch, g, 8, hq, hkv, d, t, bf)
             valid = torch.ones((8, t), dtype=torch.bool, device="cuda")
             emit(dict(case=f"zamba2 heads, T={t} all valid",
-                      plan=DA.dense_split_plan(8, hq, hkv, t, d, 2),
+                      plan=DA.split_plan(8, hq, hkv, t, d, 2),
                       **timings(torch, ops, ref, *case, valid)))
         case = cs.decode_inputs(torch, g, 8, hq, hkv, d, 332, bf)
         valid = cs.depth_mask(torch, cs.HYBRID_POS, 332)
-        base = (DA.DENSE_TILE_BYTES, DA.DENSE_TARGET_BLOCKS)
+        base = (DA.TILE_BYTES, DA.TARGET_BLOCKS)
         for tile_bytes in (9 << 10, 18 << 10, 36 << 10, 72 << 10):
             for target in (132, 330, 660, 1320):
-                DA.DENSE_TILE_BYTES, DA.DENSE_TARGET_BLOCKS = tile_bytes, target
-                DA.dense_split_plan.cache_clear()
-                plan = DA.dense_split_plan(8, hq, hkv, 332, d, 2)
+                DA.TILE_BYTES, DA.TARGET_BLOCKS = tile_bytes, target
+                DA.split_plan.cache_clear()
+                plan = DA.split_plan(8, hq, hkv, 332, d, 2)
                 r = timings(torch, ops, ref, *case, valid, False)
                 emit(dict(case="zamba2 serving T=332, plan sweep",
                           tile_bytes=tile_bytes, target_blocks=target,
                           plan=plan, ms=r["ms"], dev_ms=r["dev_ms"],
                           dev_cold_ms=r["dev_cold_ms"]))
-        DA.DENSE_TILE_BYTES, DA.DENSE_TARGET_BLOCKS = base
-        DA.dense_split_plan.cache_clear()
+        DA.TILE_BYTES, DA.TARGET_BLOCKS = base
+        DA.split_plan.cache_clear()
     if sink:
         sink.close()
     return 0
