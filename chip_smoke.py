@@ -25,8 +25,9 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    contexts of 50 to 2048 in a 2048-slot cache; also timed
    with a cold L2 and as device time alone), the SSD scan (zamba2's and
    mamba2's 300-token prefills, a long case, one chunk, an exact multiple
-   of the chunk, N = 256, the JAX test's odd shapes in f32, against the
-   chunked scan and the sequential oracle; each grid's device time);
+   of the chunk, N = 256 in bf16 and in f32, the JAX test's odd shapes in
+   f32, against the chunked scan and the sequential oracle; each grid's
+   device time);
 4. serve — ``repro_torch.launch.serve.main`` at the full width of
    llama3-8b (32 layers, bf16, random weights from a seed): 8 slots, 16
    requests, prompt 128, 32 new tokens, paged KV (16-token pages), top-k
@@ -58,11 +59,12 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    versions at its shapes (cross-entropy at T = 4096 and 1024 rows of the
    128256-token vocabulary in bf16, with -1 labels, a row of ±1e4 logits
    and a vocabulary that is no multiple of the tile; the ledger at
-   capacity 65536 with batches of 32 and 512, duplicates, masked items,
-   chained transactions and an eviction inside a batch, through both
-   launch routes), timed as above; then the ledger's two launch routes,
-   timed by device span at batches of 32 to 32768, and the dispatch
-   threshold beside them;
+   capacity 65536 with batches of 32 and 512 and at 2^18 with 32 and
+   32768, duplicates, masked items, five chained transactions and an
+   eviction inside each batch, both variant names forced), timed as above
+   (the ledger also by device span, by the wrapper's host cost and by the
+   profiler's kernel time); then the ledger's device span at batches of 32
+   to 32768 at both capacities, each beside its bound;
 8. train — ``repro_torch.launch.train.main`` at the full width of
    llama3-8b cut to 8 of 32 layers (bf16, random weights from seed 0),
    global batch 32 × 128 tokens, obftf at ratio 0.25, AdamW: (a) 4 steps
@@ -569,8 +571,12 @@ def time_ms_graph(fn, copies, iters: int = 20) -> float:
 
 
 def kernel_ms(torch, fn, n: int = 10) -> dict:
-    """Device ms per call of ``fn`` by kernel name (torch.profiler over
-    ``n`` calls after a warm-up)."""
+    """Device time of ``fn``'s kernels by name: torch.profiler over ``n``
+    calls after a warm-up -> {name: (ms per launch, launches seen)}, each
+    name's time over the launches of it that the profiler saw. It may see
+    fewer than were made: in a process that ran the serve profiles first,
+    it saw 5 or 6 of the ledger kernel's 10. Every kernel this is used on
+    launches once a call, so ms per launch is ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -581,10 +587,10 @@ def kernel_ms(torch, fn, n: int = 10) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
             us = getattr(e, "self_device_time_total", None) or getattr(
                 e, "self_cuda_time_total", 0.0)
-            out[e.key] = us / 1e3 / n
+            out[e.key] = (us / 1e3 / e.count, e.count)
     return out
 
 
@@ -806,7 +812,7 @@ def ssd_phase(torch, ops, ref) -> dict:
     """The scan at zamba2's and mamba2's 300-token prefills (three chunks,
     the last one short), a long case, one chunk (a 100-token prompt), an
     exact multiple of the chunk and N = 256 in bf16, and the JAX test's odd
-    shapes in f32; timed at the prefills and the long case."""
+    shapes and N = 256 in f32; timed at the prefills and the long case."""
     from repro_torch.kernels import ssd as SSD
     from repro_torch.models.ssm import ssd_chunked
 
@@ -829,7 +835,8 @@ def ssd_phase(torch, ops, ref) -> dict:
     for shape, chunk in (((2, 50, 4, 16, 2, 16), 16),
                          ((2, 64, 4, 16, 1, 32), 16),
                          ((1, 96, 2, 32, 2, 16), 32),
-                         ((1, 100, 8, 64, 1, 64), 128)):
+                         ((1, 100, 8, 64, 1, 64), 128),
+                         ((1, 300, 8, 64, 1, 256), 128)):
         a, b, _ = ssd_check(torch, ops, ref, ssd_inputs(
             torch, g, *shape, torch.float32), chunk)
         ey32, es = max(ey32, a), max(es, b)
@@ -839,7 +846,7 @@ def ssd_phase(torch, ops, ref) -> dict:
     for k, c in cases.items():
         per = kernel_ms(torch, lambda c=c: ops.ssd_scan(*c, chunk=128,
                                                         impl="cuda"))
-        grids[k] = tuple(sum(v for n, v in per.items() if key in n)
+        grids[k] = tuple(sum(v[0] for n, v in per.items() if key in n)
                          for key in ("ssd_scan_state", "ssd_scan_out"))
     bnd = {k: ssd_bounds(*v) for k, v in shapes.items()}
     smem = {k: SSD.smem_bytes(128, v[3], v[5], 2) for k, v in shapes.items()}
@@ -872,8 +879,9 @@ def ssd_phase(torch, ops, ref) -> dict:
                f"(torch.profiler): {split}; "
                f"shared memory per block {smem['zamba2']} B (zamba2), "
                f"{smem['mamba2']} B (mamba2); checked also at S=100 (one "
-               f"chunk), S=256 and N=256; max err y bf16 {ey:.3g} (at most "
-               f"{used:.2f} of an entry's tolerance), y f32 {ey32:.3g}, "
+               f"chunk), S=256 and N=256 (bf16 and f32); max err y bf16 "
+               f"{ey:.3g} (at most {used:.2f} of an entry's tolerance), y "
+               f"f32 {ey32:.3g}, "
                f"state {es:.3g}; no single PyTorch call computes the scan"),
     )
 
@@ -1437,17 +1445,21 @@ def ledger_batch(torch, cap, b, seed):
     return ids, losses, valid
 
 
-# batch sizes at which both ledger launch routes are timed: the train
-# path's 32 and larger batches on both sides of the dispatch threshold
-LEDGER_SWEEP = (32, 256, 512, 1024, 2048, 4096, 8192, 32768)
+# the ledger's capacities: HistoryConfig's 65536, and 2^18, the per-shard
+# ceiling of the JAX kernel's docstring; (capacity, batch) checked against
+# the plain version; batch sizes timed at each capacity, from the train
+# path's 32 up
+LEDGER_CAPS = (65536, 1 << 18)
+LEDGER_CHECKS = ((65536, 32), (65536, 512), (1 << 18, 32), (1 << 18, 32768))
+LEDGER_SWEEP = (32, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 
 
 def ledger_span_ms(torch, fn, n: int = 20) -> float:
     """Median device span of one ledger transaction: CUDA events recorded
-    just before and just after the call, so the gaps between its dependent
-    launches count. The calls queue behind a sleep kernel, so the host's
-    launch cost stays out, as it does on the train path, where the host
-    runs ahead of the card."""
+    just before and just after the call, so the launch's own latency
+    counts. The calls queue behind a sleep kernel, so the host's launch
+    cost stays out, as it does on the train path, where the host runs ahead
+    of the card."""
     fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
@@ -1462,29 +1474,51 @@ def ledger_span_ms(torch, fn, n: int = 20) -> float:
     return spans[n // 2]
 
 
+def ledger_host_ms(torch, fn, n: int = 200) -> float:
+    """Host wall time of one call, ``n`` calls queued behind a sleep kernel
+    so the card never makes the host wait: the wrapper's host cost alone."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return host
+
+
+def ledger_bound(cap: int, b: int) -> tuple[float, str]:
+    """The four arrays read and written once, the batch's ids, losses,
+    valid bytes and priorities, and the step."""
+    return bound(2 * cap * 16 + b * (4 + 4 + 1 + 4) + 4, 0.0, "f32")
+
+
 def ledger_phase(torch, ops, ref) -> tuple[dict, str]:
-    """The ledger kernel against its plain version at capacity 65536, both
-    launch routes forced at B = 32 and B = 512, five chained transactions
-    each; timed at B = 32, the train path's batch; then both routes' device
-    spans over LEDGER_SWEEP, which set ops.LEDGER_BLOCK_MIN_BATCH."""
+    """The ledger kernel against its plain version at each of
+    LEDGER_CHECKS, both variant names forced (they take the same launch),
+    five chained transactions each; timed at B = 32, the train path's
+    batch, at both capacities (eager, device span, the wrapper's host cost,
+    the kernel's device time by the profiler); then the device span over
+    LEDGER_SWEEP at both capacities, each beside its bound."""
     from repro_torch.core.history import HistoryConfig
-    from repro_torch.kernels.ledger import resolve_variant
+    from repro_torch.kernels.ledger import tile_plan
 
     cfg = HistoryConfig()
-    cap = cfg.capacity
     kw = dict(decay=cfg.decay, unseen_priority=cfg.unseen_priority,
               staleness_half_life=cfg.staleness_half_life)
 
-    def table():
+    def table(cap):
         return (torch.zeros(cap, device="cuda"),
                 torch.zeros(cap, dtype=torch.int32, device="cuda"),
                 torch.full((cap,), -1, dtype=torch.int32, device="cuda"),
                 torch.full((cap,), -1, dtype=torch.int32, device="cuda"))
 
     err = 0.0
-    for b in (32, 512):
+    states = {}
+    for cap, b in LEDGER_CHECKS:
         for variant in ("fori", "block"):
-            st_k, st_r = table(), table()
+            st_k, st_r = table(cap), table(cap)
             for s in range(5):
                 ids, losses, valid = ledger_batch(torch, cap, b, 100 * b + s)
                 step = torch.full((), 3 * s, dtype=torch.int32, device="cuda")
@@ -1493,59 +1527,70 @@ def ledger_phase(torch, ops, ref) -> tuple[dict, str]:
                     variant=variant, **kw)
                 out_r = ops.ledger_record_priority(
                     *st_r, ids, losses, step, valid=valid, impl="ref", **kw)
+                what = f"capacity {cap} B={b} ({variant}), transaction {s}"
                 for name, got, want in zip(("count", "last_seen", "owner"),
                                            out_k[1:4], out_r[1:4]):
                     if not torch.equal(got, want):
-                        raise AssertionError(
-                            f"ledger {name} differs at B={b} ({variant})")
+                        raise AssertionError(f"ledger {name} differs at "
+                                             f"{what}")
                 for name, got, want in (("ema", out_k[0], out_r[0]),
                                         ("priority", out_k[4], out_r[4])):
                     rel = ((got - want).abs()
                            / want.abs().clamp(min=1e-30)).max()
                     if rel.item() > LEDGER_RTOL:
                         raise AssertionError(
-                            f"ledger {name} at B={b} ({variant}): rel err "
-                            f"{rel.item()}")
+                            f"ledger {name} at {what}: rel err {rel.item()}")
                     err = max(err, (got - want).abs().max().item())
                 if out_k[4][-2].item() != cfg.unseen_priority:
-                    raise AssertionError("an id evicted in its batch read as "
-                                         "seen")
+                    raise AssertionError(f"an id evicted in its batch read "
+                                         f"as seen at {what}")
                 st_k, st_r = out_k[:4], out_r[:4]
-    sweep = []
-    for b in LEDGER_SWEEP:
-        ids, losses, valid = ledger_batch(torch, cap, b, b)
-        step = torch.full((), 7, dtype=torch.int32, device="cuda")
-        spans = {v: ledger_span_ms(torch, lambda: ops.ledger_record_priority(
-            *st_k, ids, losses, step, valid=valid, impl="cuda", variant=v,
-            **kw)) for v in ("fori", "block")}
-        sweep.append((b, spans["fori"], spans["block"]))
-        if b == 32:
-            args = (*st_k, ids, losses, step)
-            ms = time_ms(lambda: ops.ledger_record_priority(
-                *args, valid=valid, impl="cuda", **kw))
-            plain_ms = time_ms(lambda: ops.ledger_record_priority(
-                *args, valid=valid, impl="ref", **kw))
-            path_span = spans[resolve_variant(None, b,
-                                              ops.LEDGER_BLOCK_MIN_BATCH)]
-    faster = [b for b, fori, block in sweep if block < fori]
-    summary = ("ledger routes, device span per call in ms (fori | block): "
-               + "; ".join(f"B={b} {fori:.4f} | {block:.4f}"
-                           for b, fori, block in sweep)
-               + f"; block faster at B in {faster}; dispatch threshold "
-               f"LEDGER_BLOCK_MIN_BATCH = {ops.LEDGER_BLOCK_MIN_BATCH}")
-    b = 32
-    moved = 2 * cap * 16 + b * (4 + 4 + 1 + 4) + 4
-    bnd, by = bound(moved, 0.0, "f32")
+        states[cap] = st_k
+    sweep, at32 = {}, {}
+    step = torch.full((), 7, dtype=torch.int32, device="cuda")
+    for cap in LEDGER_CAPS:
+        for b in LEDGER_SWEEP:
+            ids, losses, valid = ledger_batch(torch, cap, b, b)
+            args = (*states[cap], ids, losses, step)
+
+            def call(impl="cuda", args=args, valid=valid):
+                return ops.ledger_record_priority(
+                    *args, valid=valid, impl=impl, **kw)
+
+            sweep[cap, b] = ledger_span_ms(torch, call)
+            if b == 32:
+                at32[cap] = dict(
+                    ms=time_ms(call), host_ms=ledger_host_ms(torch, call),
+                    plain_ms=time_ms(lambda call=call: call("ref")),
+                    dev=next(v for k, v in kernel_ms(torch, call).items()
+                             if "ledger" in k))
+    lines = []
+    for cap in LEDGER_CAPS:
+        pts = [f"B={b} {sweep[cap, b]:.4f} (bound "
+               f"{ledger_bound(cap, b)[0]:.5f}, tiles "
+               f"{tile_plan(cap, b)[0]})" for b in LEDGER_SWEEP]
+        a = at32[cap]
+        lines.append(
+            f"ledger at capacity {cap}: device span per call in ms: "
+            + "; ".join(pts) + f"; at B=32 eager {a['ms']:.4f} ms, host "
+            f"{a['host_ms']:.4f} ms, kernel (profiler) {a['dev'][0]:.4f} ms "
+            f"({a['dev'][1]} of 10 launches seen), plain "
+            f"{a['plain_ms']:.4f} ms")
+    cap, b = cfg.capacity, 32
+    a = at32[cap]
+    bnd, by = ledger_bound(cap, b)
     return dict(
         name="ledger_record_priority", route="cuda",
         source="src/repro_torch/kernels/csrc/ledger.cu",
         replaces="src/repro/kernels/ledger.py:268", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-        library_ms=None, tol=LEDGER_RTOL,
-        shape=(f"capacity {cap}, B=32, device span {path_span:.4f} ms/call; "
-               f"both routes checked at B=32 and 512; no single PyTorch call "
-               f"does this transaction"),
-    ), summary
+        ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=bnd, bound_by=by,
+        library_ms=None, tol=LEDGER_RTOL, span_ms=sweep[cap, b],
+        host_ms=a["host_ms"], dev_ms=a["dev"][0],
+        shape=(f"capacity {cap}, B=32, device span {sweep[cap, b]:.4f} "
+               f"ms/call, host {a['host_ms']:.4f} ms/call; checked at "
+               f"(capacity, B) in {list(LEDGER_CHECKS)}, both variant "
+               f"names; no single PyTorch call does this transaction"),
+    ), "\n".join(lines)
 
 
 TRAIN_ARGV = [
@@ -1743,9 +1788,9 @@ def main() -> int:
     _free(torch)
     for row in xent_phases(torch, ops, ref):
         show(row)
-    row, routes = ledger_phase(torch, ops, ref)
+    row, spans = ledger_phase(torch, ops, ref)
     show(row)
-    print(routes, flush=True)
+    print(spans, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         a, b = train_phase(torch, ops, tmp)
     for name, r in (("a", a), ("b", b)):
@@ -1767,7 +1812,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # ssd: its bound at the CUDA cores' f32 rate; topk_lse and
     # paged_decode_attn: device time alone, warm and cold, and the library's
-    extra = ("bound_f32_ms", "dev_ms", "dev_cold_ms", "dev_library_ms")
+    extra = ("bound_f32_ms", "dev_ms", "dev_cold_ms", "dev_library_ms",
+             "span_ms", "host_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in keys or k in r}
         for r in kernels]}))

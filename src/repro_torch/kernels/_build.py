@@ -55,8 +55,8 @@ SIGNATURES = {
     "xent_fwd": [_I, _P, _P, _I, _I, _I, _P, _P, _P],
     "xent_bwd": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "ledger_record_priority": [
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F,
-        _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F,
+        _P, _P,
     ],
 }
 

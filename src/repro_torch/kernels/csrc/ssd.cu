@@ -54,6 +54,12 @@
 // .trans reads them transposed. exp(cum_i - cum_j) is taken only on and
 // below the diagonal, where it cannot overflow; a last chunk shorter than L
 // runs as it is (the TPU kernel pads it with dt = 0 steps, exact no-ops).
+// Shared memory bounds N: a block of the f32 output grid keeps its rows of
+// C, and B or the entering state, for all of N, and takes 32 rows instead
+// of 64 where 64 do not fit, so at L = 128, P = 64 it takes N up to 272;
+// the bf16 output grid keeps all of C, B and the state, N up to 256
+// (ssd.py's smem_bytes mirrors the layouts; the wrapper refuses what does
+// not fit).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,6 +71,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRB = 64;              // output rows per block of ssd_scan_out
+constexpr int kRBSmall = 32;         // ... of ssd_scan_out_f32 at a large N
 constexpr size_t kMaxSmem = 232448;  // per block on sm_90
 
 using bf16 = __nv_bfloat16;
@@ -106,13 +113,15 @@ __host__ __device__ inline StateF32 state_f32(int L, int P, int nb) {
   return y;
 }
 
-// ssd_scan_out_f32: x [L, P8], scores^T [L8, kRB + 4], C [kRB, CS], then B
-// [L8, CS] or, once the scores are out, state_in^T [Np, P8 + 4] in the
-// same bytes; dt, cum [L8], exp(cum) [kRB], sums (all f32)
+// ssd_scan_out_f32 with R rows a block: x [L, P8], scores^T [L8, R + 4],
+// C [R, CS], then B [L8, CS] or, once the scores are out, state_in^T
+// [Np, P8 + 4] in the same bytes; dt, cum [L8], exp(cum) [R], sums (all
+// f32)
 struct OutF32 {
   int P8, Np, CS, L8;
   size_t st, c, u, dt, cum, ecum, sums, total;
 };
+template <int R = kRB>
 __host__ __device__ inline OutF32 out_f32(int L, int P, int N) {
   OutF32 y;
   y.P8 = round_up(P, 8);
@@ -121,9 +130,9 @@ __host__ __device__ inline OutF32 out_f32(int L, int P, int N) {
   y.L8 = round_up(L, 8);
   size_t o = align16((size_t)L * y.P8 * 4);
   y.st = o;
-  o += align16((size_t)y.L8 * (kRB + 4) * 4);
+  o += align16((size_t)y.L8 * (R + 4) * 4);
   y.c = o;
-  o += align16((size_t)kRB * y.CS * 4);
+  o += align16((size_t)R * y.CS * 4);
   y.u = o;
   const size_t bsz = (size_t)y.L8 * y.CS * 4;
   const size_t ssz = (size_t)y.Np * (y.P8 + 4) * 4;
@@ -133,7 +142,7 @@ __host__ __device__ inline OutF32 out_f32(int L, int P, int N) {
   y.cum = o;
   o += align16((size_t)y.L8 * 4);
   y.ecum = o;
-  o += align16(kRB * 4);
+  o += align16(R * 4);
   y.sums = o;
   o += align16(kWarps * 4);
   y.total = o;
@@ -503,6 +512,8 @@ __global__ void __launch_bounds__(kThreads)
               nc * ns, nc, P, N);
 }
 
+// R output rows a block (kRB, or kRBSmall where kRB's do not fit)
+template <int R>
 __global__ void __launch_bounds__(kThreads)
     ssd_scan_out_f32(const float* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ a, const float* __restrict__ bm,
@@ -514,17 +525,17 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int rb = nrb - 1 - blockIdx.x % nrb;  // the longer row blocks first
   const Chunk k = chunk_of(blockIdx.x / nrb, H, G, S, L, nc);
-  const int i0 = rb * kRB;
+  const int i0 = rb * R;
   if (i0 >= k.Lc) return;
-  const int nr = min(kRB, k.Lc - i0);  // rows of this block
-  const int ncol = i0 + nr;            // columns j any of them needs
+  const int nr = min(R, k.Lc - i0);  // rows of this block
+  const int ncol = i0 + nr;          // columns j any of them needs
   const int ncol8 = round_up(ncol, 8);
-  const OutF32 ly = out_f32(L, P, N);
+  const OutF32 ly = out_f32<R>(L, P, N);
   const int P8 = ly.P8, Np = ly.Np, CS = ly.CS;
-  constexpr int SS = kRB + 4;  // scores^T row stride
+  constexpr int SS = R + 4;  // scores^T row stride
   float* x_s = reinterpret_cast<float*>(smem);            // [ncol, P8]
   float* s_t = reinterpret_cast<float*>(smem + ly.st);    // [ncol8, SS]
-  float* c_s = reinterpret_cast<float*>(smem + ly.c);     // [kRB, CS]
+  float* c_s = reinterpret_cast<float*>(smem + ly.c);     // [R, CS]
   float* b_s = reinterpret_cast<float*>(smem + ly.u);     // [ncol8, CS]
   float* st_t = reinterpret_cast<float*>(smem + ly.u);    // [Np, P8 + 4]
   float* dt_s = reinterpret_cast<float*>(smem + ly.dt);
@@ -536,7 +547,7 @@ __global__ void __launch_bounds__(kThreads)
   stage<float>(x_s, P8, x + (row0 * H + k.h) * P, (size_t)H * P, ncol, P,
                ncol, P8, vec);
   stage<float>(c_s, CS, cm + ((row0 + i0) * G + k.g) * N, (size_t)G * N, nr,
-               N, kRB, Np, vec);
+               N, R, Np, vec);
   stage<float>(b_s, CS, bm + (row0 * G + k.g) * N, (size_t)G * N, ncol, N,
                ncol8, Np, vec);
   for (int i = tid; i < ncol; i += kThreads)
@@ -547,8 +558,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = tid; r < nr; r += kThreads) ecum[r] = expf(cum[i0 + r]);
 
   // scores^T[j, r] = (C_i . B_j) exp(cum_i - cum_j) dt_j for j <= i, else 0
-  for (int e = tid; e < kRB * ncol8; e += kThreads) {
-    const int row = e % kRB, col = e / kRB, i = i0 + row;
+  for (int e = tid; e < R * ncol8; e += kThreads) {
+    const int row = e % R, col = e / R, i = i0 + row;
     float s = 0.f;
     if (row < nr && col <= i && col < ncol) {
       const float* ci = c_s + row * CS;
@@ -572,40 +583,41 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // y = scores . x + exp(cum_i) C . state_in: a thread owns rows
-  // ri + 16 q (q < 4) and columns 4 pi .. 4 pi + 3; a warp spans 8 rows
-  // and 4 column groups, so its row-strided reads hit distinct banks
+  // ri + 16 q (q < R / 16) and columns 4 pi .. 4 pi + 3; a warp spans 8
+  // rows and 4 column groups, so its row-strided reads hit distinct banks
+  constexpr int Q = R / 16;
   const int PT = P8 / 4, PT4 = round_up(PT, 4);
   for (int tt = tid; tt < 16 * PT4; tt += kThreads) {
     const int ri = (tt & 7) | (((tt >> 5) & 1) << 3);
     const int pi = ((tt >> 3) & 3) | ((tt >> 6) << 2);
     if (pi >= PT) continue;
-    float acc[4][4] = {};
-    const int jmax = min(ncol, i0 + ri + 49);
+    float acc[Q][4] = {};
+    const int jmax = min(ncol, i0 + ri + 16 * (Q - 1) + 1);
     for (int j = 0; j < jmax; ++j) {
       float xv[4];
       load4(x_s + j * P8 + 4 * pi, xv);
       const float* sr = s_t + j * SS + ri;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < Q; ++q) {
         const float s = sr[16 * q];
 #pragma unroll
         for (int u = 0; u < 4; ++u) acc[q][u] += s * xv[u];
       }
     }
     if (inter) {
-      float ac2[4][4] = {};
+      float ac2[Q][4] = {};
       for (int n = 0; n < N; ++n) {
         float sv[4];
         load4(st_t + n * (P8 + 4) + 4 * pi, sv);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
+        for (int q = 0; q < Q; ++q) {
           const float cq = c_s[(ri + 16 * q) * CS + n];
 #pragma unroll
           for (int u = 0; u < 4; ++u) ac2[q][u] += cq * sv[u];
         }
       }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < Q; ++q) {
         const int r = ri + 16 * q;
         const float e = r < nr ? ecum[r] : 0.f;
 #pragma unroll
@@ -613,7 +625,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < Q; ++q) {
       const int r = ri + 16 * q;
       if (r >= nr) continue;
       float* yr = y + ((row0 + i0 + r) * H + k.h) * P;
@@ -893,13 +905,21 @@ int launch_f32(const float* x, const float* dt, const float* a,
                const float* bm, const float* cm, float* y, float* state,
                float* contrib, float* decay, int* ticket, int B, int S, int H,
                int P, int G, int N, int L, int ns, int vec, cudaStream_t s) {
-  const int nc = (S + L - 1) / L, nrb = (L + kRB - 1) / kRB;
+  const int nc = (S + L - 1) / L;
   const int nb = round_up((N + ns - 1) / ns, 8);
-  const size_t sm1 = state_f32(L, P, nb).total, sm2 = out_f32(L, P, N).total;
+  // kRB output rows a block where they fit, else kRBSmall
+  const bool small = out_f32(L, P, N).total > kMaxSmem;
+  const int rows = small ? kRBSmall : kRB, nrb = (L + rows - 1) / rows;
+  const size_t sm1 = state_f32(L, P, nb).total;
+  const size_t sm2 = small ? out_f32<kRBSmall>(L, P, N).total
+                           : out_f32(L, P, N).total;
   if (sm1 > kMaxSmem || sm2 > kMaxSmem) return (int)cudaErrorInvalidValue;
-  static size_t opted1 = 48 * 1024, opted2 = 48 * 1024;
+  const auto out_kernel =
+      small ? ssd_scan_out_f32<kRBSmall> : ssd_scan_out_f32<kRB>;
+  static size_t opted1 = 48 * 1024, opted2 = 48 * 1024, opted3 = 48 * 1024;
   cudaError_t err = opt_in(ssd_scan_state_f32, sm1, opted1);
-  if (err == cudaSuccess) err = opt_in(ssd_scan_out_f32, sm2, opted2);
+  if (err == cudaSuccess)
+    err = opt_in(out_kernel, sm2, small ? opted3 : opted2);
   if (err != cudaSuccess) return (int)err;
   const long long bh = (long long)B * H;
   ssd_scan_state_f32<<<(unsigned)(bh * nc * ns), kThreads, sm1, s>>>(
@@ -907,7 +927,7 @@ int launch_f32(const float* x, const float* dt, const float* a,
       vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ssd_scan_out_f32<<<(unsigned)(bh * nc * nrb), kThreads, sm2, s>>>(
+  out_kernel<<<(unsigned)(bh * nc * nrb), kThreads, sm2, s>>>(
       x, dt, a, bm, cm, contrib, y, S, H, P, G, N, L, nc, nrb, vec);
   return (int)cudaGetLastError();
 }

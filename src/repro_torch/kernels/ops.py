@@ -164,11 +164,11 @@ def xent_loss(
 # fused recycle-ledger record + priority
 # ---------------------------------------------------------------------------
 
-# Batches of at least this many items take the "block" launch (three grids
-# over the items), smaller ones "fori" (one block); see kernels.ledger. Set
-# from chip_smoke.py's sweep of both routes on an H100 (capacity 65536):
-# "fori" is faster up to 512 items, "block" from 1024 on.
-LEDGER_BLOCK_MIN_BATCH = 1024
+# The JAX package's threshold between its variant names: batches of at
+# least this many items are named "block", smaller ones "fori". Both names
+# take the same launch here (kernels.ledger: one block a table tile, every
+# block walking the batch).
+LEDGER_BLOCK_MIN_BATCH = 256
 
 
 def ledger_record_priority(
@@ -190,27 +190,33 @@ def ledger_record_priority(
     """One ledger transaction -> (ema', count', last_seen', owner', pri).
 
     ``valid`` ([B] bool) masks the write; masked items are still scored.
-    ``step`` is an int or a 0-dim int tensor; on the card, pass a device
-    tensor to keep the call free of host syncs. ``variant`` picks the
-    kernel's launch: None by batch size (``LEDGER_BLOCK_MIN_BATCH``),
-    "fori"/"block" force one; the plain version ignores it."""
-    variant = _ledger.resolve_variant(variant, ids.shape[0],
-                                      LEDGER_BLOCK_MIN_BATCH)
+    ``step`` is an int or a 0-dim int tensor; on the card, pass an int32
+    tensor on the table's device to keep the call free of host syncs and
+    casts. ``variant`` is the JAX package's: None, "fori" or "block"; any
+    of them takes the kernel's one launch, and the plain version ignores
+    it. On the card the five outputs are disjoint views of one new buffer
+    (``kernels.ledger.ledger_record_priority_cuda``): keeping any of them
+    keeps the whole buffer."""
+    _ledger.resolve_variant(variant, ids.shape[0], LEDGER_BLOCK_MIN_BATCH)
     if _resolve(impl, ema) == "ref":
         return _ref.ledger_record_priority_ref(
             ema, count, last_seen, owner, ids, losses, step, decay,
             unseen_priority, staleness_half_life, valid,
         )
-    if isinstance(step, torch.Tensor):
-        step = step.reshape(()).to(device=ema.device, dtype=torch.int32)
-    else:  # a fill, not a host-to-device copy
+    if not isinstance(step, torch.Tensor):  # a fill, not a host-to-device copy
         step = torch.full((), int(step), dtype=torch.int32, device=ema.device)
+    elif step.dtype != torch.int32 or step.device != ema.device:
+        step = step.reshape(()).to(device=ema.device, dtype=torch.int32)
+    if ids.dtype != torch.int32:
+        ids = ids.to(torch.int32)
+    if losses.dtype != torch.float32:
+        losses = losses.to(torch.float32)
+    if valid is not None and valid.dtype != torch.bool:
+        valid = valid.to(torch.bool)
     out = _ledger.ledger_record_priority_cuda(
-        ema, count, last_seen, owner, ids.to(torch.int32),
-        losses.to(torch.float32), step,
-        None if valid is None else valid.to(torch.bool),
+        ema, count, last_seen, owner, ids, losses, step, valid,
         decay=decay, unseen_priority=unseen_priority,
-        staleness_half_life=staleness_half_life, variant=variant,
+        staleness_half_life=staleness_half_life,
     )
     LAUNCHES["ledger_record_priority"] += 1
     return out

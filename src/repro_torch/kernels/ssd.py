@@ -6,6 +6,11 @@ its plain version is the chunked scan ``repro_torch.models.ssm.ssd_chunked``
 (and the sequential oracle ``kernels.ref.ssd_ref``). One call is two grids:
 the chunks' state contributions (and their fold into the state entering
 each chunk), then the outputs.
+
+Each block must fit the card's shared memory (``smem_bytes``): at chunks
+of 128 steps and P = 64, f32 takes N up to 272 (the output grid takes 32
+rows a block instead of 64 where 64 do not fit) and bf16 N up to 256; the
+wrapper raises past that.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # mirror csrc/ssd.cu: output rows per block of the f32 second grid, warps'
 # scan sums, and the shared memory one block may use on sm_90
 OUT_ROWS = 64
+OUT_ROWS_SMALL = 32  # where OUT_ROWS of the f32 grid do not fit
 _WARPS = 8
 MAX_SMEM = 232448
 H100_SMS = 132
@@ -45,23 +51,36 @@ def state_smem_bytes(chunk: int, p: int, nb: int, itemsize: int) -> int:
             + 3 * _a16(4 * chunk) + _a16(4 * _WARPS) + 16)
 
 
+def _out_f32_bytes(chunk: int, p: int, n: int, rows: int) -> int:
+    np_, l8, p8 = _up(n, 16), _up(chunk, 8), _up(p, 8)
+    cs = np_ + 4
+    return (_a16(chunk * p8 * 4) + _a16(l8 * (rows + 4) * 4)
+            + _a16(rows * cs * 4) + _a16(max(l8 * cs, np_ * (p8 + 4)) * 4)
+            + 2 * _a16(l8 * 4) + _a16(rows * 4) + _a16(_WARPS * 4))
+
+
+def out_rows(chunk: int, p: int, n: int) -> int:
+    """Output rows a block of the f32 second grid takes: OUT_ROWS where
+    they fit, else OUT_ROWS_SMALL."""
+    if _out_f32_bytes(chunk, p, n, OUT_ROWS) <= MAX_SMEM:
+        return OUT_ROWS
+    return OUT_ROWS_SMALL
+
+
 def out_smem_bytes(chunk: int, p: int, n: int, itemsize: int) -> int:
     """Shared memory of a block of the second grid: in bf16 (``out_tc``, a
     whole chunk) C and B [L16, Np + 8], x [L16, P16 + 8] and the entering
     state's hi and lo [P16, Np + 8] in bf16, dt and cum [L16] f32; in f32
-    (``out_f32``, 64 rows of a chunk) x [L, P8], the scores^T [L8, 68],
-    C [64, Np + 4], then B [L8, Np + 4] or the state^T [Np, P8 + 4], and
-    small f32 vectors."""
+    (``out_f32``, R = ``out_rows`` rows of a chunk) x [L, P8], the
+    scores^T [L8, R + 4], C [R, Np + 4], then B [L8, Np + 4] or the
+    state^T [Np, P8 + 4], and small f32 vectors."""
     np_ = _up(n, 16)
     if itemsize == 2:
         cs, l16, p16 = np_ + 8, _up(chunk, 16), _up(p, 16)
         return (2 * _a16(l16 * cs * 2) + _a16(l16 * (p16 + 8) * 2)
                 + 2 * _a16(p16 * cs * 2) + 2 * _a16(l16 * 4)
                 + _a16(_WARPS * 4))
-    cs, l8, p8 = np_ + 4, _up(chunk, 8), _up(p, 8)
-    return (_a16(chunk * p8 * 4) + _a16(l8 * (OUT_ROWS + 4) * 4)
-            + _a16(OUT_ROWS * cs * 4) + _a16(max(l8 * cs, np_ * (p8 + 4)) * 4)
-            + 2 * _a16(l8 * 4) + _a16(OUT_ROWS * 4) + _a16(_WARPS * 4))
+    return _out_f32_bytes(chunk, p, n, out_rows(chunk, p, n))
 
 
 @functools.lru_cache(maxsize=64)

@@ -158,3 +158,29 @@ def ssd_case(bsz, s, h, p, g, n, seed=0):
     b = (rs.standard_normal((bsz, s, g, n)) * 0.5).astype(np.float32)
     c = (rs.standard_normal((bsz, s, g, n)) * 0.5).astype(np.float32)
     return x, dt, a, b, c
+
+
+def ledger_edge_batch(kind, capacity, batch, seed=0, tile_slots=1024):
+    """One (ids i32, losses f32, valid bool) batch for the ledger's edge
+    cases: "one_tile" (every item's slot in [0, tile_slots), from ids with
+    repeats), "one_slot" (every item on one slot, from a few distinct
+    ids: the last valid one wins, the others read as unseen),
+    "all_masked" (nothing writes; every item is still scored), and
+    "random" (ids in [0, 2 batch), a quarter masked; a batch larger than
+    the capacity where ``batch`` > ``capacity``)."""
+    from repro_torch.core.history import slot_for
+
+    rs = np.random.default_rng(seed)
+    losses = rs.normal(2.0, 1.0, size=batch).astype(np.float32)
+    valid = rs.random(batch) > 0.25
+    if kind == "one_tile":
+        cand = np.arange(5000, 5000 + 64 * capacity, dtype=np.int64)
+        pool = cand[slot_for(cand, capacity) < tile_slots]
+        ids = rs.choice(pool[:4 * batch + 1], size=batch)
+    elif kind == "one_slot":
+        ids = rs.choice(colliding_ids(capacity, 12, start=7000), size=batch)
+    else:
+        ids = rs.integers(0, 2 * batch + 1, size=batch)
+    if kind == "all_masked":
+        valid[:] = False
+    return ids.astype(np.int32), losses, valid

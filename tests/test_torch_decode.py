@@ -248,7 +248,8 @@ def test_paged_split_plan(shape):
     [(128, 64, 128, 2, 1),  # mamba2-370m, bf16: 96 blocks at its prefill
      (128, 64, 64, 2, 3),  # zamba2-2.7b, bf16
      (128, 64, 256, 2, 1),  # N = 256 at L = 128: past the old kernel's room
-     (128, 64, 64, 4, 1)],  # the f32 path
+     (128, 64, 64, 4, 1),  # the f32 path
+     (128, 64, 256, 4, 1)],  # f32 at N = 256: 32 output rows a block
 )
 def test_ssd_shared_memory_fits(chunk, p, n, itemsize, blocks_per_sm):
     """The scan's shared memory per block against the card's 227 KB: a
@@ -263,11 +264,37 @@ def test_ssd_shared_memory_fits(chunk, p, n, itemsize, blocks_per_sm):
 
 
 def test_ssd_shared_memory_refuses_f32_at_n_256():
+    """Where the wrapper refuses f32 at N = 256: from chunks of 192 steps
+    on. At the chunks of 128 the models use it now fits (the f32 output
+    grid takes 32 rows a block where 64 do not fit), and the refusal at
+    L = 128 starts past N = 272 in f32 and past 256 in bf16."""
     from repro_torch.kernels import ssd as SSD
 
-    assert SSD.smem_bytes(128, 64, 256, 4) > SSD.MAX_SMEM
+    assert SSD.smem_bytes(256, 64, 256, 4) > SSD.MAX_SMEM
+    assert SSD.smem_bytes(192, 64, 256, 4) > SSD.MAX_SMEM
+    assert SSD.smem_bytes(128, 64, 256, 4) <= SSD.MAX_SMEM
+    assert SSD.smem_bytes(128, 64, 272, 4) <= SSD.MAX_SMEM
+    assert SSD.smem_bytes(128, 64, 288, 4) > SSD.MAX_SMEM
+    assert SSD.smem_bytes(128, 64, 272, 2) > SSD.MAX_SMEM
     assert SSD.n_parts(1, 32, 3, 128) == 2  # mamba2's prefill: 96 chunks
     assert SSD.n_parts(4, 80, 16, 64) == 1  # 5120 chunks
+
+
+@pytest.mark.parametrize("n,rows,total", [
+    (64, 64, 32768 + 34816 + 17408 + 34816 + 1312),
+    (128, 64, 32768 + 34816 + 33792 + 67584 + 1312),
+    (256, 32, 32768 + 18432 + 33280 + 133120 + 1184)])
+def test_ssd_f32_output_layout_mirror(n, rows, total):
+    """csrc/ssd.cu's out_f32 at L = 128, P = 64, summed by hand: x [128,
+    64], scores^T [128, R + 4], C [R, Np + 4], then B [128, Np + 4] or the
+    state^T [Np, 68] in the same bytes, then dt, cum [128], exp(cum) [R]
+    and the warps' sums. R = 64 rows a block while that fits, 32 past
+    it."""
+    from repro_torch.kernels import ssd as SSD
+
+    assert SSD.out_rows(128, 64, n) == rows
+    assert SSD.out_smem_bytes(128, 64, n, 4) == total
+    assert SSD.smem_bytes(128, 64, n, 4) <= SSD.MAX_SMEM
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (decode_case, ledger_batches, paged_case, ssd_case,
-                          topk_edge_rows, topk_logits, window_mask, xent_case)
+from _torch_cases import (decode_case, ledger_batches, ledger_edge_batch,
+                          paged_case, ssd_case, topk_edge_rows, topk_logits,
+                          window_mask, xent_case)
 from repro_torch.core.history import HistoryConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import topk_lse as TK
@@ -225,34 +226,117 @@ def _ledger_table(cuda, cap):
             torch.full((cap,), -1, dtype=torch.int32, device=cuda))
 
 
+def _ledger_tx_check(cuda, st_k, st_r, ids, losses, valid, step, **kw):
+    """One transaction through the kernel and the plain version: integers
+    exact, ema and priority within rtol 1e-6 -> both new tables."""
+    ids, losses = (torch.from_numpy(a).to(cuda) for a in (ids, losses))
+    valid = None if valid is None else torch.from_numpy(valid).to(cuda)
+    step_t = torch.full((), step, dtype=torch.int32, device=cuda)
+    out_k = ops.ledger_record_priority(*st_k, ids, losses, step_t,
+                                       valid=valid, impl="cuda", **kw)
+    out_r = ops.ledger_record_priority(*st_r, ids, losses, step, valid=valid,
+                                       impl="ref", **kw)
+    for got, want in zip(out_k[1:4], out_r[1:4]):
+        assert torch.equal(got, want)
+    for got, want in (out_k[0], out_r[0]), (out_k[4], out_r[4]):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    return out_k, out_r
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [32, 512])
+@pytest.mark.parametrize("cap,batch", [(65536, 32), (65536, 512),
+                                       (1 << 18, 32768)])
 @pytest.mark.parametrize("variant", [None, "fori", "block"])
 @pytest.mark.parametrize("half_life", [float("inf"), 3.0])
-def test_ledger_kernel_matches_plain_chained(cuda, batch, variant, half_life):
-    """Capacity 65536 (HistoryConfig's), five chained transactions with
-    duplicates, masked items and an eviction inside each batch: integers
-    exact, ema and priority within rtol 1e-6."""
+def test_ledger_kernel_matches_plain_chained(cuda, cap, batch, variant,
+                                             half_life):
+    """Capacity 65536 (HistoryConfig's) and 2^18 (the JAX kernel's
+    per-shard ceiling), five chained transactions with duplicates, masked
+    items and an eviction inside each batch: integers exact, ema and
+    priority within rtol 1e-6."""
     cfg = HistoryConfig()
-    st_k = st_r = _ledger_table(cuda, cfg.capacity)
+    st_k = st_r = _ledger_table(cuda, cap)
     kw = dict(decay=cfg.decay, unseen_priority=cfg.unseen_priority,
-              staleness_half_life=half_life)
+              staleness_half_life=half_life, variant=variant)
     for step, (ids, losses, valid) in enumerate(
-            ledger_batches(cfg.capacity, batch, 5, seed=batch)):
-        ids, losses, valid = (torch.from_numpy(a).to(cuda)
-                              for a in (ids, losses, valid))
-        step_t = torch.full((), 2 * step, dtype=torch.int32, device=cuda)
-        out_k = ops.ledger_record_priority(*st_k, ids, losses, step_t,
-                                           valid=valid, impl="cuda",
-                                           variant=variant, **kw)
-        out_r = ops.ledger_record_priority(*st_r, ids, losses, 2 * step,
-                                           valid=valid, impl="ref", **kw)
-        for got, want in zip(out_k[1:4], out_r[1:4]):
-            assert torch.equal(got, want)
-        for got, want in (out_k[0], out_r[0]), (out_k[4], out_r[4]):
-            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+            ledger_batches(cap, batch, 5, seed=batch)):
+        out_k, out_r = _ledger_tx_check(cuda, st_k, st_r, ids, losses, valid,
+                                        2 * step, **kw)
         assert out_k[4][-2] == cfg.unseen_priority  # evicted in its batch
         st_k, st_r = out_k[:4], out_r[:4]
+
+
+# (kind, capacity, batch): every item in one tile, every item on one slot
+# (past the tile's item list: the patch pass reads the winner array and the
+# score pass walks the batch again), more items than slots, an empty
+# batch, every item masked, a table smaller than a 16-byte vector
+LEDGER_EDGES = [("one_tile", 65536, 4096), ("one_slot", 65536, 4096),
+                ("one_slot", 1 << 18, 32768), ("random", 1024, 4096),
+                ("random", 65536, 0), ("all_masked", 65536, 512),
+                ("random", 2, 9)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["fori", "block"])
+@pytest.mark.parametrize("kind,cap,batch", LEDGER_EDGES)
+def test_ledger_kernel_matches_plain_at_the_edges(cuda, kind, cap, batch,
+                                                  variant):
+    """Three chained transactions each, under each variant name, against
+    the plain version; a masked batch leaves the tables as they were."""
+    kw = dict(decay=0.8, unseen_priority=1e6, staleness_half_life=3.0,
+              variant=variant)
+    st_k = st_r = _ledger_table(cuda, cap)
+    for step in range(3):
+        ids, losses, valid = ledger_edge_batch(kind, cap, batch, seed=step)
+        out_k, out_r = _ledger_tx_check(cuda, st_k, st_r, ids, losses, valid,
+                                        step, **kw)
+        if kind == "all_masked":
+            for got, was in zip(out_k[:4], st_k):
+                assert torch.equal(got, was)
+        st_k, st_r = out_k[:4], out_r[:4]
+
+
+@pytest.mark.gpu
+def test_ledger_kernel_reads_unaligned_ids(cuda):
+    """ids, losses and valid that start one element into their buffers
+    (not 16-byte aligned), and no valid mask at all, under each variant
+    name."""
+    cap = 65536
+    ids, losses, valid = ledger_edge_batch("random", cap, 514, seed=5)
+    st = _ledger_table(cuda, cap)
+    full = [torch.from_numpy(a).to(cuda) for a in (ids, losses, valid)]
+    sub = [x[1:] for x in full]
+    kw = dict(decay=0.8, unseen_priority=1e6, staleness_half_life=3.0)
+    for valid_t, variant in ((sub[2], "fori"), (None, "fori"),
+                             (sub[2], "block"), (None, "block")):
+        got = ops.ledger_record_priority(*st, sub[0], sub[1], 4,
+                                         valid=valid_t, impl="cuda",
+                                         variant=variant, **kw)
+        want = ops.ledger_record_priority(*st, sub[0], sub[1], 4,
+                                          valid=valid_t, impl="ref", **kw)
+        for g, w in zip(got[1:4], want[1:4]):
+            assert torch.equal(g, w)
+        for g, w in (got[0], want[0]), (got[4], want[4]):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_ledger_kernel_outputs_are_disjoint_views(cuda):
+    """The five outputs are views of one buffer: an in-place write into
+    any one of them leaves the other four as they were."""
+    ids, losses, valid = (torch.from_numpy(a).to(cuda) for a in
+                          ledger_edge_batch("random", 1024, 64, seed=1))
+    out = ops.ledger_record_priority(*_ledger_table(cuda, 1024), ids, losses,
+                                     3, valid=valid, impl="cuda", decay=0.8,
+                                     unseen_priority=1e6)
+    base = out[0].untyped_storage().data_ptr()
+    assert all(o.untyped_storage().data_ptr() == base for o in out)
+    for k in range(5):
+        before = [o.clone() for o in out]
+        out[k].fill_(7)
+        for j in range(5):
+            if j != k:
+                assert torch.equal(out[j], before[j]), (k, j)
 
 
 # decode_attn at the serving shapes (llama3-8b's dense cache, zamba2's shared
@@ -343,10 +427,12 @@ SSD_CASES = [(2, 64, 4, 16, 1, 32, 16, torch.float32),
              (1, 300, 80, 64, 1, 64, 128, torch.float32),
              (1, 300, 32, 64, 1, 128, 128, torch.bfloat16),
              # one chunk (a short prompt), an exact multiple of the chunk,
-             # N = 256 at L = 128, and the long case's two batch rows
+             # N = 256 at L = 128 (bf16, and f32: 32 output rows a block), and
+             # the long case's two batch rows
              (1, 100, 80, 64, 1, 64, 128, torch.bfloat16),
              (1, 256, 32, 64, 1, 128, 128, torch.bfloat16),
              (1, 300, 8, 64, 1, 256, 128, torch.bfloat16),
+             (1, 300, 8, 64, 1, 256, 128, torch.float32),
              (2, 1024, 8, 64, 2, 64, 128, torch.bfloat16)]
 SSD_TOL = dict(atol=3e-4, rtol=1e-3)  # test_ssd_kernel_matches_sequential_ref
 # bf16 y: both versions compute in f32 from the same bf16 inputs and round

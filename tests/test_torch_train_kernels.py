@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from _ledger_parity import DERIVED_RTOL, EMA_RTOL
-from _torch_cases import ledger_batches, xent_case
+from _torch_cases import ledger_batches, ledger_edge_batch, xent_case
 from repro.core.history import HistoryConfig as JHistoryConfig
 from repro.core.history import LossHistory as JLossHistory
 from repro.kernels import ledger as JL_mod
@@ -301,3 +301,72 @@ def test_ledger_variant_dispatch_by_batch():
                     JL_mod.resolve_variant(forced, b, thr, rows=8)
     with pytest.raises(ValueError):
         L_mod.resolve_variant("tiles", 8, thr)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's tile plan, and the edge batches its card tests use
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("log_cap", range(7, 21))
+def test_ledger_tile_plan_covers_the_table_within_shared_memory(log_cap):
+    """Tiles of a power-of-two size cover every slot once; a block's
+    shared memory (header, the tile, its item list and winners) stays
+    within what it declares and what the card allows; the ids walked over
+    all blocks stay within WALK_ITEMS unless the shared-memory ceiling
+    needs more tiles."""
+    cap = 1 << log_cap
+    for b in (0, 1, 31, 32, 512, 1024, 4096, 8192, 32768, 1 << 16):
+        tiles, slots, room, smem = L_mod.tile_plan(cap, b)
+        assert tiles * slots == cap
+        assert tiles & (tiles - 1) == 0 and slots & (slots - 1) == 0
+        owner = np.arange(cap) // slots  # the tile that owns each slot
+        assert owner[0] == 0 and owner[-1] == tiles - 1
+        assert (np.bincount(owner, minlength=tiles) == slots).all()
+        assert smem == (4 * (L_mod.HEADER_INTS + 5 * slots)
+                        + 8 * room) <= L_mod.MAX_SMEM
+        assert slots <= L_mod.MAX_TILE_SLOTS
+        assert L_mod.MIN_ROOM <= room <= L_mod.MAX_ROOM
+        assert room >= min(L_mod.MAX_ROOM, b * slots // cap)
+        assert (tiles * b <= L_mod.WALK_ITEMS
+                or tiles == cap // L_mod.MAX_TILE_SLOTS)
+    assert L_mod.tile_plan(65536, 32)[0] == 65536 // L_mod.TILE_SLOTS
+
+
+@pytest.mark.parametrize("variant", ["fori", "block"])
+@pytest.mark.parametrize("kind,cap,batch", [
+    ("random", 1024, 32), ("random", 1024, 512),
+    ("one_tile", 4096, 600), ("one_slot", 1024, 300),
+    ("random", 512, 2000),  # more items than slots
+    ("random", 1024, 0), ("all_masked", 1024, 64)])
+def test_ledger_edge_batches_match_jax_interpret_kernel(variant, kind, cap,
+                                                        batch):
+    """The batches the card's edge-case test feeds the kernel (every item
+    in one tile, or on one slot; more items than slots; none; every item
+    masked), three transactions chained, through the port's plain version
+    against each Pallas variant in interpret mode (B = 0 against the jnp
+    oracle: the Pallas kernel takes no empty batch): integers exact, ema
+    rtol 1e-6, priorities 1e-5."""
+    kw = dict(decay=0.8, unseen_priority=1e6, staleness_half_life=3.0)
+    st_j = tuple(jnp.asarray(a) for a in _table(cap))
+    st_t = _t(*_table(cap))
+    for step in range(3):
+        ids, losses, valid = ledger_edge_batch(kind, cap, batch, seed=step)
+        if batch:
+            out_j = jops.ledger_record_priority(
+                *st_j, jnp.asarray(ids), jnp.asarray(losses),
+                jnp.int32(2 * step), valid=jnp.asarray(valid),
+                impl="interpret", variant=variant, **kw)
+        else:
+            out_j = jref.ledger_record_priority_ref(
+                *st_j, jnp.asarray(ids), jnp.asarray(losses),
+                jnp.int32(2 * step), kw["decay"], kw["unseen_priority"],
+                kw["staleness_half_life"], jnp.asarray(valid))
+        out_t = ops.ledger_record_priority(
+            *st_t, *_t(ids, losses), 2 * step, valid=torch.from_numpy(valid),
+            variant=variant, **kw)
+        _assert_tx_close(out_t, out_j, pri_rtol=DERIVED_RTOL)
+        if kind == "all_masked":
+            for g, w in zip(out_t[:4], st_t):
+                assert torch.equal(g, w)
+        st_j, st_t = out_j[:4], out_t[:4]

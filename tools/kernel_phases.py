@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where a block's time goes inside the port's decode-attention and top-k
-kernels: clock stamps at the numbered points of a block's life.
+"""Where a block's time goes inside the port's decode-attention, top-k and
+ledger kernels: clock stamps at the numbered points of a block's life.
 
-    python3 tools/kernel_phases.py [--json FILE]
+    python3 tools/kernel_phases.py [--json FILE] [--only NAME]
 
 Needs one CUDA card. Builds ``src/repro_torch/kernels/csrc`` again with
 ``-DKERNEL_PHASES`` (the stamps compile in only then, into libraries of
@@ -19,7 +19,10 @@ row 0's first two chunks); ``paged_decode_attn`` at llama3-8b's heads with
 16-token pages at the serve shape (a 160-position table, contexts
 129-160) and in a 2048-position table with contexts 129-160 and 50-2048
 (blocks 0 and 1 are spans 0 and 1 of row 0, kv head 0); ``decode_attn`` at
-zamba2's shared block (T = 332). One JSON line per case.
+zamba2's shared block (T = 332); ``ledger_record_priority`` at
+capacities 65536 and 2^18 with batches of 32 and 32768 (blocks 0 and 1
+are tiles 0 and 1). One JSON line per case; ``--only`` keeps the cases
+whose name starts with NAME.
 """
 
 from __future__ import annotations
@@ -46,6 +49,9 @@ TOPK_POINTS.update({5 + i: f"radix pass {i + 1}" for i in range(8)})
 DECODE_POINTS = {0: "start", 1: "q and probe read, first tile issued",
                  26: "tiles done", 27: "partial written",
                  28: "cluster barrier", 29: "merged"}
+LEDGER_POINTS = {0: "start", 1: "copy issued, winners cleared",
+                 2: "batch walked", 3: "tile in shared memory",
+                 4: "winners patched", 5: "tile written, items scored"}
 for _t in range(6):
     DECODE_POINTS.update({2 + 4 * _t: f"tile {_t + 1} in place",
                           3 + 4 * _t: f"tile {_t + 1} scored",
@@ -77,12 +83,14 @@ def stamps(torch, lib, names, fn, reps: int = 3) -> list[dict]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None)
+    ap.add_argument("--only", default="")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.core.history import HistoryConfig
     from repro_torch.kernels import _build, ops
 
     _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-DKERNEL_PHASES",)
@@ -90,7 +98,10 @@ def main() -> int:
     card = cs.card_line()
     sink = open(args.json, "a") if args.json else None
 
-    def emit(case, blocks):
+    def emit(case, lib, points, fn):
+        if not case.startswith(args.only):
+            return
+        blocks = stamps(torch, lib, points, fn)
         line = json.dumps(dict(case=case, card=card, block0=blocks[0],
                                block1=blocks[1]))
         print(line, flush=True)
@@ -103,8 +114,8 @@ def main() -> int:
                      (torch.bfloat16, 256), (torch.bfloat16, 4096)):
         x = logits.to(dtype)
         emit(f"topk_lse T=8 V=128256 k={k} {str(dtype)[6:]}",
-             stamps(torch, libs["topk_lse"], TOPK_POINTS,
-                    lambda: ops.topk_lse(x, k, impl="cuda")))
+             libs["topk_lse"], TOPK_POINTS,
+             lambda: ops.topk_lse(x, k, impl="cuda"))
     for name, npg, pos in (("160-position table, contexts 129-160", 10,
                             cs.SERVE_POS),
                            ("2048-position table, contexts 129-160", 128,
@@ -114,14 +125,30 @@ def main() -> int:
         case = cs.paged_case(torch, torch.bfloat16, g, npg=npg, pos=pos,
                              hole=False)
         emit(f"paged_decode_attn B=8 Hq=32 Hkv=8 D=128 page=16, {name}",
-             stamps(torch, libs["decode_attn"], DECODE_POINTS,
-                    lambda: ops.paged_decode_attn(*case, impl="cuda")))
+             libs["decode_attn"], DECODE_POINTS,
+             lambda: ops.paged_decode_attn(*case, impl="cuda"))
         del case
     q, k, v = cs.decode_inputs(torch, g, 8, 32, 32, 80, 332, torch.bfloat16)
     valid = cs.depth_mask(torch, cs.HYBRID_POS, 332)
     emit("decode_attn B=8 Hq=32 Hkv=32 D=80 T=332, contexts 301-332",
-         stamps(torch, libs["decode_attn"], DECODE_POINTS,
-                lambda: ops.decode_attn(q, k, v, valid, impl="cuda")))
+         libs["decode_attn"], DECODE_POINTS,
+         lambda: ops.decode_attn(q, k, v, valid, impl="cuda"))
+    cfg = HistoryConfig()
+    kw = dict(decay=cfg.decay, unseen_priority=cfg.unseen_priority,
+              staleness_half_life=cfg.staleness_half_life)
+    step = torch.full((), 7, dtype=torch.int32, device="cuda")
+    for cap in cs.LEDGER_CAPS:
+        table = (torch.zeros(cap, device="cuda"),
+                 torch.zeros(cap, dtype=torch.int32, device="cuda"),
+                 torch.full((cap,), -1, dtype=torch.int32, device="cuda"),
+                 torch.full((cap,), -1, dtype=torch.int32, device="cuda"))
+        for b in (32, 32768):
+            ids, losses, valid = cs.ledger_batch(torch, cap, b, b)
+            emit(f"ledger_record_priority capacity={cap} B={b}",
+                 libs["ledger"], LEDGER_POINTS,
+                 lambda: ops.ledger_record_priority(
+                     *table, ids, losses, step, valid=valid, impl="cuda",
+                     **kw))
     if sink:
         sink.close()
     return 0
