@@ -14,11 +14,13 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    time, a PyTorch library yardstick (never called by the port) and the
    least time the card could take (bytes over 3.35 TB/s, operations over
    the published peak): top-k + lse (bf16 logits as the recorder passes
-   them, and f32; k of 1 to 4096 and k = V, ±0 and -inf ties; timed warm,
+   them, and f32; k of 1 to 4096 and k = V, ±0 and -inf ties, k = 64 at
+   the vocabularies of deepseek-7b, qwen3-14b and granite-34b; timed warm,
    cold and as device time alone, also by k and route), paged decode
-   attention (pages of 5, 16 and 256, G = 16 and 48, D = 36, rows that
-   attend nothing; timed as the dense kernel is, also in a 2048-position
-   table), dense-cache
+   attention (pages of 5, 16 and 256, G = 1, 4, 5, 16 and 48 with the
+   heads of llama3-8b, deepseek-7b, qwen3-14b and granite-34b, D = 36,
+   rows that attend nothing; timed as the dense kernel is, also in a
+   2048-position table), dense-cache
    decode attention (zamba2's D = 80, G = 1 and llama3-8b's shapes, an
    all-masked row, a rolling window, f32 (also D = 256), the JAX test's
    G = 16 and a granite-34b-like G = 48 with a row valid in one span only,
@@ -58,7 +60,9 @@ Phases, one line each (any failure raises, exits non-zero and prints no
 7. xent and ledger — the training path's kernels against their plain
    versions at its shapes (cross-entropy at T = 4096 and 1024 rows of the
    128256-token vocabulary in bf16, with -1 labels, a row of ±1e4 logits
-   and a vocabulary that is no multiple of the tile; the ledger at
+   and a vocabulary that is no multiple of the tile, and at the shapes of
+   the other train paths: qwen3-14b's and granite-34b's vocabularies in
+   bf16 and the smoke configs' in f32, as Table 3 gives them; the ledger at
    capacity 65536 with batches of 32 and 512 and at 2^18 with 32 and
    32768, duplicates, masked items, five chained transactions and an
    eviction inside each batch, both variant names forced), timed as above
@@ -74,10 +78,28 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    uses it, (b) must cost 0.75 forwards a step and leave the kept rows in
    the ledger; the steady step time and peak memory are printed;
 9. train profile — run (a)'s configuration again, two warm steps timed by
-   the host clock and two under torch.profiler.
+   the host clock and two under torch.profiler;
+10. the other dense archs — deepseek-7b (30 layers, MHA), qwen3-14b (40,
+   qk-norm, G = 5) and granite-34b (88, MQA with G = 48, the GELU MLP)
+   served as in phase 4 at full width and depth, with the same gates
+   (``paged_decode_attn`` once per layer a step), each followed by a
+   profile of its steady decode step; their smoke configs in f32 on the
+   card and on the CPU (equal tokens, ledgers within 1e-5, the signal
+   channels also within 1e-6 absolute); then qwen3-14b
+   and granite-34b trained at full width, cut to the deepest that fits
+   (``ARCH_TRAIN``): qwen3-14b as run (a), granite-34b as run (b), each
+   with finite losses, its step cost and its kernels launched;
+11. paper — the port's twins of the paper's experiments
+   (``repro_torch.benchmarks``: Fig. 1, Fig. 2 and Table 3 with their
+   policy A/B arms), fast profile, at the JAX benches' sizes: every CSV
+   row printed, every row of the grids present and finite, accuracies in
+   [0, 1], the cross-entropy kernels launched during Table 3; then, not
+   gated, whether obftf beats uniform at each ratio and the policy arms'
+   order (the paper's claims, noisy at these sizes).
 
-It then prints the kernels as one JSON line, the card again, and last
-``{"ok": true, "device": {...}}``.
+It then prints the kernels as one JSON line (``launches`` over each
+kernel's first main path, ``launches_by_path`` over every path that ran
+it), the card again, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -119,6 +141,11 @@ SSD_BF16_RTOL, SSD_BF16_ATOL = 2**-7, 1e-3
 REF_LOGIT_TOL = 1e-4  # card vs CPU logits of the ssm/hybrid smoke configs
 LEDGER_RTOL = 1e-6  # ema / priority; the integer tables must be equal
 REF_TRAIN_RTOL = 1e-5  # card vs CPU train steps in f32
+# the ledger's signal channels, card vs CPU, besides rtol 1e-5: the margin
+# is the difference of the two largest f32 logits, so a logit's last-bit
+# difference (5e-7 at 4) is a large relative one where the two are close;
+# the signals' tolerance of tests/test_torch_serving.py
+SIG_ATOL = 1e-6
 TRAIN_LAYERS = 8  # of llama3-8b's 32: 2.80 B params fit the card's 80 GB
 
 
@@ -198,6 +225,8 @@ def topk_edges(torch, x):
 
 
 TOPK_KS = (1, 64, 65, 256, 4096)  # 4096: the most sorted in shared memory
+# the vocabularies of deepseek-7b, qwen3-14b and granite-34b
+ARCH_VOCABS = (102400, 151936, 49152)
 
 
 def topk_phase(torch, ops, ref) -> dict:
@@ -222,6 +251,12 @@ def topk_phase(torch, ops, ref) -> dict:
                 err = max(err, topk_check(torch, ops, ref, x.to(dtype), kk))
         for kk in (64, 4097):
             err = max(err, topk_check(torch, ops, ref, small.to(dtype), kk))
+    for va in ARCH_VOCABS:  # the other dense archs' serve shape
+        xa = topk_edges(torch, torch.randn((t, va), device="cuda",
+                                           generator=g) * 3)
+        for dtype in (torch.float32, torch.bfloat16):
+            err = max(err, topk_check(torch, ops, ref, xa.to(dtype), k))
+        del xa
     x = logits.to(torch.bfloat16)
 
     def kernel(x, kk=k):
@@ -273,7 +308,8 @@ def topk_phase(torch, ops, ref) -> dict:
                + ", ".join(f"{kk} {ms:.4f}" for kk, ms in per_k.items())
                + f"; one launch per call, a cluster per row; checked at k "
                f"{', '.join(map(str, TOPK_KS))} in f32 and bf16, V=4097 at "
-               f"k=64 and k=V, ties across blocks, ±0 and -inf ties"),
+               f"k=64 and k=V, ties across blocks, ±0 and -inf ties, and at "
+               f"k={k} for V in {list(ARCH_VOCABS)} in f32 and bf16"),
         tol=f"{TOPK_TOL} lse; values and indices exact",
     )
 
@@ -327,10 +363,12 @@ def paged_check(torch, ops, ref, case, tol) -> float:
 # the serve phase's rows decode at contexts 81-160 (prompts 80-128 plus up
 # to 32 new tokens); the timed case puts every row in its top half
 SERVE_POS = (159, 151, 147, 143, 139, 135, 131, 128)
-# (Hq, Hkv, D): llama3-8b's heads, the JAX test's G = 16, a granite-34b-like
-# G = 48 (three head slices) and D = 36 (144-byte rows in f32, 72-byte ones
-# in bf16, which take the scalar copy)
-PAGED_HEADS = ((32, 8, 128), (16, 1, 64), (48, 1, 128), (8, 2, 36))
+# (Hq, Hkv, D): llama3-8b's heads, the JAX test's G = 16, granite-34b's
+# G = 48 (three head slices), D = 36 (144-byte rows in f32, 72-byte ones
+# in bf16, which take the scalar copy), deepseek-7b's G = 1 and qwen3-14b's
+# G = 5
+PAGED_HEADS = ((32, 8, 128), (16, 1, 64), (48, 1, 128), (8, 2, 36),
+               (32, 32, 128), (40, 8, 128))
 # pages of 256 (spans inside one page) and of 5 (a tile crosses many)
 PAGED_LAYOUTS = ({}, dict(page=256, npg=3,
                           pos=(0, 255, 256, 300, 511, 600, 700, 767)),
@@ -386,8 +424,10 @@ def paged_timings(torch, ops, ref, case, plain=False) -> dict:
 
 
 def paged_phase(torch, ops, ref) -> dict:
-    """Correctness at page edges, holes, pages of 5 and 256, G = 16 and 48,
-    D = 36, rows that attend nothing (all pages -1, pos = -1), f32 and bf16;
+    """Correctness at page edges, holes, pages of 5 and 256, the heads of
+    llama3-8b, deepseek-7b, qwen3-14b and granite-34b (G = 4, 1, 5, 48),
+    G = 16, D = 36, rows that attend nothing (all pages -1, pos = -1), f32
+    and bf16, and each head shape at the serve phase's contexts;
     time and bound at the serve phase's shapes and load, warm, cold and as
     device time alone, beside page gather + SDPA; device time at a
     2048-position table with contexts 50-2048 and 129-160."""
@@ -416,6 +456,9 @@ def paged_phase(torch, ops, ref) -> dict:
             err = max(err, paged_check(torch, ops, ref, paged_case(
                 torch, torch.bfloat16, g, heads=heads, empty=True, **kw),
                 PAGED_BF16_TOL))
+        err = max(err, paged_check(torch, ops, ref, paged_case(
+            torch, torch.bfloat16, g, pos=SERVE_POS, hole=False,
+            heads=heads), PAGED_BF16_TOL))
     case = paged_case(torch, torch.bfloat16, g, pos=SERVE_POS, hole=False)
     err = max(err, paged_check(torch, ops, ref, case, PAGED_BF16_TOL))
     r = paged_timings(torch, ops, ref, case, plain=True)
@@ -455,8 +498,8 @@ def paged_phase(torch, ops, ref) -> dict:
                            f"{x['dev_cold_library_ms']:.4f} (bound "
                            f"{x['bound'][0]:.5f})" for n, x in longs.items())
                + f"; library = page gather + SDPA; checked also at pages of "
-               f"5 and 256, G=16 and 48, D=36, rows with every page -1 and "
-               f"pos=-1, and in f32 (err {err32:.3g})"),
+               f"5 and 256, (Hq, Hkv, D) in {list(PAGED_HEADS)}, rows with "
+               f"every page -1 and pos=-1, and in f32 (err {err32:.3g})"),
         tol=f"{PAGED_BF16_TOL} bf16, {PAGED_F32_TOL} f32 (times 1 + |plain|)",
     )
 
@@ -1124,10 +1167,10 @@ def _smoke_f32(arch: str):
                                param_dtype="float32", compute_dtype="float32")
 
 
-def engine_reference(torch, arch: str, page_size) -> int:
+def engine_reference(torch, arch: str, page_size, sig_atol=0.0) -> int:
     """The engine on ``arch``'s smoke config in f32, on the card (kernels)
-    and on the CPU (plain versions): same tokens, ledgers within 1e-5 ->
-    the number of requests."""
+    and on the CPU (plain versions): same tokens, ledgers within 1e-5 (the
+    signal channels also within ``sig_atol``) -> the number of requests."""
     import numpy as np
 
     from repro_torch.core.history import HistoryConfig
@@ -1163,6 +1206,7 @@ def engine_reference(torch, arch: str, page_size) -> int:
                              "different tokens")
     for key in la:
         np.testing.assert_allclose(la[key], lb[key], rtol=1e-5,
+                                   atol=sig_atol if key == "sig" else 0.0,
                                    err_msg=f"{arch} {key}")
     return len(fa)
 
@@ -1364,10 +1408,19 @@ def xent_check(torch, ops, ref, case) -> tuple[float, float]:
     return ferr, berr
 
 
+# the other train paths' (T, V, dtype): qwen3-14b's selection forward and
+# kept rows, granite-34b's kept rows, and Table 3's smoke llama (its full
+# arm's bf16 logits and per_example_signals' f32 ones)
+XENT_ARCH_CASES = ((4096, 151936, "bfloat16"), (1024, 151936, "bfloat16"),
+                   (1024, 49152, "bfloat16"), (2048, 256, "bfloat16"),
+                   (512, 256, "float32"))
+
+
 def xent_phases(torch, ops, ref) -> list[dict]:
     """Both cross-entropy kernels at the train path's shapes: the
     selection forward (T = 4096) and the kept rows (T = 1024), V = 128256,
-    bf16; also an f32 case and V = 128257 (rows not 16-byte aligned)."""
+    bf16; also an f32 case, V = 128257 (rows not 16-byte aligned) and
+    ``XENT_ARCH_CASES``."""
     v = 128256
     cases = {t: xent_case(torch, t, v, torch.bfloat16, t) for t in (4096,
                                                                   1024)}
@@ -1375,6 +1428,10 @@ def xent_phases(torch, ops, ref) -> list[dict]:
     for case in (*cases.values(), xent_case(torch, 64, v, torch.float32, 1),
                  xent_case(torch, 7, v + 1, torch.bfloat16, 2)):
         f, b = xent_check(torch, ops, ref, case)
+        ferr, berr = max(ferr, f), max(berr, b)
+    for t, va, dt in XENT_ARCH_CASES:
+        f, b = xent_check(torch, ops, ref, xent_case(
+            torch, t, va, getattr(torch, dt), t + va))
         ferr, berr = max(ferr, f), max(berr, b)
     fwd = {}
     for t, (x, labels, _) in cases.items():
@@ -1407,7 +1464,9 @@ def xent_phases(torch, ops, ref) -> list[dict]:
         shape=(f"T=4096 V={v} bf16; at T=1024: {fwd[1024]['ms']:.4f} ms, "
                f"plain {fwd[1024]['plain_ms']:.4f}, library "
                f"{fwd[1024]['library_ms']:.4f}, bound "
-               f"{fwd[1024]['bound'][0]:.5f}"),
+               f"{fwd[1024]['bound'][0]:.5f}; checked also at (T, V) "
+               + ", ".join(f"({t_}, {v_}) {d_}"
+                           for t_, v_, d_ in XENT_ARCH_CASES)),
     ), dict(
         name="xent_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/xent.cu",
@@ -1416,7 +1475,8 @@ def xent_phases(torch, ops, ref) -> list[dict]:
         plain_ms=time_ms(lambda: ref.xent_grad_ref(x, labels, lse, cot)),
         library_ms=time_ms(library_bwd),
         tol=f"{XENT_BWD_RTOL['torch.bfloat16']}·|plain| per entry",
-        shape=f"T=1024 V={v} bf16",
+        shape=(f"T=1024 V={v} bf16; checked also at the forward's other "
+               f"shapes"),
     )]
     rows[1]["bound_ms"], rows[1]["bound_by"] = bound(
         2 * 1024 * v * 2 + 1024 * 12, 4.0 * 1024 * v, "f32")
@@ -1725,6 +1785,186 @@ def train_profile_phase(torch) -> str:
             f"{groups}; top device ms/step: {tops}")
 
 
+# the slice's archs: each served at full width and depth through the paged
+# cache, as the llama3-8b phase (prompts of 128/112/96/80, 32 new tokens)
+ARCH_LAYERS = {"deepseek-7b": 30, "qwen3-14b": 40, "granite-34b": 88}
+
+
+def arch_argv(arch: str) -> list[str]:
+    argv = list(SERVE_ARGV)
+    argv[argv.index("--arch") + 1] = arch
+    return argv
+
+
+def paged_gates(s: dict, layers: int) -> None:
+    """The paged serve path's launch counts: ``paged_decode_attn`` once per
+    layer a step, ``topk_lse`` once a step and once an admission."""
+    _per_path(s, {"paged_decode_attn": (layers, "step"),
+                  "decode_attn": (0, "step")})
+    if s["launches"]["topk_lse"] != s["steps"] + s["admitted"]:
+        raise AssertionError(f"topk_lse launched {s['launches']['topk_lse']} "
+                             f"times, not one per step and per admission")
+
+
+def arch_serve_phases(torch, ops, tmp: str) -> dict:
+    """deepseek-7b (MHA, G = 1), qwen3-14b (qk-norm, G = 5) and granite-34b
+    (MQA, G = 48, the GELU MLP) served at full width and depth, each with a
+    profile of its steady decode step; then each smoke config in f32 on
+    the card and on the CPU: equal tokens, ledgers within 1e-5 -> each
+    serve's summary."""
+    out = {}
+    for arch, layers in ARCH_LAYERS.items():
+        out[arch] = s = serve_phase(torch, ops, tmp, arch_argv(arch),
+                                    SERVE_KERNELS)
+        paged_gates(s, layers)
+        print(serve_line(f"serve: {arch} {layers} layers bf16, paged", s),
+              flush=True)
+        print(f"{arch} profile: {profile_phase(torch, arch_argv(arch))}",
+              flush=True)
+    n = [engine_reference(torch, arch, 4, SIG_ATOL) for arch in ARCH_LAYERS]
+    print(f"arch reference: {', '.join(ARCH_LAYERS)} smoke configs in f32, "
+          f"{n} requests, tokens equal, ledgers within rtol 1e-5 (signal "
+          f"channels also atol {SIG_ATOL})", flush=True)
+    return out
+
+
+# the slice's train runs at full width, depth cut to the deepest that
+# trains on the card (launch.train one layer deeper, with these flags,
+# runs out of memory in AdamW's first step: qwen3-14b at 8 of 40 layers,
+# granite-34b at 9 of 88): qwen3-14b with a selection forward (qk-norm
+# under a gradient), granite-34b recycled (the GELU MLP, MQA, the ledger
+# kernel)
+ARCH_TRAIN = {"qwen3-14b": (7, []),
+              "granite-34b": (8, ["--recycle", "--ledger", "device",
+                                  "--instance-pool", "64"])}
+
+
+def arch_train_phase(torch, ops, tmp: str) -> dict:
+    out = {}
+    for arch, (layers, extra) in ARCH_TRAIN.items():
+        argv = [*TRAIN_ARGV, "--steps", "4" if not extra else "6", *extra]
+        argv[argv.index("--arch") + 1] = arch
+        argv[argv.index("--layers") + 1] = str(layers)
+        r = train_run(torch, ops, argv, os.path.join(tmp, f"{arch}.json"))
+        want = ("xent_fwd", "xent_bwd") + (("ledger_record_priority",)
+                                           if extra else ())
+        if min(r["launches"][k] for k in want) <= 0:
+            raise AssertionError(f"{arch} train missed a kernel: "
+                                 f"{r['launches']}")
+        cost = 0.75 if extra else 1.75
+        if abs(r["mean_step_cost"] - cost) > 1e-6:
+            raise AssertionError(f"{arch} step cost {r['mean_step_cost']}")
+        print(f"train: {arch} {r['layers']} of {ARCH_LAYERS[arch]} layers "
+              f"bf16, {r['steps']} steps, recycle={r['recycle']} "
+              f"ledger={r['ledger']}, loss {r['loss_first']:.4f} -> "
+              f"{r['loss_last']:.4f}, mean step cost "
+              f"{r['mean_step_cost']:.3f}C, launches {r['launches']}, step ms "
+              f"first {r['step_ms'][0]:.1f}, steady (median of warm) "
+              f"{r['steady_ms']:.1f}, peak {r['peak_gib']:.1f} GiB, sync "
+              f"guard on {r['guarded_steps']} warm steps", flush=True)
+        out[arch] = r
+    return out
+
+
+# the paper's three experiments (the port's twins of the JAX benches), fast
+# profile: lower is better for every metric but accuracy
+PAPER_BETTER = {"normalized_test_loss": min, "test_accuracy": max,
+                "eval_loss": min}
+
+
+def _rows(lines):
+    """CSV rows -> {(table, arm, ratio): (metric name, value)}."""
+    rows, header = {}, None
+    for line in lines:
+        cells = line.split(",")
+        if cells[0] == "table":
+            header = cells
+        elif len(cells) == 4 and header:
+            rows[(cells[0], cells[1], cells[2])] = (header[3], float(cells[3]))
+    return rows
+
+
+def _expected_rows(fig1, fig2, table3, policies):
+    want = [(f"fig1_{t}", m, str(r)) for t in ("clean", "outliers")
+            for m in fig1.METHODS for r in fig1.RATIOS]
+    for name, mod in (("fig2_mnist", fig2), ("table3_lm", table3)):
+        want += [(name, "full", "1.0")]
+        want += [(name, m, str(r)) for m in mod.METHODS for r in mod.RATIOS]
+        want += [(f"{name}_policy", p, str(r)) for p in sorted(policies)
+                 for r in mod.POLICY_RATIOS]
+    return want
+
+
+def _claims(rows) -> list[str]:
+    """Not gated: does obftf beat uniform at each ratio, and how do the
+    policy arms order against uniform and loss_ema (the paper's claims)."""
+    out = []
+    tables = sorted({k[0] for k in rows})
+    for t in tables:
+        arms = {(a, r): v for (tt, a, r), v in rows.items() if tt == t}
+        metric = next(iter(arms.values()))[0]
+        best = PAPER_BETTER[metric]
+        if t.endswith("_policy"):
+            for r in sorted({r for _, r in arms}):
+                order = sorted(((v[1], a) for (a, rr), v in arms.items()
+                                if rr == r), reverse=best is max)
+                ranked = " > ".join(f"{a} {v:.4f}" for v, a in order)
+                out.append(f"paper claim {t} ratio {r} ({metric}, best "
+                           f"first): {ranked}")
+            continue
+        verdicts = []
+        for (a, r), (_, v) in sorted(arms.items()):
+            if a != "obftf":
+                continue
+            u = arms[("uniform", r)][1]
+            won = best(v, u) == v and v != u
+            verdicts.append(f"{r} {'yes' if won else 'no'} ({v:.4f} vs "
+                            f"{u:.4f})")
+        out.append(f"paper claim {t} ({metric}): obftf beats uniform at "
+                   + "; ".join(verdicts))
+    return out
+
+
+def paper_phase(torch, ops) -> tuple[dict, list[str]]:
+    """The three twins' fast profiles on the card: every CSV row, each
+    bench's wall time; every row of the grids present and finite,
+    accuracies in [0, 1], and the cross-entropy kernels launched by Table 3
+    (counts set to 0 just before it, read just after) -> (Table 3's
+    launches, the claim lines)."""
+    from repro_torch.benchmarks import fig1_linreg, fig2_mnist, table3_lm_proxy
+    from repro_torch.core.selection import POLICIES
+
+    _free(torch)
+    lines, launches = [], {}
+    for name, mod in (("fig1", fig1_linreg), ("fig2", fig2_mnist),
+                      ("table3", table3_lm_proxy)):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = mod.main(fast=True, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = dict(ops.LAUNCHES)
+        for line in out:
+            print(f"paper {name}: {line}")
+        print(f"paper {name}: wall {wall:.1f} s, kernel launches "
+              f"{launches[name]}", flush=True)
+        lines += out
+    rows = _rows(lines)
+    want = _expected_rows(fig1_linreg, fig2_mnist, table3_lm_proxy, POLICIES)
+    missing = [k for k in want if k not in rows]
+    if missing or len(rows) != len(want):
+        raise AssertionError(f"paper rows missing {missing} or extra "
+                             f"{sorted(set(rows) - set(want))}")
+    for key, (metric, v) in rows.items():
+        if not math.isfinite(v) or (metric == "test_accuracy"
+                                    and not 0.0 <= v <= 1.0):
+            raise AssertionError(f"paper row {key}: {metric} {v}")
+    t3 = launches["table3"]
+    if t3["xent_fwd"] <= 0 or t3["xent_bwd"] <= 0:
+        raise AssertionError(f"Table 3 ran without the xent kernels: {t3}")
+    return t3, _claims(rows)
+
+
 def main() -> int:
     import torch
 
@@ -1761,11 +2001,7 @@ def main() -> int:
         show(phase(torch, ops, ref))
     with tempfile.TemporaryDirectory() as tmp:
         s = serve_phase(torch, ops, tmp)
-    _per_path(s, {"paged_decode_attn": (32, "step"),
-                  "decode_attn": (0, "step")})
-    if s["launches"]["topk_lse"] != s["steps"] + s["admitted"]:
-        raise AssertionError(f"topk_lse launched {s['launches']['topk_lse']} "
-                             f"times, not one per step and per admission")
+    paged_gates(s, 32)
     print(serve_line("serve: llama3-8b 32 layers bf16, paged", s), flush=True)
     print(f"profile: {profile_phase(torch)}", flush=True)
     print(f"reference: {reference_phase(torch)}", flush=True)
@@ -1808,12 +2044,32 @@ def main() -> int:
     for row in kernels:
         row["launches"] = launches[row["name"]]
     print(f"train profile: {train_profile_phase(torch)}", flush=True)
+    by_path = {"serve llama3-8b paged": s["launches"],
+               "serve zamba2-2.7b": sl["hybrid"]["launches"],
+               "serve mamba2-370m": sl["mamba2"]["launches"],
+               "serve llama3-8b dense": sl["dense"]["launches"],
+               "train a": a["launches"], "train b": b["launches"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        serves = arch_serve_phases(torch, ops, tmp)
+        trains = arch_train_phase(torch, ops, tmp)
+    for arch, r in serves.items():
+        by_path[f"serve {arch} paged"] = r["launches"]
+    for arch, r in trains.items():
+        by_path[f"train {arch}"] = r["launches"]
+    t3, claims = paper_phase(torch, ops)
+    by_path["paper table3"] = t3
+    for line in claims:
+        print(line, flush=True)
+    for row in kernels:
+        row["launches_by_path"] = {p: n[row["name"]]
+                                   for p, n in by_path.items()
+                                   if n[row["name"]]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # ssd: its bound at the CUDA cores' f32 rate; topk_lse and
     # paged_decode_attn: device time alone, warm and cold, and the library's
     extra = ("bound_f32_ms", "dev_ms", "dev_cold_ms", "dev_library_ms",
-             "span_ms", "host_ms")
+             "span_ms", "host_ms", "launches_by_path")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in keys or k in r}
         for r in kernels]}))

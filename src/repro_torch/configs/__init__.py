@@ -25,7 +25,8 @@ ARCHS = {
     "mixtral_8x22b": "moe",
     "pixtral_12b": "vlm",
 }
-PORTED = ("llama3_8b", "mamba2_370m", "zamba2_2p7b")
+PORTED = ("llama3_8b", "deepseek_7b", "qwen3_14b", "granite_34b",
+          "mamba2_370m", "zamba2_2p7b")
 
 _ALIASES = {name.replace("_", "-"): name for name in ARCHS}
 _ALIASES.update({"zamba2-2.7b": "zamba2_2p7b"})

@@ -65,6 +65,29 @@ def _scalar(x: float, device) -> torch.Tensor:
     return torch.full((), x, dtype=F32, device=device)
 
 
+def _detached(x: Any) -> Any:
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    if isinstance(x, tuple):
+        return tuple(_detached(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _detached(v) for k, v in x.items()}
+    return x
+
+
+def loss_and_grads(fn: Callable, params: Any, inputs: Any):
+    """(``fn(params, inputs)`` detached, the grads of the mean of its
+    per-example losses as a tree shaped like ``params``). ``fn`` returns
+    the losses [n], or a tuple led by them whose other entries are
+    returned beside them, never differentiated."""
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(live)
+    out = fn(tree_map(lambda _, p: next(it), params), inputs)
+    pel = out[0] if isinstance(out, tuple) else out
+    grads = iter(torch.autograd.grad(pel.mean(), live))
+    return _detached(out), tree_map(lambda _, p: next(grads), params)
+
+
 def make_train_step(
     per_example_loss_fn: Callable[[Any, Batch], torch.Tensor],
     optimizer: Optimizer,
@@ -80,24 +103,14 @@ def make_train_step(
     those of the JAX step, plus ``selected``, the kept rows' indices."""
     sel = cfg.selection
 
-    def grads_of(params, inputs):
-        """(per-example losses [n], grads of their mean)."""
-        leaves = tree_leaves(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        it = iter(live)
-        pel = per_example_loss_fn(tree_map(lambda _, p: next(it), params),
-                                  inputs)
-        grads = torch.autograd.grad(pel.mean(), live)
-        it = iter(grads)
-        return pel.detach(), tree_map(lambda _, p: next(it), params)
-
     def train_step(state: dict, batch: Batch, noise: Noise):
         params = state["params"]
         inputs = model_inputs(batch)
         dev = state["step"].device
 
         if cfg.mode == "full":
-            per_example, grads = grads_of(params, inputs)
+            per_example, grads = loss_and_grads(per_example_loss_fn, params,
+                                                inputs)
             per_example = per_example.to(F32)
             loss = per_example.mean()
             sel_losses = loss.reshape(1)
@@ -123,7 +136,8 @@ def make_train_step(
             step_cost = (0.0 if recycled else 1.0) + 3.0 * kept / n
             # 8: one backward on the kept subset; its per-example losses
             # fall out of the same forward
-            sub_losses, grads = grads_of(params, model_inputs(sub_batch))
+            sub_losses, grads = loss_and_grads(
+                per_example_loss_fn, params, model_inputs(sub_batch))
             loss = sub_losses.to(F32).mean()
             per_example = losses.index_put((sel_idx,), sub_losses.to(F32))
             per_example_fresh = (

@@ -334,3 +334,21 @@ def subset_mean_residual(losses: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
     """|mean(selected) - mean(all)| — the paper's objective value for a pick."""
     losses = losses.to(F32)
     return torch.abs(losses[idx].mean() - losses.mean())
+
+
+def brute_force_obftf(losses: torch.Tensor, b: int) -> torch.Tensor:
+    """Exact solver of (6) for tiny n (a test oracle; mirrors the paper's
+    MIP): enumerates all 2^n masks, keeps those of size ``b`` and returns
+    the first one with the least residual |sum(kept) / b - mean|, as
+    int64 indices in ascending order. Codes are int64 (torch has no uint32
+    shift). Only call with n <= ~16."""
+    n = losses.shape[0]
+    losses = losses.to(F32)
+    codes = torch.arange(2**n, dtype=I64, device=losses.device)
+    shifts = torch.arange(n, dtype=I64, device=losses.device)
+    bits = ((codes[:, None] >> shifts[None, :]) & 1).to(F32)
+    size_ok = bits.sum(dim=1) == b
+    resid = torch.abs(bits @ losses / b - losses.mean())
+    resid = torch.where(size_ok, resid, torch.inf)
+    best = torch.argmin(resid)  # the first minimum
+    return torch.nonzero(bits[best] > 0)[:, 0]

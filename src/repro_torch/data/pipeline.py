@@ -1,9 +1,11 @@
-"""Synthetic LM stream with per-instance ids, and the recycle feed that
-joins the ledger's signal onto it (copy of ``repro.data.pipeline``).
+"""Synthetic LM stream with per-instance ids, the recycle feed that joins
+the ledger's signal onto it, the paper's small datasets and a host
+prefetcher (copy of ``repro.data.pipeline``).
 
-``DataConfig`` and ``SyntheticLMStream`` are numpy only; the port keeps its
-own copy so that it imports nothing of the JAX package, and the copy gives
-the same tokens and instance ids as the JAX stream for the same seed:
+``DataConfig``, ``SyntheticLMStream``, ``SyntheticRegression`` and
+``mnist_like`` are numpy only; the port keeps its own copy so that it
+imports nothing of the JAX package, and the copy gives the same arrays as
+the JAX package's for the same seed, bit for bit. The LM stream is
 
 * stateless & restart-exact — batch t is a pure function of
   (seed, step, shard);
@@ -16,6 +18,8 @@ the same tokens and instance ids as the JAX stream for the same seed:
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -172,3 +176,107 @@ class RecycleFeed:
         while True:
             yield self.batch(step)
             step += 1
+
+
+class SyntheticRegression:
+    """The paper's Fig.1 linear-regression data: y = 2x + 1 + U(-5, 5),
+    with an optional 2% outlier band (+U(-20, 20))."""
+
+    def __init__(
+        self,
+        n_train: int = 1000,
+        n_test: int = 10_000,
+        outliers: bool = False,
+        n_outliers: int = 20,
+        seed: int = 0,
+    ):
+        rng = np.random.Generator(np.random.Philox(key=[seed, 1]))
+        self.x_train = rng.uniform(-10, 10, size=(n_train, 1)).astype(np.float32)
+        self.y_train = (
+            2.0 * self.x_train[:, 0]
+            + 1.0
+            + rng.uniform(-5, 5, size=n_train)
+        ).astype(np.float32)
+        if outliers:
+            idx = rng.choice(n_train, size=n_outliers, replace=False)
+            self.y_train[idx] += rng.uniform(-20, 20, size=n_outliers).astype(
+                np.float32
+            )
+        self.x_test = rng.uniform(-10, 10, size=(n_test, 1)).astype(np.float32)
+        self.y_test = (
+            2.0 * self.x_test[:, 0] + 1.0 + rng.uniform(-5, 5, size=n_test)
+        ).astype(np.float32)
+
+
+def mnist_like(
+    n_train: int = 8192, n_test: int = 2048, seed: int = 0
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """MNIST-shaped synthetic classification (no datasets offline).
+
+    10 class prototypes in 784-d + per-sample Gaussian noise + a rotation
+    per class pair. Only 60 of 784 dims carry class signal and 8% of the
+    TRAIN labels are flipped (test labels stay clean): the label noise makes
+    the hard/outlier loss spread the sampling methods trade off on.
+    """
+    rng = np.random.Generator(np.random.Philox(key=[seed, 2]))
+    informative = 60
+    label_noise = 0.08
+    protos = np.zeros((10, 784), np.float32)
+    protos[:, :informative] = rng.normal(0, 0.9, size=(10, informative))
+    mix = np.zeros((10, 784, 16), np.float32)
+    mix[:, :informative, :] = rng.normal(0, 0.6, size=(10, informative, 16))
+
+    def make(n, noisy):
+        y = rng.integers(0, 10, size=n)
+        z = rng.normal(0, 1, size=(n, 16)).astype(np.float32)
+        x = protos[y] + np.einsum("nk,ndk->nd", z, mix[y]) + rng.normal(
+            0, 1.0, size=(n, 784)
+        ).astype(np.float32)
+        if noisy:
+            flip = rng.random(n) < label_noise
+            y = np.where(flip, rng.integers(0, 10, size=n), y)
+        return x.astype(np.float32), y.astype(np.int32)
+
+    xtr, ytr = make(n_train, noisy=True)
+    xte, yte = make(n_test, noisy=False)
+    return xtr, ytr, xte, yte
+
+
+class Prefetcher:
+    """Host-side prefetch: a thread fills a queue of ``depth`` items from
+    ``it`` while the caller consumes them; ``close()`` stops the thread at
+    its next item and drains the queue."""
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._done = object()
+        self._stop = threading.Event()
+
+        def work():
+            try:
+                for item in it:
+                    if self._stop.is_set():
+                        return
+                    self.q.put(item)
+            finally:
+                self.q.put(self._done)
+
+        self.thread = threading.Thread(target=work, daemon=True)
+        self.thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self.q.get()
+        if item is self._done:
+            raise StopIteration
+        return item
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass

@@ -4,12 +4,13 @@
         --page-size 16 --retain topk --ledger device
 
 The same flags and printed lines as ``repro.launch.serve``, plus
-``--device`` (default ``cuda``). The dense family serves through the paged
-(``--page-size`` > 0) or the dense cache; mamba2-370m and zamba2-2.7b
-through the dense cache only, each prompt prefilled at its exact length. Requests come from the deterministic
-``SyntheticLMStream`` with the trainer's instance ids, and ``--ledger-out``
-writes the ``.npz`` ledger interchange format that the JAX package's
-``LossHistory`` and ``device_ledger.state_from_dict`` load.
+``--device`` (default ``cuda``). The dense family (llama3-8b, deepseek-7b,
+qwen3-14b, granite-34b) serves through the paged (``--page-size`` > 0) or
+the dense cache; mamba2-370m and zamba2-2.7b through the dense cache only,
+each prompt prefilled at its exact length. Requests come from the
+deterministic ``SyntheticLMStream`` with the trainer's instance ids, and
+``--ledger-out`` writes the ``.npz`` ledger interchange format that the JAX
+package's ``LossHistory`` and ``device_ledger.state_from_dict`` load.
 
 Not ported yet: ``--ledger-route``, ``--ledger-exchange`` and
 ``--capacity-factor`` (they need the sharded ledger), ``--metrics-out`` and

@@ -12,7 +12,9 @@ new arrays and donates the old ones), then attends through
 ``kernels.ops.decode_attn`` (dense cache) or ``paged_decode_attn`` (page
 pool). The dense cache holds bf16 or int8 K/V (per-(position, head) f32
 scales) and, with a sliding window, a rolling layout of ``window`` slots.
-MLA is not ported yet and raises ``NotImplementedError``.
+Attention takes any group size, MHA (deepseek-7b) to MQA (granite-34b),
+with or without qk-norm (qwen3-14b); the FFN is SwiGLU or the GELU MLP
+(granite-34b). MLA is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -354,23 +356,30 @@ def gqa_paged_decode(
 
 
 # ---------------------------------------------------------------------------
-# dense FFN (SwiGLU)
+# dense FFN (SwiGLU, or the two-matrix GELU MLP)
 # ---------------------------------------------------------------------------
 
 
 def mlp_specs(d: int, f: int, gelu: bool = False) -> dict[str, ParamSpec]:
-    if gelu:
-        raise NotImplementedError("the GELU MLP (granite) is not ported")
-    return {
+    """SwiGLU's ``w1``/``w3``/``w2``, or with ``gelu`` the GPTBigCode-style
+    MLP's ``w1``/``w2`` alone (granite)."""
+    p = {
         "w1": ParamSpec((d, f), scale=d**-0.5),
         "w2": ParamSpec((f, d), scale=f**-0.5),
-        "w3": ParamSpec((d, f), scale=d**-0.5),
     }
+    if not gelu:  # SwiGLU gate
+        p["w3"] = ParamSpec((d, f), scale=d**-0.5)
+    return p
 
 
 def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
-    return swiglu_tokens(x, p["w1"].to(x.dtype), p["w3"].to(x.dtype),
-                         p["w2"].to(x.dtype))
+    """SwiGLU where the tree has ``w3``, else GELU in its tanh form, which
+    is ``jax.nn.gelu``'s default (torch's default is the erf form, up to
+    4.7e-4 away)."""
+    w1, w2 = p["w1"].to(x.dtype), p["w2"].to(x.dtype)
+    if "w3" in p:
+        return swiglu_tokens(x, w1, p["w3"].to(x.dtype), w2)
+    return F.gelu(x @ w1, approximate="tanh") @ w2
 
 
 def swiglu_tokens(

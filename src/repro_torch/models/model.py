@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of ``repro.models.model``:
 
-* dense:  [norm -> GQA attention -> +res] [norm -> SwiGLU -> +res] per layer;
+* dense:  [norm -> GQA attention -> +res] [norm -> SwiGLU or GELU MLP ->
+  +res] per layer (any group size, MHA to MQA; qk-norm optional);
 * ssm:    [norm -> Mamba2/SSD -> +res] per layer (mamba2-370m);
 * hybrid: groups of ``hybrid_attn_every`` SSM layers, each group led by ONE
   weight-shared attention block with its own KV cache (zamba2-2.7b).
@@ -13,9 +14,10 @@ and run by Python loops over those dims.
 
 Entry points: ``forward_hidden`` (full sequence), ``per_example_loss`` /
 ``loss_fn`` (the OBFTF loss signal, per-token CE through the cross-entropy
-kernel; dense only), ``prefill`` (full sequence, builds the decode cache)
-and ``decode_step`` (one token per row against the dense or the paged
-cache). Other families raise ``NotImplementedError`` naming themselves.
+kernel; dense only), ``per_example_signals`` (CE, entropy and margin),
+``prefill`` (full sequence, builds the decode cache) and ``decode_step``
+(one token per row against the dense or the paged cache). Other families
+raise ``NotImplementedError`` naming themselves.
 """
 
 from __future__ import annotations
@@ -173,6 +175,36 @@ def per_example_loss(
     ce = per_token_loss(unembed(params, cfg, hidden), batch["labels"])
     denom = torch.clamp((batch["labels"] >= 0).sum(dim=-1), min=1)
     return ce.sum(dim=-1) / denom.to(torch.float32)
+
+
+def per_example_signals(
+    params: dict, cfg: ModelConfig, batch: dict[str, torch.Tensor]
+) -> tuple[torch.Tensor, dict[str, torch.Tensor], torch.Tensor]:
+    """-> (per-example CE [B], {"entropy", "margin"} [B], aux loss).
+
+    The train-side twin of the serving recorder's signal derivation: CE
+    through :func:`per_token_loss` (the cross-entropy kernel, whose
+    backward runs under autograd) on f32 logits, per-token predictive
+    entropy ``lse - sum(softmax * logits)`` and the top-1 minus top-2
+    logit margin, each a masked mean over the label positions in f32. The
+    two signals come from detached logits: they are read, never
+    differentiated. ``aux`` is a zero scalar (no MoE in the port yet)."""
+    hidden = forward_hidden(params, cfg, batch["tokens"])
+    logits = unembed(params, cfg, hidden).to(torch.float32)
+    labels = batch["labels"]
+    ce = per_token_loss(logits, labels)
+    with torch.no_grad():
+        lg = logits.detach()
+        lse = torch.logsumexp(lg, dim=-1)
+        ent = lse - (torch.softmax(lg, dim=-1) * lg).sum(dim=-1)
+        top2 = torch.topk(lg, 2, dim=-1).values
+        mar = top2[..., 0] - top2[..., 1]
+        mask = (labels >= 0).to(torch.float32)
+        denom = torch.clamp(mask.sum(dim=-1), min=1.0)
+        signals = {"entropy": (ent * mask).sum(dim=-1) / denom,
+                   "margin": (mar * mask).sum(dim=-1) / denom}
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return ce.sum(dim=-1) / denom, signals, aux
 
 
 def loss_fn(

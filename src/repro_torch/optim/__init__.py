@@ -1,4 +1,5 @@
-"""Optimizers and learning-rate schedules of the port (``repro.optim``)."""
+"""Optimizers, learning-rate schedules and the weight EMA of the port
+(``repro.optim``)."""
 
 from repro_torch.optim.optimizer import (  # noqa: F401
     AdamWConfig,
@@ -15,3 +16,4 @@ from repro_torch.optim.schedules import (  # noqa: F401
     warmup_exponential,
     warmup_linear,
 )
+from repro_torch.optim.ema import ema_init, ema_update  # noqa: F401

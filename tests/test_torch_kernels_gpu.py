@@ -35,10 +35,12 @@ def cuda():
 # 4096 (past a block's threads: no bound, the cluster-wide select, survivors
 # sorted in shared memory); a vocabulary no multiple of a 16-byte load with
 # k = 64 and k = V (sorted in global scratch); a row shorter than a warp's
-# loads
+# loads; the other dense archs' vocabularies at the serve shape (deepseek-7b,
+# qwen3-14b, granite-34b)
 TOPK_CASES = [(8, 128256, 64), (8, 128256, 1), (8, 128256, 65),
               (8, 128256, 256), (4, 128256, 4096), (3, 4097, 64),
-              (3, 4097, 4097), (5, 97, 7)]
+              (3, 4097, 4097), (5, 97, 7), (8, 102400, 64), (8, 151936, 64),
+              (8, 49152, 64)]
 
 
 def _topk_check(x, k):
@@ -79,10 +81,12 @@ def test_topk_lse_kernel_routes_match_plain(cuda, monkeypatch, dtype):
         _topk_check(x, k)
 
 
-# (Hq, Hkv, D): llama3-8b's heads, the JAX test's G = 16, a granite-34b-like
-# G = 48 (three head slices) and D = 36 (rows of 144 bytes in f32, of 72 in
-# bf16, which take the scalar copy)
-PAGED_HEADS = [(32, 8, 128), (16, 1, 64), (48, 1, 128), (8, 2, 36)]
+# (Hq, Hkv, D): llama3-8b's heads, the JAX test's G = 16, granite-34b's
+# G = 48 (three head slices), D = 36 (rows of 144 bytes in f32, of 72 in
+# bf16, which take the scalar copy), deepseek-7b's G = 1 and qwen3-14b's
+# G = 5
+PAGED_HEADS = [(32, 8, 128), (16, 1, 64), (48, 1, 128), (8, 2, 36),
+               (32, 32, 128), (40, 8, 128)]
 
 
 @pytest.mark.gpu
@@ -134,10 +138,12 @@ def test_paged_decode_attn_kernel_asserts_on_page_past_the_pool(cuda):
 
 # the training path's shapes (T = 1024 kept tokens, V = llama3's vocab) and
 # edge cases: a row length that is no multiple of 16 bytes (scalar loop),
-# tiny rows, -1 labels and a row of ±1e4 logits in every case
+# tiny rows, -1 labels and a row of ±1e4 logits in every case; the kept
+# tokens at qwen3-14b's and granite-34b's vocabularies
 XENT_CASES = [(1024, 128256, torch.bfloat16), (64, 128256, torch.float32),
               (7, 128257, torch.bfloat16), (5, 97, torch.float32),
-              (3, 130, torch.bfloat16)]
+              (3, 130, torch.bfloat16), (1024, 151936, torch.bfloat16),
+              (1024, 49152, torch.bfloat16)]
 
 
 def _xent_inputs(cuda, t, v, dtype):

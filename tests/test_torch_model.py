@@ -152,16 +152,16 @@ def test_put_rows_drops_masked_items_exactly():
     assert torch.equal(dst, want)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "pixtral-12b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "pixtral-12b",
+                                  "deepseek-v2-236b"])
 def test_unported_archs_raise_naming_their_family(arch):
     with pytest.raises(NotImplementedError, match="family"):
         configs.get(arch)
 
 
 def test_unported_layer_options_raise():
-    """MLA and the GELU MLP are not ported (int8 KV caches and sliding
-    windows are: ``tests/test_torch_decode.py``)."""
+    """MLA is not ported (int8 KV caches and sliding windows are:
+    ``tests/test_torch_decode.py``; the GELU MLP is:
+    ``tests/test_torch_archs.py``)."""
     with pytest.raises(NotImplementedError):
         M.init_cache(dataclasses.replace(CFG, attn_impl="mla"), 1, 8, "cpu")
-    with pytest.raises(NotImplementedError):
-        M.param_specs(dataclasses.replace(CFG, mlp_gelu=True))
