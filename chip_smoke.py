@@ -15,7 +15,8 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    least time the card could take (bytes over 3.35 TB/s, operations over
    the published peak): top-k + lse (bf16 logits as the recorder passes
    them, and f32; k of 1 to 4096 and k = V, ±0 and -inf ties, k = 64 at
-   the vocabularies of deepseek-7b, qwen3-14b and granite-34b; timed warm,
+   the vocabularies of deepseek-7b, qwen3-14b, granite-34b and
+   mixtral-8x22b; timed warm,
    cold and as device time alone, also by k and route), paged decode
    attention (pages of 5, 16 and 256, G = 1, 4, 5, 16 and 48 with the
    heads of llama3-8b, deepseek-7b, qwen3-14b and granite-34b, D = 36,
@@ -24,7 +25,10 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    decode attention (zamba2's D = 80, G = 1 and llama3-8b's shapes, an
    all-masked row, a rolling window, f32 (also D = 256), the JAX test's
    G = 16 and a granite-34b-like G = 48 with a row valid in one span only,
-   contexts of 50 to 2048 in a 2048-slot cache; also timed
+   contexts of 50 to 2048 in a 2048-slot cache, mixtral-8x22b's 48/8 heads
+   in its wrapped 4,096-slot window and in the short serve's 160-slot
+   cache in bf16 and f32, bf16 also to a relative limit that a dropped
+   tile of 64 positions fails; also timed
    with a cold L2 and as device time alone), the SSD scan (zamba2's and
    mamba2's 300-token prefills, a long case, one chunk, an exact multiple
    of the chunk, N = 256 in bf16 and in f32, the JAX test's odd shapes in
@@ -61,8 +65,9 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    versions at its shapes (cross-entropy at T = 4096 and 1024 rows of the
    128256-token vocabulary in bf16, with -1 labels, a row of ±1e4 logits
    and a vocabulary that is no multiple of the tile, and at the shapes of
-   the other train paths: qwen3-14b's and granite-34b's vocabularies in
-   bf16 and the smoke configs' in f32, as Table 3 gives them; the ledger at
+   the other train paths: qwen3-14b's, granite-34b's and mixtral-8x22b's
+   vocabularies in bf16 and the smoke configs' in f32, as Table 3 gives
+   them; the ledger at
    capacity 65536 with batches of 32 and 512 and at 2^18 with 32 and
    32768, duplicates, masked items, five chained transactions and an
    eviction inside each batch, both variant names forced), timed as above
@@ -89,6 +94,17 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    and granite-34b trained at full width, cut to the deepest that fits
    (``ARCH_TRAIN``): qwen3-14b as run (a), granite-34b as run (b), each
    with finite losses, its step cost and its kernels launched;
+10a. mixtral-8x22b (moe: 8 experts, top-2, a 4,096-token window) at full
+   width cut to 12 of 56 layers, dense cache: 8 slots and 16 requests of
+   128-token prompts, 32 new tokens; then 4 requests of 4,160-token
+   prompts (past the window: every decode step reads a wrapped cache), 16
+   new tokens; each with the serve gates (``decode_attn`` 12 a step,
+   ``topk_lse`` once a step and an admission, the sync guard, the ledger)
+   and its weights-read floor; a profile of the short path's decode step,
+   a 4,160-token prefill timed and profiled, its smoke config's engine
+   card against CPU; trained cut to 1 layer as runs (a) and (b)
+   (``ARCH_TRAIN``), each with the share of token choices that capacity
+   dropped over the run's MoE layers;
 11. paper — the port's twins of the paper's experiments
    (``repro_torch.benchmarks``: Fig. 1, Fig. 2 and Table 3 with their
    policy A/B arms), fast profile, at the JAX benches' sizes: every CSV
@@ -132,6 +148,11 @@ XENT_BWD_RTOL = {"torch.bfloat16": 2**-7, "torch.float32": 1e-6}
 # test_decode_attn_matches_ref: f32 sums in another order; bf16 inputs with
 # f32 weights in both versions, the output rounded once
 DECODE_TOL = {"torch.float32": 2e-6, "torch.bfloat16": 3e-2}
+# and in bf16 also relative, for each (row, query head): |kernel - plain|
+# over |plain| in L2 across D. The absolute limit is as large as a typical
+# output at a 4,096-position context; this one is not, so it fails a kernel
+# that drops one tile of 64 positions from such a row (the phase shows it)
+DECODE_BF16_REL = 2e-2
 # ssd in f32: test_ssd_kernel_matches_sequential_ref's atol and rtol; a bf16
 # y may differ by one bf16 unit in the last place (both versions compute in
 # f32 from the same bf16 inputs and round once), plus SSD_BF16_ATOL where
@@ -225,8 +246,8 @@ def topk_edges(torch, x):
 
 
 TOPK_KS = (1, 64, 65, 256, 4096)  # 4096: the most sorted in shared memory
-# the vocabularies of deepseek-7b, qwen3-14b and granite-34b
-ARCH_VOCABS = (102400, 151936, 49152)
+# the vocabularies of deepseek-7b, qwen3-14b, granite-34b and mixtral-8x22b
+ARCH_VOCABS = (102400, 151936, 49152, 32768)
 
 
 def topk_phase(torch, ops, ref) -> dict:
@@ -525,8 +546,15 @@ def window_mask(torch, pos, t, window):
     return (slot_pos >= 0) & (slot_pos > pos - window)
 
 
-def decode_check(torch, ops, ref, q, k, v, valid) -> float:
-    """Kernel against the plain version run in f32 -> max abs error."""
+def rel_l2(got, want) -> float:
+    """The largest |got - want| / |want| in L2 over the last axis."""
+    return ((got - want).norm(dim=-1)
+            / want.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def decode_check(torch, ops, ref, q, k, v, valid, worst: dict) -> None:
+    """Kernel against the plain version run in f32; the largest errors so
+    far go into ``worst`` (absolute by dtype, and bf16's relative)."""
     out = ops.decode_attn(q, k, v, valid, impl="cuda")
     if out.dtype != q.dtype:
         raise AssertionError(f"decode_attn gave {out.dtype} for {q.dtype}")
@@ -536,6 +564,12 @@ def decode_check(torch, ops, ref, q, k, v, valid) -> float:
     if not (diff <= tol).all():
         raise AssertionError(f"decode_attn {tuple(k.shape)} {q.dtype}: err "
                              f"{diff.max().item()} > {tol}")
+    if q.dtype == torch.bfloat16:
+        rel = rel_l2(out.float(), want)
+        if rel > DECODE_BF16_REL:
+            raise AssertionError(f"decode_attn {tuple(k.shape)} bf16: "
+                                 f"relative err {rel} > {DECODE_BF16_REL}")
+        worst["rel"] = max(worst.get("rel", 0.0), rel)
     dead = ~valid.any(dim=1)  # rows with no valid position: the mean of V
     if dead.any():
         g = q.shape[1] // k.shape[2]
@@ -543,7 +577,8 @@ def decode_check(torch, ops, ref, q, k, v, valid) -> float:
         if not ((out[dead].float() - mean).abs() <= tol).all():
             raise AssertionError("decode_attn: an all-masked row is not the "
                                  "mean of V")
-    return diff.max().item()
+    key = str(q.dtype)
+    worst[key] = max(worst.get(key, 0.0), diff.max().item())
 
 
 # the hybrid serve phase's rows decode at contexts 301-332 (prompts of 300,
@@ -553,6 +588,13 @@ HYBRID_POS = tuple(300 + 31 - 4 * i for i in range(8))
 # rows of a 2048-slot cache at contexts spread from 50 to 2048: the cache is
 # sized for the longest request, the rows hold prompts of every length
 MIXED_POS = tuple(49 + (2047 - 49) * i // 7 for i in range(8))
+# mixtral-8x22b's decode: 48 query heads over 8 kv heads of 128 in its
+# 4,096-slot rolling window; rows before the wrap, at it and past it (the
+# long-prompt serve decodes at depths 4160-4175). The short-prompt serve
+# decodes at contexts 129-160 in a 160-slot cache, as llama3-8b's does
+MIXTRAL_DECODE = (8, 48, 8, 128, 4096)
+MIXTRAL_POS = (127, 4095, 4096, 4160, 4163, 4167, 4171, 4175)
+MIXTRAL_SHORT = (8, 48, 8, 128, 160)
 
 
 def time_ms_cold(fn, copies, iters: int = 20, warmup: int = 2) -> float:
@@ -645,8 +687,10 @@ def decode_attn_phase(torch, ops, ref) -> dict:
     T = 332) and llama3-8b's dense-cache shape (G = 4, D = 128, T = 160) in
     bf16, an all-masked and a one-position row, f32 cases, a rolling
     window, the JAX test's G = 16 and a granite-34b-like G = 48, a row whose
-    valid positions lie in one span and T no multiple of the span; timed
-    at both serving shapes, warm (inputs in L2) and cold."""
+    valid positions lie in one span and T no multiple of the span,
+    mixtral-8x22b's two serve shapes (G = 6, T = 160 and the wrapped
+    4,096-slot window) in bf16 and f32; timed at zamba2's, llama3-8b's and
+    mixtral's window shape, warm (inputs in L2) and cold."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attn import split_plan
@@ -656,14 +700,14 @@ def decode_attn_phase(torch, ops, ref) -> dict:
     llama = decode_inputs(torch, g, 8, 32, 8, 128, 160, torch.bfloat16)
     zmask = depth_mask(torch, HYBRID_POS, 332)
     lmask = depth_mask(torch, SERVE_POS, 160)
-    err = max(decode_check(torch, ops, ref, *zamba, zmask),
-              decode_check(torch, ops, ref, *llama, lmask))
+    worst = {}
+    decode_check(torch, ops, ref, *zamba, zmask, worst)
+    decode_check(torch, ops, ref, *llama, lmask, worst)
     edge = zmask.clone()
     edge[0] = False  # no valid position: the mean of V
     edge[1] = False
     edge[1, 17] = True  # one valid position: its value
-    err = max(err, decode_check(torch, ops, ref, *zamba, edge))
-    err32 = 0.0
+    decode_check(torch, ops, ref, *zamba, edge, worst)
     for shape, mask in (
             ((2, 8, 2, 64, 300), depth_mask(torch, (299, 40), 300)),
             ((8, 32, 32, 80, 332), window_mask(
@@ -672,12 +716,12 @@ def decode_attn_phase(torch, ops, ref) -> dict:
             # D = 256 with a group of 16: the largest block the plan makes
             ((2, 16, 1, 256, 300), depth_mask(torch, (299, 40), 300))):
         case = decode_inputs(torch, g, *shape, torch.float32)
-        err32 = max(err32, decode_check(torch, ops, ref, *case, mask))
+        decode_check(torch, ops, ref, *case, mask, worst)
     # mixed prompt lengths in a long cache: spans of several tiles, the
     # empty ones not read
     mixed = decode_inputs(torch, g, 8, 32, 8, 128, 2048, torch.bfloat16)
-    err = max(err, decode_check(torch, ops, ref, *mixed,
-                                depth_mask(torch, MIXED_POS, 2048)))
+    decode_check(torch, ops, ref, *mixed, depth_mask(torch, MIXED_POS, 2048),
+                 worst)
     del mixed
     # wide groups: the JAX test's G = 16 (T = 700, no multiple of its span)
     # and 48 query heads on one kv head (three head slices); row 1 valid in
@@ -696,13 +740,29 @@ def decode_attn_phase(torch, ops, ref) -> dict:
         mask[2, t_ - 3:] = True
         for dtype in (torch.bfloat16, torch.float32):
             case = decode_inputs(torch, g, *shape, dtype)
-            e = decode_check(torch, ops, ref, *case, mask)
-            if dtype == torch.float32:
-                err32 = max(err32, e)
-            else:
-                err = max(err, e)
+            decode_check(torch, ops, ref, *case, mask, worst)
         wide.append(f"B={b_} Hq={hq_} Hkv={hkv_} T={t_}: {nsplit} spans of "
                     f"{span}")
+    mixtral = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, mask in (
+                (MIXTRAL_SHORT, depth_mask(torch, SERVE_POS, 160)),
+                (MIXTRAL_DECODE, window_mask(torch, MIXTRAL_POS, 4096, 4096))):
+            case = decode_inputs(torch, g, *shape, dtype)
+            decode_check(torch, ops, ref, *case, mask, worst)
+            if dtype == torch.bfloat16:
+                mixtral = (case, mask)
+    # the relative limit's power: the plain version with one 64-position
+    # tile dropped from a full 4,096-position row must fail it
+    (q, k, v), mask = mixtral
+    args = (q.float(), k.float(), v.float())
+    cut = mask.clone()
+    cut[1, 1024:1088] = False  # row 1 attends all 4,096 slots
+    dropped = rel_l2(ref.decode_attn_ref(*args, cut),
+                     ref.decode_attn_ref(*args, mask))
+    if dropped <= DECODE_BF16_REL:
+        raise AssertionError(f"decode_attn: a dropped tile gives relative "
+                             f"err {dropped}, inside {DECODE_BF16_REL}")
 
     def timed(q, k, v, valid):
         b, hq, d = q.shape
@@ -749,27 +809,41 @@ def decode_attn_phase(torch, ops, ref) -> dict:
                 f"{r['dev_cold_library_ms']:.4f}")
 
     z, lt = timed(*zamba, zmask), timed(*llama, lmask)
+    mx = timed(*mixtral[0], mixtral[1])
+    del mixtral
     return dict(
         name="decode_attn", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn.py:176",
-        max_abs_err=err, ms=z["ms"], plain_ms=z["plain_ms"],
-        bound_ms=z["bound"][0], bound_by=z["bound"][1],
-        library_ms=z["library_ms"], f32_max_abs_err=err32,
-        tol=f"{DECODE_TOL['torch.bfloat16']} bf16, "
-            f"{DECODE_TOL['torch.float32']} f32",
+        max_abs_err=worst["torch.bfloat16"], ms=z["ms"],
+        plain_ms=z["plain_ms"], bound_ms=z["bound"][0], bound_by=z["bound"][1],
+        library_ms=z["library_ms"], f32_max_abs_err=worst["torch.float32"],
+        tol=f"{DECODE_TOL['torch.bfloat16']} bf16 and {DECODE_BF16_REL} "
+            f"relative per (row, head) in L2, {DECODE_TOL['torch.float32']} "
+            f"f32",
         shape=(f"B=8 Hq=32 Hkv=32 D=80 T=332 ctx {min(HYBRID_POS) + 1}-"
                f"{max(HYBRID_POS) + 1} bf16, {z['plan'][2]} spans of "
                f"{z['plan'][3]}; {more_times(z)}; at llama3-8b's B=8 Hq=32 "
                f"Hkv=8 D=128 T=160 ({lt['plan'][2]} spans of "
                f"{lt['plan'][3]}): {lt['ms']:.4f} ms, plain "
                f"{lt['plain_ms']:.4f}, library {lt['library_ms']:.4f}, bound "
-               f"{lt['bound'][0]:.5f}, {more_times(lt)}; one grid per call, "
+               f"{lt['bound'][0]:.5f}, {more_times(lt)}; at mixtral-8x22b's "
+               f"B=8 Hq=48 Hkv=8 D=128 T=4096 rolling window, contexts "
+               f"{min(MIXTRAL_POS) + 1}-{max(MIXTRAL_POS) + 1} "
+               f"({mx['plan'][2]} spans of {mx['plan'][3]}): {mx['ms']:.4f} "
+               f"ms, plain {mx['plain_ms']:.4f}, library "
+               f"{mx['library_ms']:.4f}, bound {mx['bound'][0]:.5f}, "
+               f"{more_times(mx)}; checked also at the short mixtral "
+               f"serve's T=160, contexts {min(SERVE_POS) + 1}-"
+               f"{max(SERVE_POS) + 1}; a tile of 64 positions dropped from a "
+               f"full window row gives relative err {dropped:.3g}, which the "
+               f"bf16 limit rejects (the kernel's worst, every bf16 case: "
+               f"{worst['rel']:.3g}); one grid per call, "
                f"spans merged in a thread-block cluster; checked also with "
                f"an all-masked row, one valid position, a rolling window, "
                f"{'; '.join(wide)} (a row valid in one span, empty spans "
                f"between valid ones), contexts 50-2048 of T=2048, and in f32 "
-               f"(also D=256, G=16; err {err32:.3g})"),
+               f"(also D=256, G=16; err {worst['torch.float32']:.3g})"),
     )
 
 
@@ -953,7 +1027,9 @@ def serve_phase(torch, ops, tmp: str, argv=SERVE_ARGV,
         raise AssertionError("a warm fused step ran without the sync guard: "
                              f"{summary['guarded_steps']} of "
                              f"{summary['steps'] - 1}")
-    if summary["evicted"] != 16 or summary["queued"] or summary["in_flight"]:
+    requests = int(argv[argv.index("--requests") + 1])
+    if (summary["evicted"] != requests or summary["queued"]
+            or summary["in_flight"]):
         raise AssertionError(f"not every request finished: {summary}")
     if min(launches[k] for k in kernels) <= 0:
         raise AssertionError(f"a serving kernel never launched: {launches}")
@@ -1090,7 +1166,7 @@ def profile_phase(torch, argv=SERVE_ARGV) -> str:
 
     _free(torch)
     args = serve.parse_args(argv)
-    cfg = configs.get(args.arch)
+    cfg = configs.get(args.arch, layers=args.layers)
     params = materialize(Mdl.param_specs(cfg), args.seed, torch.bfloat16,
                          "cuda")
     eng = serve.build_engine(args, cfg, params, torch.device("cuda"))
@@ -1119,10 +1195,12 @@ def profile_phase(torch, argv=SERVE_ARGV) -> str:
             f"ms/step: {tops}")
 
 
-def prefill_phase(torch) -> str:
-    """One 300-token prefill of zamba2-2.7b at batch 1 (what an admission
-    runs): host wall time with the device drained, median of 5, and its
-    device time by kind of kernel under torch.profiler."""
+def prefill_phase(torch, arch="zamba2-2.7b", layers=0, length=300,
+                  max_seq=332) -> str:
+    """One ``length``-token prefill of ``arch`` (cut to ``layers`` where
+    given) at batch 1, what an admission runs: host wall time with the
+    device drained, median of 5, and its device time by kind of kernel
+    under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
@@ -1130,14 +1208,14 @@ def prefill_phase(torch) -> str:
     from repro_torch.models.params import materialize
 
     _free(torch)
-    cfg = configs.get("zamba2-2.7b")
+    cfg = configs.get(arch, layers=layers)
     params = materialize(Mdl.param_specs(cfg), 0, torch.bfloat16, "cuda")
     g = torch.Generator(device="cuda").manual_seed(4)
-    toks = torch.randint(0, cfg.vocab_size, (1, 300), device="cuda",
+    toks = torch.randint(0, cfg.vocab_size, (1, length), device="cuda",
                          generator=g, dtype=torch.int32)
 
     def run():
-        Mdl.prefill(params, cfg, toks, max_seq=332)
+        Mdl.prefill(params, cfg, toks, max_seq=max_seq)
         torch.cuda.synchronize()
 
     run()
@@ -1152,7 +1230,8 @@ def prefill_phase(torch) -> str:
     device_ms, launches, tops = _profile_summary(torch, prof, 1)
     groups = _kernel_groups(torch, prof, 1)
     del params
-    return (f"zamba2-2.7b prefill of 300 tokens: {_median(walls):.2f} ms host "
+    return (f"{arch} ({cfg.num_layers} layers) prefill of {length} tokens: "
+            f"{_median(walls):.2f} ms host "
             f"wall (median of 5), device busy {device_ms:.2f} ms, "
             f"{launches:.0f} kernel launches; device ms by kind: {groups}; "
             f"top device ms: {tops}")
@@ -1409,11 +1488,13 @@ def xent_check(torch, ops, ref, case) -> tuple[float, float]:
 
 
 # the other train paths' (T, V, dtype): qwen3-14b's selection forward and
-# kept rows, granite-34b's kept rows, and Table 3's smoke llama (its full
-# arm's bf16 logits and per_example_signals' f32 ones)
+# kept rows, granite-34b's kept rows, Table 3's smoke llama (its full
+# arm's bf16 logits and per_example_signals' f32 ones) and mixtral-8x22b's
+# selection forward and kept rows
 XENT_ARCH_CASES = ((4096, 151936, "bfloat16"), (1024, 151936, "bfloat16"),
                    (1024, 49152, "bfloat16"), (2048, 256, "bfloat16"),
-                   (512, 256, "float32"))
+                   (512, 256, "float32"), (4096, 32768, "bfloat16"),
+                   (1024, 32768, "bfloat16"))
 
 
 def xent_phases(torch, ops, ref) -> list[dict]:
@@ -1729,8 +1810,6 @@ def train_profile_phase(torch) -> str:
     """Where a steady train step of run (a)'s configuration goes: host wall
     time per step, device kernel time per step (torch.profiler), kernel
     launches per step and the top kernels."""
-    import dataclasses
-
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
@@ -1742,8 +1821,7 @@ def train_profile_phase(torch) -> str:
     from repro_torch.models.params import materialize
 
     _free(torch)
-    cfg = dataclasses.replace(configs.get("llama3-8b"),
-                              num_layers=TRAIN_LAYERS)
+    cfg = configs.get("llama3-8b", layers=TRAIN_LAYERS)
     opt = build_optimizer(1e-3, 100)
     step_fn = make_train_step(Mdl.loss_fn(cfg), opt, OBFTFConfig(
         SelectionConfig(method="obftf", ratio=0.25)))
@@ -1796,11 +1874,13 @@ def arch_argv(arch: str) -> list[str]:
     return argv
 
 
-def paged_gates(s: dict, layers: int) -> None:
-    """The paged serve path's launch counts: ``paged_decode_attn`` once per
-    layer a step, ``topk_lse`` once a step and once an admission."""
-    _per_path(s, {"paged_decode_attn": (layers, "step"),
-                  "decode_attn": (0, "step")})
+def serve_gates(s: dict, layers: int, kernel="paged_decode_attn") -> None:
+    """A serve path's launch counts: its attention ``kernel``
+    (``paged_decode_attn`` on the paged cache, ``decode_attn`` on the dense
+    one) once per layer a step and the other never, ``topk_lse`` once a
+    step and once an admission."""
+    _per_path(s, {k: (layers if k == kernel else 0, "step")
+                  for k in ("paged_decode_attn", "decode_attn")})
     if s["launches"]["topk_lse"] != s["steps"] + s["admitted"]:
         raise AssertionError(f"topk_lse launched {s['launches']['topk_lse']} "
                              f"times, not one per step and per admission")
@@ -1816,7 +1896,7 @@ def arch_serve_phases(torch, ops, tmp: str) -> dict:
     for arch, layers in ARCH_LAYERS.items():
         out[arch] = s = serve_phase(torch, ops, tmp, arch_argv(arch),
                                     SERVE_KERNELS)
-        paged_gates(s, layers)
+        serve_gates(s, layers)
         print(serve_line(f"serve: {arch} {layers} layers bf16, paged", s),
               flush=True)
         print(f"{arch} profile: {profile_phase(torch, arch_argv(arch))}",
@@ -1828,24 +1908,31 @@ def arch_serve_phases(torch, ops, tmp: str) -> dict:
     return out
 
 
-# the slice's train runs at full width, depth cut to the deepest that
+# the archs' train runs at full width, depth cut to the deepest that
 # trains on the card (launch.train one layer deeper, with these flags,
 # runs out of memory in AdamW's first step: qwen3-14b at 8 of 40 layers,
 # granite-34b at 9 of 88): qwen3-14b with a selection forward (qk-norm
 # under a gradient), granite-34b recycled (the GELU MLP, MQA, the ledger
-# kernel)
-ARCH_TRAIN = {"qwen3-14b": (7, []),
-              "granite-34b": (8, ["--recycle", "--ledger", "device",
-                                  "--instance-pool", "64"])}
+# kernel); mixtral-8x22b at 1 of 56 layers (2.9 B params, about llama3-8b's
+# 8-layer cut; two layers, 5.4 B, would need about 97 GB at the 18 bytes a
+# parameter that one layer's peak bears out: not run), both ways
+RECYCLED = ("--recycle", "--ledger", "device", "--instance-pool", "64")
+ARCH_TRAIN = (("qwen3-14b", 7, ()), ("granite-34b", 8, RECYCLED),
+              ("mixtral-8x22b", 1, ()), ("mixtral-8x22b", 1, RECYCLED))
 
 
 def arch_train_phase(torch, ops, tmp: str) -> dict:
+    """Each ``ARCH_TRAIN`` run -> its summary, keyed "<arch> (a)" for a
+    run with a selection forward, "<arch> (b)" for a recycled one."""
+    from repro_torch import configs
+
     out = {}
-    for arch, (layers, extra) in ARCH_TRAIN.items():
+    for arch, layers, extra in ARCH_TRAIN:
         argv = [*TRAIN_ARGV, "--steps", "4" if not extra else "6", *extra]
         argv[argv.index("--arch") + 1] = arch
         argv[argv.index("--layers") + 1] = str(layers)
-        r = train_run(torch, ops, argv, os.path.join(tmp, f"{arch}.json"))
+        key = f"{arch} ({'b' if extra else 'a'})"
+        r = train_run(torch, ops, argv, os.path.join(tmp, f"{key}.json"))
         want = ("xent_fwd", "xent_bwd") + (("ledger_record_priority",)
                                            if extra else ())
         if min(r["launches"][k] for k in want) <= 0:
@@ -1854,15 +1941,87 @@ def arch_train_phase(torch, ops, tmp: str) -> dict:
         cost = 0.75 if extra else 1.75
         if abs(r["mean_step_cost"] - cost) > 1e-6:
             raise AssertionError(f"{arch} step cost {r['mean_step_cost']}")
-        print(f"train: {arch} {r['layers']} of {ARCH_LAYERS[arch]} layers "
+        share = r["moe_dropped_share"]
+        if share is not None and not 0.0 <= share < 1.0:
+            raise AssertionError(f"{arch} dropped-token share {share}")
+        print(f"train: {key} {r['layers']} of "
+              f"{configs.get(arch).num_layers} layers "
               f"bf16, {r['steps']} steps, recycle={r['recycle']} "
               f"ledger={r['ledger']}, loss {r['loss_first']:.4f} -> "
               f"{r['loss_last']:.4f}, mean step cost "
               f"{r['mean_step_cost']:.3f}C, launches {r['launches']}, step ms "
               f"first {r['step_ms'][0]:.1f}, steady (median of warm) "
               f"{r['steady_ms']:.1f}, peak {r['peak_gib']:.1f} GiB, sync "
-              f"guard on {r['guarded_steps']} warm steps", flush=True)
-        out[arch] = r
+              f"guard on {r['guarded_steps']} warm steps"
+              + ("" if share is None else
+                 f", dropped-token share {share:.4f}"), flush=True)
+        out[key] = r
+    return out
+
+
+# mixtral-8x22b (moe: 8 experts of 6144 x 16384, top-2, capacity factor 2,
+# a 4,096-token sliding window) at full width cut to 12 of 56 layers: 30.5 B
+# params, 61 GB of bf16 weights beside its rolling dense cache; 8 slots,
+# 16 requests of 128-token prompts (exact length, as the CLI gives them to
+# a moe model), 32 new tokens
+MIXTRAL_LAYERS = 12
+MIXTRAL_ARGV = [
+    "--arch", "mixtral-8x22b", "--layers", str(MIXTRAL_LAYERS),
+    "--batch", "8", "--requests", "16", "--prompt-len", "128", "--gen", "32",
+    "--retain", "topk", "--topk", "64", "--ledger", "device",
+    "--temperature", "0", "--device", "cuda",
+]
+# past the window: 4 requests of 4,160-token prompts (long-context chat or
+# RAG), 16 new tokens, so every decode step reads a wrapped rolling cache
+MIXTRAL_LONG_ARGV = [
+    "--arch", "mixtral-8x22b", "--layers", str(MIXTRAL_LAYERS),
+    "--batch", "4", "--requests", "4", "--prompt-len", "4160", "--gen", "16",
+    "--retain", "topk", "--topk", "64", "--ledger", "device",
+    "--temperature", "0", "--device", "cuda",
+]
+
+
+def weights_floor_ms(argv) -> float:
+    """The time to read a serve config's bf16 weights once at the card's
+    memory rate: a decode step's floor (the MoE step reads every expert)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.params import tree_leaves
+
+    args = serve.parse_args(argv)
+    cfg = configs.get(args.arch, layers=args.layers)
+    n = sum(math.prod(sp.shape) for sp in tree_leaves(Mdl.param_specs(cfg)))
+    return 2 * n / HBM_BYTES_PER_S * 1e3
+
+
+def mixtral_phases(torch, ops, tmp: str) -> dict:
+    """mixtral-8x22b served below and past its window (``decode_attn``
+    once per layer a step, ``topk_lse`` once a step and an admission, the
+    sync guard, the ledger), a profile of its steady decode step, one
+    4,160-token prefill timed and profiled, and its smoke config in f32 on
+    the card and on the CPU -> each serve's summary."""
+    from repro_torch import configs
+
+    out = {}
+    for key, argv, what in (
+            ("short", MIXTRAL_ARGV, "prompts of 128"),
+            ("long", MIXTRAL_LONG_ARGV, "prompts of 4160, past the window")):
+        out[key] = s = serve_phase(torch, ops, tmp, argv,
+                                   ("decode_attn", "topk_lse"))
+        serve_gates(s, MIXTRAL_LAYERS, kernel="decode_attn")
+        print(serve_line(f"serve: mixtral-8x22b {MIXTRAL_LAYERS} of "
+                         f"{configs.get('mixtral-8x22b').num_layers} layers "
+                         f"bf16, dense cache, {what}", s)
+              + f"; weights-read floor {weights_floor_ms(argv):.2f} "
+              f"ms a step", flush=True)
+    print(f"mixtral profile: {profile_phase(torch, MIXTRAL_ARGV)}", flush=True)
+    pre = prefill_phase(torch, "mixtral-8x22b", MIXTRAL_LAYERS, 4160, 4176)
+    print(f"mixtral prefill: {pre}", flush=True)
+    n = engine_reference(torch, "mixtral-8x22b", None)
+    print(f"mixtral reference: smoke config in f32, {n} requests past its "
+          f"16-token window, tokens equal, ledgers within rtol 1e-5",
+          flush=True)
     return out
 
 
@@ -2001,7 +2160,7 @@ def main() -> int:
         show(phase(torch, ops, ref))
     with tempfile.TemporaryDirectory() as tmp:
         s = serve_phase(torch, ops, tmp)
-    paged_gates(s, 32)
+    serve_gates(s, 32)
     print(serve_line("serve: llama3-8b 32 layers bf16, paged", s), flush=True)
     print(f"profile: {profile_phase(torch)}", flush=True)
     print(f"reference: {reference_phase(torch)}", flush=True)
@@ -2051,11 +2210,14 @@ def main() -> int:
                "train a": a["launches"], "train b": b["launches"]}
     with tempfile.TemporaryDirectory() as tmp:
         serves = arch_serve_phases(torch, ops, tmp)
+        mixtral = mixtral_phases(torch, ops, tmp)
         trains = arch_train_phase(torch, ops, tmp)
     for arch, r in serves.items():
         by_path[f"serve {arch} paged"] = r["launches"]
-    for arch, r in trains.items():
-        by_path[f"train {arch}"] = r["launches"]
+    for key, r in mixtral.items():
+        by_path[f"serve mixtral-8x22b {key}"] = r["launches"]
+    for key, r in trains.items():
+        by_path[f"train {key}"] = r["launches"]
     t3, claims = paper_phase(torch, ops)
     by_path["paper table3"] = t3
     for line in claims:

@@ -18,7 +18,6 @@ Per-token CE goes through the cross-entropy kernels on the card.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -196,7 +195,5 @@ if __name__ == "__main__":
     ap.add_argument("--layers", type=int, default=0,
                     help="cut --arch to this many layers (0 = its depth)")
     args = ap.parse_args()
-    cfg = configs.get(args.arch) if args.arch else None
-    if cfg is not None and args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    cfg = configs.get(args.arch, layers=args.layers) if args.arch else None
     print("\n".join(main(fast=args.fast, device=args.device, cfg=cfg)))

@@ -4,10 +4,12 @@
         --page-size 16 --retain topk --ledger device
 
 The same flags and printed lines as ``repro.launch.serve``, plus
-``--device`` (default ``cuda``). The dense family (llama3-8b, deepseek-7b,
-qwen3-14b, granite-34b) serves through the paged (``--page-size`` > 0) or
-the dense cache; mamba2-370m and zamba2-2.7b through the dense cache only,
-each prompt prefilled at its exact length. Requests come from the
+``--device`` (default ``cuda``) and ``--layers`` (cut the depth, keeping
+the widths). The dense family (llama3-8b, deepseek-7b, qwen3-14b,
+granite-34b) serves through the paged (``--page-size`` > 0) or the dense
+cache; mixtral-8x22b, mamba2-370m and zamba2-2.7b through the dense cache
+only, each prompt prefilled at its exact length (a pad would take MoE
+capacity from real tokens, or enter a recurrent state or rolling window). Requests come from the
 deterministic ``SyntheticLMStream`` with the trainer's instance ids, and
 ``--ledger-out`` writes the ``.npz`` ledger interchange format that the JAX
 package's ``LossHistory`` and ``device_ledger.state_from_dict`` load.
@@ -106,6 +108,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cpu runs the kernels' "
                          "plain versions)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers, widths kept "
+                         "(0 = the config's depth)")
     ap.add_argument("--batch", type=int, default=8,
                     help="decode slots (the fixed-size continuous batch)")
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -154,7 +159,7 @@ def parse_args(argv=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = torch.device(args.device)
-    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
+    cfg = configs.get(args.arch, args.smoke, args.layers)
     params = materialize(
         Mdl.param_specs(cfg), args.seed, Mdl.dtype_of(cfg.param_dtype), device
     )
@@ -168,7 +173,8 @@ def main(argv=None) -> int:
     waves, submitted = submit_stream(engine, args, cfg)
     bps = engine.recorder.retained_bytes_per_slot()
     print(
-        f"arch={cfg.name} slots={args.batch} requests={args.requests} "
+        f"arch={cfg.name} layers={cfg.num_layers} slots={args.batch} "
+        f"requests={args.requests} "
         f"({waves} waves) gen<= {args.gen} ledger={args.ledger}"
         + f" retain={args.retain}"
         + (f"[k={args.topk}]" if args.retain == "topk" else "")
@@ -228,6 +234,7 @@ def main(argv=None) -> int:
             topk=args.topk,
             retained_bytes_per_slot=bps,
             device=str(device),
+            layers=cfg.num_layers,
             guarded_steps=engine.guarded_steps,
             step_ms=engine.step_ms,
             instance_ids=ids.tolist(),

@@ -4,7 +4,9 @@
         --smoke --device cpu --steps 20 --method obftf --ratio 0.25
 
 The single-device path of ``repro.launch.train`` with its flags, printed
-lines and ``--json-out`` names:
+lines and ``--json-out`` names, for the dense and moe families (the moe
+family's per-example losses carry ``router_aux_coef`` times the router's
+load-balancing loss, in the step and in the ledger, as in the JAX package):
   * batches from ``SyntheticLMStream``, or through ``RecycleFeed`` under
     ``--recycle --ledger host``;
   * the OBFTF step (``core.obftf``): selection forward (or recycled
@@ -22,7 +24,9 @@ Added: ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
 versions) and ``--layers`` (cut the depth, keeping the widths). On the
 card every step after the first runs with host syncs made errors, and the
 summary counts those steps in ``guarded_steps``; the metrics are fetched
-once, after the step. Not ported: ``--ledger-route``, ``--ledger-exchange``,
+once, after the step. For the moe family the summary also gives
+``moe_dropped_share``, the share of routing choices that expert capacity
+dropped over the run. Not ported: ``--ledger-route``, ``--ledger-exchange``,
 ``--capacity-factor`` and ``--model-parallel`` (they need a mesh),
 ``--metrics-out``, ``--trace-out`` and ``--metrics-every`` (telemetry).
 """
@@ -58,6 +62,7 @@ from repro_torch.core.selection import (
 )
 from repro_torch.data import DataConfig, RecycleFeed, SyntheticLMStream
 from repro_torch.models import model as Mdl
+from repro_torch.models import moe
 from repro_torch.models.params import materialize
 from repro_torch.optim import AdamWConfig, adamw, warmup_cosine
 
@@ -149,9 +154,7 @@ def _fetch(metrics: dict) -> dict:
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = torch.device(args.device)
-    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    cfg = configs.get(args.arch, args.smoke, args.layers)
     print(
         f"arch={cfg.name} layers={cfg.num_layers} device={device} "
         f"global_batch={args.global_batch} method={args.method} "
@@ -265,6 +268,7 @@ def main(argv=None) -> int:
                 for s in (signal.SIGTERM, signal.SIGINT)}
     losses_log, cost_log, hits_log, step_ms = [], [], [], []
     guarded_steps = 0
+    moe.reset_routing_counts()
 
     def train_health() -> dict:
         steps_done = len(losses_log)
@@ -364,6 +368,8 @@ def main(argv=None) -> int:
         "ledger": args.ledger,
         "exchange": "none",  # no routed exchange on one device
         "capacity_factor": None,
+        # of every MoE forward in the run, selection forwards included
+        "moe_dropped_share": moe.dropped_share() if cfg.uses_moe else None,
         "a2a_overflow": 0,
         "stragglers": watchdog.flagged,
         "ledger_hits_first": hits_log[0] if hits_log else None,

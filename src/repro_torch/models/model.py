@@ -1,9 +1,11 @@
-"""Decoder-LM assembly for the dense, ssm and hybrid families.
+"""Decoder-LM assembly for the dense, moe, ssm and hybrid families.
 
 The PyTorch counterpart of ``repro.models.model``:
 
 * dense:  [norm -> GQA attention -> +res] [norm -> SwiGLU or GELU MLP ->
   +res] per layer (any group size, MHA to MQA; qk-norm optional);
+* moe:    the same with the MoE FFN (``models.moe``), after
+  ``first_k_dense`` leading dense layers (``dense_blocks``) where set;
 * ssm:    [norm -> Mamba2/SSD -> +res] per layer (mamba2-370m);
 * hybrid: groups of ``hybrid_attn_every`` SSM layers, each group led by ONE
   weight-shared attention block with its own KV cache (zamba2-2.7b).
@@ -12,12 +14,14 @@ Layer parameters are stacked along leading dims exactly as in the JAX tree
 (``blocks`` [L, ...], or [groups, every, ...] for the hybrid's SSM layers)
 and run by Python loops over those dims.
 
-Entry points: ``forward_hidden`` (full sequence), ``per_example_loss`` /
-``loss_fn`` (the OBFTF loss signal, per-token CE through the cross-entropy
-kernel; dense only), ``per_example_signals`` (CE, entropy and margin),
-``prefill`` (full sequence, builds the decode cache) and ``decode_step``
-(one token per row against the dense or the paged cache). Other families
-raise ``NotImplementedError`` naming themselves.
+Entry points: ``forward_hidden`` (full sequence, with the MoE aux loss
+summed over the layers), ``per_example_loss`` / ``loss_fn`` (the OBFTF
+loss signal, per-token CE through the cross-entropy kernel, plus
+``router_aux_coef`` times the aux loss for MoE; dense and moe only),
+``per_example_signals`` (CE, entropy and margin), ``prefill`` (full
+sequence, builds the decode cache) and ``decode_step`` (one token per row
+against the dense or the paged cache). Other families raise
+``NotImplementedError`` naming themselves.
 """
 
 from __future__ import annotations
@@ -29,14 +33,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MoE
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec, tree_map
 
 # families each entry point runs; training the ssm and hybrid families
 # (a gradient for the SSD scan) is not ported yet
-SERVING_FAMILIES = ("dense", "ssm", "hybrid")
-TRAINING_FAMILIES = ("dense",)
+SERVING_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+TRAINING_FAMILIES = ("dense", "moe")
 
 
 def _require(cfg: ModelConfig, families: tuple[str, ...], what: str) -> None:
@@ -63,14 +68,28 @@ def stack_specs(tree, n: int):
     )
 
 
-def _attn_block_specs(cfg: ModelConfig) -> dict:
+def _attn_block_specs(cfg: ModelConfig, ffn: str = "dense") -> dict:
     d = cfg.d_model
-    return {
+    spec = {
         "attn_norm": L.rmsnorm_spec(d),
         "attn": L.gqa_specs(cfg),
         "ffn_norm": L.rmsnorm_spec(d),
-        "mlp": L.mlp_specs(d, cfg.d_ff, gelu=cfg.mlp_gelu),
     }
+    if ffn == "moe":
+        spec["moe"] = MoE.moe_specs(cfg)
+    else:
+        spec["mlp"] = L.mlp_specs(d, cfg.d_ff, gelu=cfg.mlp_gelu)
+    return spec
+
+
+def _attn_stacks(cfg: ModelConfig) -> tuple[tuple[str, int], ...]:
+    """(key, depth) of each stack of attention blocks, in layer order: the
+    dense family's ``blocks``; the moe family's ``first_k_dense`` leading
+    dense layers (``dense_blocks``) where set, then its MoE ``blocks``."""
+    if cfg.family == "dense":
+        return (("blocks", cfg.num_layers),)
+    lead = (("dense_blocks", cfg.first_k_dense),) if cfg.first_k_dense else ()
+    return lead + (("blocks", cfg.num_layers - cfg.first_k_dense),)
 
 
 def _ssm_block_specs(cfg: ModelConfig) -> dict:
@@ -86,8 +105,10 @@ def param_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((v, d), scale=d**-0.5)
-    if cfg.family == "dense":
-        specs["blocks"] = stack_specs(_attn_block_specs(cfg), cfg.num_layers)
+    if cfg.family in ("dense", "moe"):
+        for key, n in _attn_stacks(cfg):
+            ffn = "moe" if key == "blocks" and cfg.family == "moe" else "dense"
+            specs[key] = stack_specs(_attn_block_specs(cfg, ffn), n)
     elif cfg.family == "ssm":
         specs["blocks"] = stack_specs(_ssm_block_specs(cfg), cfg.num_layers)
     else:  # hybrid: [groups, every, ...] SSM stacks, one shared attention
@@ -127,34 +148,50 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype).T
 
 
+def _ffn(h, p, cfg):
+    """The block's FFN -> (output, MoE aux loss, or None for a dense
+    FFN)."""
+    if "moe" in p:
+        return MoE.moe_ffn(h, p["moe"], cfg)
+    return L.mlp(h, p["mlp"]), None
+
+
 def _block(x, p, cfg, positions):
     h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     x = x + L.gqa_attend(h, p["attn"], cfg, positions)
-    h = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + L.mlp(h, p["mlp"])
+    out, aux = _ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p, cfg)
+    return x + out, aux
 
 
 def forward_hidden(
     params: dict, cfg: ModelConfig, tokens: torch.Tensor
-) -> torch.Tensor:
-    """tokens [B,S] -> final-normed hidden states [B,S,D].
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B,S] -> (final-normed hidden states [B,S,D], MoE aux loss
+    summed over the MoE layers: an f32 scalar, 0 for the dense family).
 
     With ``cfg.remat`` and autograd recording, each layer runs under
     ``torch.utils.checkpoint``, as the JAX scan wraps its body in
-    ``jax.checkpoint``: only layer inputs are kept for the backward. The
-    model draws no random numbers, so no RNG state is stashed."""
+    ``jax.checkpoint``: only layer inputs are kept for the backward, and
+    the layer's aux loss comes out of the checkpoint with its output, so
+    it keeps its gradient. The model draws no random numbers, so no RNG
+    state is stashed."""
     _require(cfg, TRAINING_FAMILIES, "the full-sequence forward")
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.num_layers):
-        p = layer(params["blocks"], i)
-        if remat:
-            x = checkpoint(_block, x, p, cfg, positions, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = _block(x, p, cfg, positions)
-    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for key, n in _attn_stacks(cfg):
+        for i in range(n):
+            p = layer(params[key], i)
+            if remat:
+                x, a = checkpoint(_block, x, p, cfg, positions,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = _block(x, p, cfg, positions)
+            if a is not None:
+                aux = aux + a
+    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def per_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -168,13 +205,13 @@ def per_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def per_example_loss(
     params: dict, cfg: ModelConfig, batch: dict[str, torch.Tensor]
-) -> torch.Tensor:
-    """-> per-example mean CE [B] over the label positions (the OBFTF loss
-    signal)."""
-    hidden = forward_hidden(params, cfg, batch["tokens"])
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (per-example mean CE [B] over the label positions, the MoE aux
+    loss). The OBFTF loss signal."""
+    hidden, aux = forward_hidden(params, cfg, batch["tokens"])
     ce = per_token_loss(unembed(params, cfg, hidden), batch["labels"])
     denom = torch.clamp((batch["labels"] >= 0).sum(dim=-1), min=1)
-    return ce.sum(dim=-1) / denom.to(torch.float32)
+    return ce.sum(dim=-1) / denom.to(torch.float32), aux
 
 
 def per_example_signals(
@@ -188,8 +225,9 @@ def per_example_signals(
     entropy ``lse - sum(softmax * logits)`` and the top-1 minus top-2
     logit margin, each a masked mean over the label positions in f32. The
     two signals come from detached logits: they are read, never
-    differentiated. ``aux`` is a zero scalar (no MoE in the port yet)."""
-    hidden = forward_hidden(params, cfg, batch["tokens"])
+    differentiated. ``aux`` is the MoE aux loss (0 for the dense
+    family)."""
+    hidden, aux = forward_hidden(params, cfg, batch["tokens"])
     logits = unembed(params, cfg, hidden).to(torch.float32)
     labels = batch["labels"]
     ce = per_token_loss(logits, labels)
@@ -203,19 +241,25 @@ def per_example_signals(
         denom = torch.clamp(mask.sum(dim=-1), min=1.0)
         signals = {"entropy": (ent * mask).sum(dim=-1) / denom,
                    "margin": (mar * mask).sum(dim=-1) / denom}
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ce.sum(dim=-1) / denom, signals, aux
 
 
 def loss_fn(
     cfg: ModelConfig,
 ) -> Callable[[dict, dict[str, torch.Tensor]], torch.Tensor]:
-    """``per_example_loss_fn(params, batch) -> [B]`` for the OBFTF step
-    (the dense family has no MoE aux loss to fold in)."""
+    """``per_example_loss_fn(params, batch) -> [B]`` for the OBFTF step.
+
+    The MoE aux load-balancing loss is folded into every example's loss (a
+    scalar shared across the batch: the gradient of the mean keeps it
+    once), so the losses the step records include it, as in the JAX
+    package."""
     _require(cfg, TRAINING_FAMILIES, "the training loss")
 
     def fn(params: dict, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        return per_example_loss(params, cfg, batch)
+        losses, aux = per_example_loss(params, cfg, batch)
+        if cfg.uses_moe:
+            losses = losses + cfg.router_aux_coef * aux
+        return losses
 
     return fn
 
@@ -236,15 +280,17 @@ def init_cache(
     """Decode cache with a batch dim of ``batch`` rows.
 
     dense: ``blocks`` K/V [L, B, T, kv, hd] (T = ``gqa_cache_len``; int8
-    K/V with f32 scales [L, B, T, kv]); ssm: ``blocks`` state [L, B, H, P, N]
-    f32 and conv [L, B, K-1, C]; hybrid: ``blocks`` [groups, every, B, ...]
-    and ``shared_attn`` K/V [groups, B, T, kv, hd], one cache per group
-    though the groups share their attention weights."""
+    K/V with f32 scales [L, B, T, kv]); moe: the same for its MoE
+    ``blocks`` and, with ``first_k_dense``, its ``dense_blocks``; ssm:
+    ``blocks`` state [L, B, H, P, N] f32 and conv [L, B, K-1, C]; hybrid:
+    ``blocks`` [groups, every, B, ...] and ``shared_attn`` K/V
+    [groups, B, T, kv, hd], one cache per group though the groups share
+    their attention weights."""
     _require(cfg, SERVING_FAMILIES, "the decode cache")
     dt = dtype_of(cfg.compute_dtype)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         one = L.gqa_init_cache(cfg, batch, max_seq, dt, device)
-        return {"blocks": _stack_over(cfg.num_layers, one)}
+        return {key: _stack_over(n, one) for key, n in _attn_stacks(cfg)}
     ssm = S.ssm_init_cache(cfg, batch, dt, device)
     if cfg.family == "ssm":
         return {"blocks": _stack_over(cfg.num_layers, ssm)}
@@ -263,10 +309,12 @@ def init_paged_cache(
     """Global paged KV pool, stacked over layers: [L, P, page, kv, hd]. A
     physical page id addresses the same page in every layer, so one table
     per row serves the whole stack. Only the dense family pages its cache:
-    recurrent state and the hybrid's shared block keep the dense layout."""
+    recurrent state, the hybrid's shared block and MoE capacity keep the
+    dense layout, as in the JAX package."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"paged KV cache: family {cfg.family!r} has non-KV cache state")
+            f"paged KV cache: family {cfg.family!r} has non-KV or "
+            "capacity-coupled cache state")
     dt = dtype_of(cfg.compute_dtype)
     one = L.gqa_paged_init_cache(cfg, num_pages, page_size, dt, device)
     return {"blocks": _stack_over(cfg.num_layers, one)}
@@ -280,8 +328,8 @@ def _attn_block_fill(x, p, cfg, positions, max_seq):
     h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     a, cache = L.gqa_fill_cache(h, p["attn"], cfg, positions, max_seq)
     x = x + a
-    h = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + L.mlp(h, p["mlp"]), cache
+    out, _ = _ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p, cfg)
+    return x + out, cache
 
 
 def _ssm_block_fill(x, p, cfg):
@@ -305,13 +353,15 @@ def prefill(
     _require(cfg, SERVING_FAMILIES, "prefill")
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    if cfg.family == "dense":
-        caches = []
-        for i in range(cfg.num_layers):
-            x, c = _attn_block_fill(x, layer(params["blocks"], i), cfg,
-                                    positions, max_seq)
-            caches.append(c)
-        cache = {"blocks": _stack_caches(caches)}
+    if cfg.family in ("dense", "moe"):
+        cache = {}
+        for key, n in _attn_stacks(cfg):
+            caches = []
+            for i in range(n):
+                x, c = _attn_block_fill(x, layer(params[key], i), cfg,
+                                        positions, max_seq)
+                caches.append(c)
+            cache[key] = _stack_caches(caches)
     elif cfg.family == "ssm":
         caches = []
         for i in range(cfg.num_layers):
@@ -349,8 +399,8 @@ def _attn_block_decode(x, p, cfg, c, pos, page_table=None):
     else:
         a, _ = L.gqa_decode(h, p["attn"], cfg, c, pos, c["k"].shape[1])
     x = x + a
-    h = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + L.mlp(h, p["mlp"])
+    out, _ = _ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p, cfg)
+    return x + out
 
 
 def _ssm_block_decode(x, p, cfg, c):
@@ -384,10 +434,11 @@ def decode_step(
             f"paged decode: unsupported family {cfg.family!r}")
     x = embed_tokens(params, cfg, tokens)
     blocks = cache["blocks"]
-    if cfg.family == "dense":
-        for i in range(cfg.num_layers):
-            x = _attn_block_decode(x, layer(params["blocks"], i), cfg,
-                                   layer(blocks, i), pos, page_table)
+    if cfg.family in ("dense", "moe"):
+        for key, n in _attn_stacks(cfg):
+            for i in range(n):
+                x = _attn_block_decode(x, layer(params[key], i), cfg,
+                                       layer(cache[key], i), pos, page_table)
     elif cfg.family == "ssm":
         for i in range(cfg.num_layers):
             x = _ssm_block_decode(x, layer(params["blocks"], i), cfg,

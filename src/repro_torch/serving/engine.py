@@ -185,8 +185,9 @@ class Engine:
     The device is the one ``params`` live on; ``recorder`` must use the
     same one. On pad-safe families prompts pad with token 0 up to the
     nearest length bucket (``prompt_buckets``, by default powers of two from
-    8, then ``max_prompt``); recurrent families and sliding windows prefill
-    at the exact prompt length and refuse buckets. On the card the warm
+    8, then ``max_prompt``); recurrent and MoE families (a pad would take
+    expert capacity from real tokens) and sliding windows prefill at the
+    exact prompt length and refuse buckets. On the card the warm
     fused step runs with host syncs made errors; ``guarded_steps`` counts
     those steps.
     """

@@ -88,10 +88,10 @@ def test_forward_and_per_example_loss_match_jax(arch):
     jlogits, jloss = jit(lambda p, b: (
         JM.unembed(p, jcfg, JM.forward_hidden(p, jcfg, b["tokens"])[0]),
         JM.per_example_loss(p, jcfg, b)[0]))(jp, jb)
-    tlogits = M.unembed(tp, cfg, M.forward_hidden(tp, cfg, tb["tokens"]))
+    tlogits = M.unembed(tp, cfg, M.forward_hidden(tp, cfg, tb["tokens"])[0])
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
                                atol=ATOL)
-    np.testing.assert_allclose(M.per_example_loss(tp, cfg, tb).numpy(),
+    np.testing.assert_allclose(M.per_example_loss(tp, cfg, tb)[0].numpy(),
                                np.asarray(jloss), rtol=LOSS_RTOL)
     # what makes the arch: its heads, its qk-norm, its MLP
     blk = tp["blocks"]

@@ -35,12 +35,12 @@ def cuda():
 # 4096 (past a block's threads: no bound, the cluster-wide select, survivors
 # sorted in shared memory); a vocabulary no multiple of a 16-byte load with
 # k = 64 and k = V (sorted in global scratch); a row shorter than a warp's
-# loads; the other dense archs' vocabularies at the serve shape (deepseek-7b,
-# qwen3-14b, granite-34b)
+# loads; the other archs' vocabularies at the serve shape (deepseek-7b,
+# qwen3-14b, granite-34b, mixtral-8x22b)
 TOPK_CASES = [(8, 128256, 64), (8, 128256, 1), (8, 128256, 65),
               (8, 128256, 256), (4, 128256, 4096), (3, 4097, 64),
               (3, 4097, 4097), (5, 97, 7), (8, 102400, 64), (8, 151936, 64),
-              (8, 49152, 64)]
+              (8, 49152, 64), (8, 32768, 64)]
 
 
 def _topk_check(x, k):
@@ -139,11 +139,13 @@ def test_paged_decode_attn_kernel_asserts_on_page_past_the_pool(cuda):
 # the training path's shapes (T = 1024 kept tokens, V = llama3's vocab) and
 # edge cases: a row length that is no multiple of 16 bytes (scalar loop),
 # tiny rows, -1 labels and a row of ±1e4 logits in every case; the kept
-# tokens at qwen3-14b's and granite-34b's vocabularies
+# tokens at qwen3-14b's and granite-34b's vocabularies; mixtral-8x22b's
+# selection forward (T = 4096) and kept tokens (T = 1024)
 XENT_CASES = [(1024, 128256, torch.bfloat16), (64, 128256, torch.float32),
               (7, 128257, torch.bfloat16), (5, 97, torch.float32),
               (3, 130, torch.bfloat16), (1024, 151936, torch.bfloat16),
-              (1024, 49152, torch.bfloat16)]
+              (1024, 49152, torch.bfloat16), (4096, 32768, torch.bfloat16),
+              (1024, 32768, torch.bfloat16)]
 
 
 def _xent_inputs(cuda, t, v, dtype):
@@ -357,6 +359,19 @@ DECODE_CASES = [(8, 32, 8, 128, 160), (8, 32, 32, 80, 332),
 # test_decode_attn_matches_ref's tolerances: f32 summation order only; bf16
 # inputs rounded once, weights kept in f32 by both versions
 DECODE_TOL = {torch.float32: 2e-6, torch.bfloat16: 3e-2}
+# bf16 also per (row, query head), relative in L2 over D: at a 4,096-slot
+# context the absolute limit is as large as a typical output, this one
+# fails a kernel that drops a tile of 64 positions (chip_smoke.py shows it)
+DECODE_BF16_REL = 2e-2
+
+
+def _decode_close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want, rtol=0,
+                               atol=DECODE_TOL[dtype])
+    if dtype == torch.bfloat16:
+        rel = ((got.float() - want).norm(dim=-1)
+               / want.norm(dim=-1).clamp_min(1e-30)).max().item()
+        assert rel <= DECODE_BF16_REL, rel
 
 
 @pytest.mark.gpu
@@ -423,6 +438,33 @@ def test_decode_attn_kernel_matches_plain_with_rolling_window(cuda):
     got = ops.decode_attn(q, k, v, valid, impl="cuda")
     torch.testing.assert_close(got, ref.decode_attn_ref(q, k, v, valid),
                                rtol=0, atol=DECODE_TOL[torch.float32])
+
+
+# mixtral-8x22b's decode, 8 rows of 48 query heads over 8 kv heads of 128:
+# the short-prompt serve (128-token prompts, 32 new tokens) at contexts
+# 129-160 of a 160-slot cache, and the 4,096-slot rolling window with rows
+# before, at and past the wrap (the long-prompt serve reads 4,160-token
+# contexts)
+MIXTRAL_DECODE = {
+    "short": (160, np.arange(160)[None] < np.asarray(
+        [160, 152, 148, 144, 140, 136, 132, 129])[:, None]),
+    "window": (4096, window_mask(
+        [0, 127, 4095, 4096, 4160, 4175, 5000, 9000], 4096, 4096)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(MIXTRAL_DECODE))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_kernel_matches_plain_at_mixtral_shapes(cuda, case,
+                                                           dtype):
+    t, valid = MIXTRAL_DECODE[case]
+    q, k, v, _ = decode_case(8, 48, 8, 128, t, seed=11)
+    q, k, v, valid = (torch.from_numpy(a).to(cuda) for a in (q, k, v, valid))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    got = ops.decode_attn(q, k, v, valid, impl="cuda")
+    want = ref.decode_attn_ref(q.float(), k.float(), v.float(), valid)
+    _decode_close(got, want, dtype)
 
 
 # the JAX test's shapes (S no multiple of the chunk, G = 2) and the serving

@@ -56,7 +56,8 @@ def test_forward_hidden_matches_jax(weights):
     jp, tp = weights
     toks = _tokens(2, 12)
     want, _ = JM.forward_hidden(jp, JCFG, jnp.asarray(toks))
-    got = M.forward_hidden(tp, CFG, torch.from_numpy(toks))
+    got, aux = M.forward_hidden(tp, CFG, torch.from_numpy(toks))
+    assert float(aux) == 0.0  # no MoE layer
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
@@ -152,10 +153,12 @@ def test_put_rows_drops_masked_items_exactly():
     assert torch.equal(dst, want)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "pixtral-12b",
-                                  "deepseek-v2-236b"])
-def test_unported_archs_raise_naming_their_family(arch):
-    with pytest.raises(NotImplementedError, match="family"):
+@pytest.mark.parametrize("arch,names", [("pixtral-12b", "vlm family"),
+                                        ("deepseek-v2-236b", "MLA")])
+def test_unported_archs_raise_naming_their_family(arch, names):
+    """pixtral-12b's family is not ported; deepseek-v2-236b's (moe) is,
+    and it names the MLA attention it still lacks."""
+    with pytest.raises(NotImplementedError, match=names):
         configs.get(arch)
 
 

@@ -145,7 +145,7 @@ def test_per_token_loss_masks_after_the_kernel(setup):
     tparams = from_jax(jp, "cpu")
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     logits = M.unembed(tparams, CFG, M.forward_hidden(tparams, CFG,
-                                                      tb["tokens"]))
+                                                      tb["tokens"])[0])
     ce = M.per_token_loss(logits, tb["labels"])
     assert (ce[1, -3:] == 0).all() and (ce[1, :-3] > 0).all()
     want = JM.per_token_loss(jnp.asarray(logits.detach().numpy()),
@@ -155,7 +155,7 @@ def test_per_token_loss_masks_after_the_kernel(setup):
     jl = jax.jit(lambda p, b: JM.per_example_loss(p, JCFG, b)[0])(
         jax.tree.map(jnp.asarray, jp),
         {k: jnp.asarray(v) for k, v in batch.items()})
-    np.testing.assert_allclose(M.per_example_loss(tparams, CFG, tb).detach(),
+    np.testing.assert_allclose(M.per_example_loss(tparams, CFG, tb)[0].detach(),
                                np.asarray(jl), rtol=LOSS_RTOL)
 
 
