@@ -15,11 +15,12 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    least time the card could take (bytes over 3.35 TB/s, operations over
    the published peak): top-k + lse (bf16 logits as the recorder passes
    them, and f32; k of 1 to 4096 and k = V, ±0 and -inf ties, k = 64 at
-   the vocabularies of deepseek-7b, qwen3-14b, granite-34b and
-   mixtral-8x22b; timed warm,
+   the vocabularies of deepseek-7b (and deepseek-v2-236b), qwen3-14b,
+   granite-34b, mixtral-8x22b, pixtral-12b and musicgen-medium; timed warm,
    cold and as device time alone, also by k and route), paged decode
    attention (pages of 5, 16 and 256, G = 1, 4, 5, 16 and 48 with the
-   heads of llama3-8b, deepseek-7b, qwen3-14b and granite-34b, D = 36,
+   heads of llama3-8b, deepseek-7b, qwen3-14b, granite-34b and
+   musicgen-medium (24 of 64), D = 36,
    rows that attend nothing; timed as the dense kernel is, also in a
    2048-position table), dense-cache
    decode attention (zamba2's D = 80, G = 1 and llama3-8b's shapes, an
@@ -28,7 +29,8 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    contexts of 50 to 2048 in a 2048-slot cache, mixtral-8x22b's 48/8 heads
    in its wrapped 4,096-slot window and in the short serve's 160-slot
    cache in bf16 and f32, bf16 also to a relative limit that a dropped
-   tile of 64 positions fails; also timed
+   tile of 64 positions fails, the prefix checks' caches of pixtral-12b
+   and musicgen-medium; also timed
    with a cold L2 and as device time alone), the SSD scan (zamba2's and
    mamba2's 300-token prefills, a long case, one chunk, an exact multiple
    of the chunk, N = 256 in bf16 and in f32, the JAX test's odd shapes in
@@ -65,9 +67,9 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    versions at its shapes (cross-entropy at T = 4096 and 1024 rows of the
    128256-token vocabulary in bf16, with -1 labels, a row of ±1e4 logits
    and a vocabulary that is no multiple of the tile, and at the shapes of
-   the other train paths: qwen3-14b's, granite-34b's and mixtral-8x22b's
-   vocabularies in bf16 and the smoke configs' in f32, as Table 3 gives
-   them; the ledger at
+   the other train paths: qwen3-14b's, granite-34b's, mixtral-8x22b's,
+   deepseek-v2-236b's, pixtral-12b's and musicgen-medium's vocabularies in
+   bf16 and the smoke configs' in f32, as Table 3 gives them; the ledger at
    capacity 65536 with batches of 32 and 512 and at 2^18 with 32 and
    32768, duplicates, masked items, five chained transactions and an
    eviction inside each batch, both variant names forced), timed as above
@@ -85,15 +87,20 @@ Phases, one line each (any failure raises, exits non-zero and prints no
 9. train profile — run (a)'s configuration again, two warm steps timed by
    the host clock and two under torch.profiler;
 10. the other dense archs — deepseek-7b (30 layers, MHA), qwen3-14b (40,
-   qk-norm, G = 5) and granite-34b (88, MQA with G = 48, the GELU MLP)
-   served as in phase 4 at full width and depth, with the same gates
+   qk-norm, G = 5) and granite-34b (88, MQA with G = 48, the GELU MLP) —
+   and the prefix-embedding families without a prefix, as their CLIs
+   serve them — pixtral-12b (40, vlm) and musicgen-medium (48, audio, 24
+   heads of 64) — served as in phase 4 at full width and depth, with the
+   same gates
    (``paged_decode_attn`` once per layer a step), each followed by a
    profile of its steady decode step; their smoke configs in f32 on the
    card and on the CPU (equal tokens, ledgers within 1e-5, the signal
-   channels also within 1e-6 absolute); then qwen3-14b
-   and granite-34b trained at full width, cut to the deepest that fits
-   (``ARCH_TRAIN``): qwen3-14b as run (a), granite-34b as run (b), each
-   with finite losses, its step cost and its kernels launched;
+   channels also within 1e-6 absolute); then qwen3-14b,
+   granite-34b, pixtral-12b and musicgen-medium trained at full width, cut
+   to the deepest that fits (``ARCH_TRAIN``; musicgen-medium at full
+   depth): qwen3-14b and pixtral-12b as run (a), granite-34b and
+   musicgen-medium as run (b), each with finite losses, its step cost and
+   its kernels launched;
 10a. mixtral-8x22b (moe: 8 experts, top-2, a 4,096-token window) at full
    width cut to 12 of 56 layers, dense cache: 8 slots and 16 requests of
    128-token prompts, 32 new tokens; then 4 requests of 4,160-token
@@ -105,6 +112,24 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    card against CPU; trained cut to 1 layer as runs (a) and (b)
    (``ARCH_TRAIN``), each with the share of token choices that capacity
    dropped over the run's MoE layers;
+10b. deepseek-v2-236b (moe with MLA: a 576-value latent cache a token, 2
+   shared and 160 routed experts, top-6 ungated, one dense lead layer) at
+   full width cut to 8 of 60 layers, dense latent cache: 8 slots and 16
+   requests of 128-token prompts, 32 new tokens; then 2 requests of
+   8,192-token prompts (MLA's blocked prefill), 16 new tokens; each with
+   the serve gates (no attention kernel, ``topk_lse`` once a step and an
+   admission, the sync guard, the ledger), its peak memory and its
+   weights-read floor; a profile of the short path's decode step, an
+   8,192-token prefill timed and profiled, its smoke config's engine card
+   against CPU; trained cut to 1 layer (the dense lead layer alone: nothing
+   routed) as runs (a) and (b) (``ARCH_TRAIN``);
+10c. prefix — pixtral-12b and musicgen-medium at full width and depth
+   through the model's own entry points: two rows of a random
+   ``prefix_len``-frame prefix and 128 tokens prefilled into the dense
+   cache, 16 greedy decode steps (``decode_attn`` once per layer a step),
+   each step's logits against one ``forward_hidden`` over prefix + every
+   token within ``PREFIX_TOL``, which the same forward without the prefix
+   misses;
 11. paper — the port's twins of the paper's experiments
    (``repro_torch.benchmarks``: Fig. 1, Fig. 2 and Table 3 with their
    policy A/B arms), fast profile, at the JAX benches' sizes: every CSV
@@ -113,9 +138,9 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    gated, whether obftf beats uniform at each ratio and the policy arms'
    order (the paper's claims, noisy at these sizes).
 
-It then prints the kernels as one JSON line (``launches`` over each
-kernel's first main path, ``launches_by_path`` over every path that ran
-it), the card again, and last ``{"ok": true, "device": {...}}``.
+It then prints its wall time, the kernels as one JSON line (``launches``
+over each kernel's first main path, ``launches_by_path`` over every path
+that ran it), the card again, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -246,8 +271,9 @@ def topk_edges(torch, x):
 
 
 TOPK_KS = (1, 64, 65, 256, 4096)  # 4096: the most sorted in shared memory
-# the vocabularies of deepseek-7b, qwen3-14b, granite-34b and mixtral-8x22b
-ARCH_VOCABS = (102400, 151936, 49152, 32768)
+# the vocabularies of deepseek-7b (and deepseek-v2-236b), qwen3-14b,
+# granite-34b, mixtral-8x22b, pixtral-12b and musicgen-medium
+ARCH_VOCABS = (102400, 151936, 49152, 32768, 131072, 2048)
 
 
 def topk_phase(torch, ops, ref) -> dict:
@@ -387,9 +413,10 @@ SERVE_POS = (159, 151, 147, 143, 139, 135, 131, 128)
 # (Hq, Hkv, D): llama3-8b's heads, the JAX test's G = 16, granite-34b's
 # G = 48 (three head slices), D = 36 (144-byte rows in f32, 72-byte ones
 # in bf16, which take the scalar copy), deepseek-7b's G = 1 and qwen3-14b's
-# G = 5
+# G = 5; musicgen-medium's 24 kv heads of 64 (G = 1, D = 64); pixtral-12b's
+# are llama3-8b's
 PAGED_HEADS = ((32, 8, 128), (16, 1, 64), (48, 1, 128), (8, 2, 36),
-               (32, 32, 128), (40, 8, 128))
+               (32, 32, 128), (40, 8, 128), (24, 24, 64))
 # pages of 256 (spans inside one page) and of 5 (a tile crosses many)
 PAGED_LAYOUTS = ({}, dict(page=256, npg=3,
                           pos=(0, 255, 256, 300, 511, 600, 700, 767)),
@@ -595,6 +622,11 @@ MIXED_POS = tuple(49 + (2047 - 49) * i // 7 for i in range(8))
 MIXTRAL_DECODE = (8, 48, 8, 128, 4096)
 MIXTRAL_POS = (127, 4095, 4096, 4160, 4163, 4167, 4171, 4175)
 MIXTRAL_SHORT = (8, 48, 8, 128, 160)
+# the prefix checks' dense caches (2 rows, prefix + 128 prompt tokens + 16
+# new ones): pixtral-12b's 32/8 heads of 128 after 1,024 patches,
+# musicgen-medium's 24/24 heads of 64 after 64 frames; the rows decode at
+# contexts prefix + 129 to prefix + 144
+PREFIX_DECODE = ((2, 32, 8, 128, 1168), (2, 24, 24, 64, 208))
 
 
 def time_ms_cold(fn, copies, iters: int = 20, warmup: int = 2) -> float:
@@ -743,6 +775,12 @@ def decode_attn_phase(torch, ops, ref) -> dict:
             decode_check(torch, ops, ref, *case, mask, worst)
         wide.append(f"B={b_} Hq={hq_} Hkv={hkv_} T={t_}: {nsplit} spans of "
                     f"{span}")
+    for shape in PREFIX_DECODE:
+        t_ = shape[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            case = decode_inputs(torch, g, *shape, dtype)
+            decode_check(torch, ops, ref, *case,
+                         depth_mask(torch, (t_ - 1, t_ - 16), t_), worst)
     mixtral = {}
     for dtype in (torch.bfloat16, torch.float32):
         for shape, mask in (
@@ -835,7 +873,9 @@ def decode_attn_phase(torch, ops, ref) -> dict:
                f"{mx['library_ms']:.4f}, bound {mx['bound'][0]:.5f}, "
                f"{more_times(mx)}; checked also at the short mixtral "
                f"serve's T=160, contexts {min(SERVE_POS) + 1}-"
-               f"{max(SERVE_POS) + 1}; a tile of 64 positions dropped from a "
+               f"{max(SERVE_POS) + 1}, and at the prefix checks' (B, Hq, Hkv, "
+               f"D, T) {list(PREFIX_DECODE)} at contexts T-15 and T in bf16 "
+               f"and f32; a tile of 64 positions dropped from a "
                f"full window row gives relative err {dropped:.3g}, which the "
                f"bf16 limit rejects (the kernel's worst, every bf16 case: "
                f"{worst['rel']:.3g}); one grid per call, "
@@ -1490,11 +1530,14 @@ def xent_check(torch, ops, ref, case) -> tuple[float, float]:
 # the other train paths' (T, V, dtype): qwen3-14b's selection forward and
 # kept rows, granite-34b's kept rows, Table 3's smoke llama (its full
 # arm's bf16 logits and per_example_signals' f32 ones) and mixtral-8x22b's
-# selection forward and kept rows
+# selection forward and kept rows; deepseek-v2-236b's and pixtral-12b's
+# selection forward and kept rows, musicgen-medium's kept rows (recycled)
 XENT_ARCH_CASES = ((4096, 151936, "bfloat16"), (1024, 151936, "bfloat16"),
                    (1024, 49152, "bfloat16"), (2048, 256, "bfloat16"),
                    (512, 256, "float32"), (4096, 32768, "bfloat16"),
-                   (1024, 32768, "bfloat16"))
+                   (1024, 32768, "bfloat16"), (4096, 102400, "bfloat16"),
+                   (1024, 102400, "bfloat16"), (4096, 131072, "bfloat16"),
+                   (1024, 131072, "bfloat16"), (1024, 2048, "bfloat16"))
 
 
 def xent_phases(torch, ops, ref) -> list[dict]:
@@ -1863,9 +1906,12 @@ def train_profile_phase(torch) -> str:
             f"{groups}; top device ms/step: {tops}")
 
 
-# the slice's archs: each served at full width and depth through the paged
-# cache, as the llama3-8b phase (prompts of 128/112/96/80, 32 new tokens)
-ARCH_LAYERS = {"deepseek-7b": 30, "qwen3-14b": 40, "granite-34b": 88}
+# the dense archs and the prefix-embedding families (served without a
+# prefix, as the serve CLI serves them): each served at full width and depth
+# through the paged cache, as the llama3-8b phase (prompts of
+# 128/112/96/80, 32 new tokens)
+ARCH_LAYERS = {"deepseek-7b": 30, "qwen3-14b": 40, "granite-34b": 88,
+               "pixtral-12b": 40, "musicgen-medium": 48}
 
 
 def arch_argv(arch: str) -> list[str]:
@@ -1877,8 +1923,9 @@ def arch_argv(arch: str) -> list[str]:
 def serve_gates(s: dict, layers: int, kernel="paged_decode_attn") -> None:
     """A serve path's launch counts: its attention ``kernel``
     (``paged_decode_attn`` on the paged cache, ``decode_attn`` on the dense
-    one) once per layer a step and the other never, ``topk_lse`` once a
-    step and once an admission."""
+    one, None for MLA's latent cache, which no kernel reads) once per layer
+    a step and the others never, ``topk_lse`` once a step and once an
+    admission."""
     _per_path(s, {k: (layers if k == kernel else 0, "step")
                   for k in ("paged_decode_attn", "decode_attn")})
     if s["launches"]["topk_lse"] != s["steps"] + s["admitted"]:
@@ -1887,11 +1934,12 @@ def serve_gates(s: dict, layers: int, kernel="paged_decode_attn") -> None:
 
 
 def arch_serve_phases(torch, ops, tmp: str) -> dict:
-    """deepseek-7b (MHA, G = 1), qwen3-14b (qk-norm, G = 5) and granite-34b
-    (MQA, G = 48, the GELU MLP) served at full width and depth, each with a
-    profile of its steady decode step; then each smoke config in f32 on
-    the card and on the CPU: equal tokens, ledgers within 1e-5 -> each
-    serve's summary."""
+    """deepseek-7b (MHA, G = 1), qwen3-14b (qk-norm, G = 5), granite-34b
+    (MQA, G = 48, the GELU MLP), pixtral-12b (vlm, G = 4) and
+    musicgen-medium (audio, G = 1, D = 64) served at full width and depth,
+    each with a profile of its steady decode step; then each smoke config
+    in f32 on the card and on the CPU: equal tokens, ledgers within 1e-5
+    -> each serve's summary."""
     out = {}
     for arch, layers in ARCH_LAYERS.items():
         out[arch] = s = serve_phase(torch, ops, tmp, arch_argv(arch),
@@ -1915,10 +1963,19 @@ def arch_serve_phases(torch, ops, tmp: str) -> dict:
 # under a gradient), granite-34b recycled (the GELU MLP, MQA, the ledger
 # kernel); mixtral-8x22b at 1 of 56 layers (2.9 B params, about llama3-8b's
 # 8-layer cut; two layers, 5.4 B, would need about 97 GB at the 18 bytes a
-# parameter that one layer's peak bears out: not run), both ways
+# parameter that one layer's peak bears out: not run), both ways;
+# deepseek-v2-236b at 1 of 60 layers, its dense lead layer with MLA (1.39
+# B params; two layers, 5.36 B with the first MoE layer, would need about
+# 100 GB: not run), both ways, so no MoE layer of it trains here;
+# pixtral-12b with a selection forward at 9 of 40 layers (3.79 B params;
+# at 10 the train CLI runs out of memory); musicgen-medium recycled at full
+# depth
 RECYCLED = ("--recycle", "--ledger", "device", "--instance-pool", "64")
 ARCH_TRAIN = (("qwen3-14b", 7, ()), ("granite-34b", 8, RECYCLED),
-              ("mixtral-8x22b", 1, ()), ("mixtral-8x22b", 1, RECYCLED))
+              ("mixtral-8x22b", 1, ()), ("mixtral-8x22b", 1, RECYCLED),
+              ("deepseek-v2-236b", 1, ()), ("deepseek-v2-236b", 1, RECYCLED),
+              ("pixtral-12b", 9, ()),
+              ("musicgen-medium", 0, RECYCLED))
 
 
 def arch_train_phase(torch, ops, tmp: str) -> dict:
@@ -1944,6 +2001,11 @@ def arch_train_phase(torch, ops, tmp: str) -> dict:
         share = r["moe_dropped_share"]
         if share is not None and not 0.0 <= share < 1.0:
             raise AssertionError(f"{arch} dropped-token share {share}")
+        cfg = configs.get(arch, layers=layers)
+        routes = cfg.uses_moe and cfg.num_layers > cfg.first_k_dense
+        if (share is not None) != routes:
+            raise AssertionError(f"{arch}: dropped-token share {share} with "
+                                 f"MoE layers {routes}")
         print(f"train: {key} {r['layers']} of "
               f"{configs.get(arch).num_layers} layers "
               f"bf16, {r['steps']} steps, recycle={r['recycle']} "
@@ -1953,8 +2015,9 @@ def arch_train_phase(torch, ops, tmp: str) -> dict:
               f"first {r['step_ms'][0]:.1f}, steady (median of warm) "
               f"{r['steady_ms']:.1f}, peak {r['peak_gib']:.1f} GiB, sync "
               f"guard on {r['guarded_steps']} warm steps"
-              + ("" if share is None else
-                 f", dropped-token share {share:.4f}"), flush=True)
+              + (f", dropped-token share {share:.4f}" if share is not None
+                 else ", no MoE layer in the cut: nothing routed, no "
+                      "dropped share" if cfg.uses_moe else ""), flush=True)
         out[key] = r
     return out
 
@@ -2023,6 +2086,141 @@ def mixtral_phases(torch, ops, tmp: str) -> dict:
           f"16-token window, tokens equal, ledgers within rtol 1e-5",
           flush=True)
     return out
+
+
+# deepseek-v2-236b (MLA with a 512 + 64 latent a token, 2 shared and 160
+# routed experts of 5120 x 1536, top-6 ungated, one dense lead layer) at
+# full width cut to 8 of 60 layers (the lead layer and 7 MoE layers: 29.19
+# B params, 58.4 GB of bf16 weights; 9 layers would be 66.3 GB), dense
+# latent cache, exact-length prefill: 8 slots, 16 requests of 128-token
+# prompts, 32 new tokens; then 2 slots, 2 requests of 8,192-token prompts
+# (long-document summarisation, RAG: the prefill takes MLA's blocked
+# branch, each decode step reads 8,208 positions of latent cache), 16 new
+DEEPSEEK_LAYERS = 8
+DEEPSEEK_ARGV = [
+    "--arch", "deepseek-v2-236b", "--layers", str(DEEPSEEK_LAYERS),
+    "--batch", "8", "--requests", "16", "--prompt-len", "128", "--gen", "32",
+    "--retain", "topk", "--topk", "64", "--ledger", "device",
+    "--temperature", "0", "--device", "cuda",
+]
+DEEPSEEK_LONG = 8192
+DEEPSEEK_LONG_ARGV = [
+    "--arch", "deepseek-v2-236b", "--layers", str(DEEPSEEK_LAYERS),
+    "--batch", "2", "--requests", "2", "--prompt-len", str(DEEPSEEK_LONG),
+    "--gen", "16", "--retain", "topk", "--topk", "64", "--ledger", "device",
+    "--temperature", "0", "--device", "cuda",
+]
+
+
+def deepseek_phases(torch, ops, tmp: str) -> dict:
+    """deepseek-v2-236b served with short and long prompts (no attention
+    kernel: MLA's latent cache is read by einsums, as in the JAX package;
+    ``topk_lse`` once a step and an admission, the sync guard, the ledger;
+    the peak memory), a profile of the short path's decode step, one
+    8,192-token prefill timed and profiled, and its smoke config's engine
+    in f32 on the card and on the CPU -> each serve's summary."""
+    from repro_torch import configs
+
+    out = {}
+    for key, argv, what in (
+            ("short", DEEPSEEK_ARGV, "prompts of 128"),
+            ("long", DEEPSEEK_LONG_ARGV,
+             f"prompts of {DEEPSEEK_LONG}, MLA's blocked prefill")):
+        out[key] = s = serve_phase(torch, ops, tmp, argv, ("topk_lse",))
+        serve_gates(s, DEEPSEEK_LAYERS, kernel=None)
+        print(serve_line(f"serve: deepseek-v2-236b {DEEPSEEK_LAYERS} of "
+                         f"{configs.get('deepseek-v2-236b').num_layers} "
+                         f"layers bf16, dense latent cache, {what}", s)
+              + f"; weights-read floor {weights_floor_ms(argv):.2f} "
+              f"ms a step", flush=True)
+    print(f"deepseek-v2 profile: {profile_phase(torch, DEEPSEEK_ARGV)}",
+          flush=True)
+    pre = prefill_phase(torch, "deepseek-v2-236b", DEEPSEEK_LAYERS,
+                        DEEPSEEK_LONG, DEEPSEEK_LONG + 16)
+    print(f"deepseek-v2 prefill: {pre}", flush=True)
+    n = engine_reference(torch, "deepseek-v2-236b", None)
+    print(f"deepseek-v2 reference: smoke config in f32 (MLA, a dense lead "
+          f"layer, a shared expert, ungated top-2), {n} requests, tokens "
+          f"equal, ledgers within rtol 1e-5", flush=True)
+    return out
+
+
+# the prefix checks: the model's own entry points, since no CLI carries a
+# prefix. Two rows, a random prefix at the token embeddings' scale (0.02),
+# 128 prompt tokens, 16 greedy decode steps through the dense cache
+# (decode_attn); each step's logits against one forward over prefix + all
+# tokens, relative L2 per (row, step) over the vocabulary. Both sides run in
+# bf16 and round differently (the decode kernel keeps its softmax weights
+# in f32, the full forward's einsums round them), so the limit is bf16's,
+# widened for the depth; the same forward without the prefix must miss it
+PREFIX_TOL = 5e-2
+PREFIX_PROMPT, PREFIX_NEW = 128, 16
+
+
+def prefix_phase(torch, ops, arch: str) -> dict:
+    """``arch`` at full width and depth: prefill its ``prefix_len``-frame
+    prefix and a prompt into the dense cache, then greedy decode steps,
+    held against ``forward_hidden`` over prefix + every token -> the
+    launches and errors."""
+    from repro_torch import configs
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.params import materialize
+
+    _free(torch)
+    cfg = configs.get(arch)
+    params = materialize(Mdl.param_specs(cfg), 0, torch.bfloat16, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, p_ = 2, cfg.prefix_len
+    prefix = (torch.randn((b, p_, cfg.d_model), device="cuda", generator=g)
+              * 0.02).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (b, PREFIX_PROMPT),
+                         device="cuda", generator=g, dtype=torch.int32)
+    max_seq = p_ + PREFIX_PROMPT + PREFIX_NEW
+    with torch.no_grad():
+        ops.reset_launches()
+        logits, cache = Mdl.prefill(params, cfg, toks, max_seq, prefix=prefix)
+        pos = torch.full((b,), p_ + PREFIX_PROMPT, dtype=torch.int32,
+                         device="cuda")
+        new, steps = [], []
+        for _ in range(PREFIX_NEW):
+            nxt = Mdl.greedy_token(cfg, logits)[:, None]
+            new.append(nxt)
+            logits, cache = Mdl.decode_step(params, cfg, cache, nxt, pos)
+            steps.append(logits.float())
+            pos = pos + 1
+        launches = dict(ops.LAUNCHES)
+        every = torch.cat([toks, *new], dim=1)
+        dec = torch.stack(steps, dim=1)  # [B, new, V]
+
+        def rel(pre):
+            h, _ = Mdl.forward_hidden(params, cfg, every, pre)
+            full = Mdl.unembed(params, cfg, h[:, -PREFIX_NEW:]).float()
+            return ((dec - full).norm(dim=-1)
+                    / full.norm(dim=-1).clamp_min(1e-30))
+
+        err = rel(prefix)
+        without = rel(None).min().item()
+    del params, cache
+    _free(torch)
+    if launches["decode_attn"] != cfg.num_layers * PREFIX_NEW or launches[
+            "paged_decode_attn"]:
+        raise AssertionError(f"{arch} prefix decode launches {launches}")
+    if not torch.isfinite(dec).all():
+        raise AssertionError(f"{arch}: non-finite decode logits")
+    if err.max().item() > PREFIX_TOL:
+        raise AssertionError(f"{arch}: decode after a prefix differs from "
+                             f"the full forward by {err.max().item()}")
+    if without <= PREFIX_TOL:
+        raise AssertionError(f"{arch}: the forward without the prefix is "
+                             f"within {PREFIX_TOL} ({without})")
+    print(f"prefix: {arch} {cfg.num_layers} layers bf16, {b} rows of a "
+          f"{p_}-frame prefix + {PREFIX_PROMPT} tokens prefilled, "
+          f"{PREFIX_NEW} greedy decode steps (launches {launches}); logits "
+          f"against one forward over prefix + all tokens, relative L2: last "
+          f"step {err[:, -1].max().item():.3g}, every step "
+          f"{err.max().item():.3g} (tol {PREFIX_TOL}); without the prefix "
+          f"at least {without:.3g}", flush=True)
+    return launches
 
 
 # the paper's three experiments (the port's twins of the JAX benches), fast
@@ -2130,6 +2328,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    start = time.perf_counter()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build, ops, ref
 
@@ -2211,13 +2410,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         serves = arch_serve_phases(torch, ops, tmp)
         mixtral = mixtral_phases(torch, ops, tmp)
+        deepseek = deepseek_phases(torch, ops, tmp)
         trains = arch_train_phase(torch, ops, tmp)
     for arch, r in serves.items():
         by_path[f"serve {arch} paged"] = r["launches"]
     for key, r in mixtral.items():
         by_path[f"serve mixtral-8x22b {key}"] = r["launches"]
+    for key, r in deepseek.items():
+        by_path[f"serve deepseek-v2-236b {key}"] = r["launches"]
     for key, r in trains.items():
         by_path[f"train {key}"] = r["launches"]
+    for arch in ("pixtral-12b", "musicgen-medium"):
+        by_path[f"prefix {arch}"] = prefix_phase(torch, ops, arch)
     t3, claims = paper_phase(torch, ops)
     by_path["paper table3"] = t3
     for line in claims:
@@ -2232,6 +2436,8 @@ def main() -> int:
     # paged_decode_attn: device time alone, warm and cold, and the library's
     extra = ("bound_f32_ms", "dev_ms", "dev_cold_ms", "dev_library_ms",
              "span_ms", "host_ms", "launches_by_path")
+    print(f"total: every phase passed in {time.perf_counter() - start:.1f} "
+          f"s", flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in keys or k in r}
         for r in kernels]}))

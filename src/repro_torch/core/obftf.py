@@ -79,13 +79,18 @@ def loss_and_grads(fn: Callable, params: Any, inputs: Any):
     """(``fn(params, inputs)`` detached, the grads of the mean of its
     per-example losses as a tree shaped like ``params``). ``fn`` returns
     the losses [n], or a tuple led by them whose other entries are
-    returned beside them, never differentiated."""
+    returned beside them, never differentiated. An empty leaf (a stack
+    of no layers, such as a moe model cut to its ``first_k_dense`` layers)
+    takes no part in the loss; its grad is an empty tensor."""
     live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     it = iter(live)
     out = fn(tree_map(lambda _, p: next(it), params), inputs)
     pel = out[0] if isinstance(out, tuple) else out
-    grads = iter(torch.autograd.grad(pel.mean(), live))
-    return _detached(out), tree_map(lambda _, p: next(grads), params)
+    used = [p for p in live if p.numel()]
+    grads = iter(torch.autograd.grad(pel.mean(), used))
+    return _detached(out), tree_map(
+        lambda _, p: next(grads) if p.numel() else torch.zeros_like(p),
+        params)
 
 
 def make_train_step(

@@ -6,8 +6,10 @@
 The same flags and printed lines as ``repro.launch.serve``, plus
 ``--device`` (default ``cuda``) and ``--layers`` (cut the depth, keeping
 the widths). The dense family (llama3-8b, deepseek-7b, qwen3-14b,
-granite-34b) serves through the paged (``--page-size`` > 0) or the dense
-cache; mixtral-8x22b, mamba2-370m and zamba2-2.7b through the dense cache
+granite-34b) and the prefix-embedding families (pixtral-12b, musicgen-medium;
+served without a prefix, as the JAX CLI serves them) go through the paged
+(``--page-size`` > 0) or the dense cache; mixtral-8x22b, deepseek-v2-236b
+(MLA's latent cache), mamba2-370m and zamba2-2.7b through the dense cache
 only, each prompt prefilled at its exact length (a pad would take MoE
 capacity from real tokens, or enter a recurrent state or rolling window). Requests come from the
 deterministic ``SyntheticLMStream`` with the trainer's instance ids, and

@@ -4,7 +4,9 @@
         --smoke --device cpu --steps 20 --method obftf --ratio 0.25
 
 The single-device path of ``repro.launch.train`` with its flags, printed
-lines and ``--json-out`` names, for the dense and moe families (the moe
+lines and ``--json-out`` names, for the dense, vlm, audio and moe families
+(the vlm and audio archs train on tokens alone, as the JAX CLI feeds no
+``prefix_embed``; the moe
 family's per-example losses carry ``router_aux_coef`` times the router's
 load-balancing loss, in the step and in the ledger, as in the JAX package):
   * batches from ``SyntheticLMStream``, or through ``RecycleFeed`` under
@@ -24,9 +26,9 @@ Added: ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
 versions) and ``--layers`` (cut the depth, keeping the widths). On the
 card every step after the first runs with host syncs made errors, and the
 summary counts those steps in ``guarded_steps``; the metrics are fetched
-once, after the step. For the moe family the summary also gives
-``moe_dropped_share``, the share of routing choices that expert capacity
-dropped over the run. Not ported: ``--ledger-route``, ``--ledger-exchange``,
+once, after the step. The summary's ``moe_dropped_share`` is the share of
+routing choices that expert capacity dropped over the run (null where no
+MoE layer routed any). Not ported: ``--ledger-route``, ``--ledger-exchange``,
 ``--capacity-factor`` and ``--model-parallel`` (they need a mesh),
 ``--metrics-out``, ``--trace-out`` and ``--metrics-every`` (telemetry).
 """
@@ -368,8 +370,9 @@ def main(argv=None) -> int:
         "ledger": args.ledger,
         "exchange": "none",  # no routed exchange on one device
         "capacity_factor": None,
-        # of every MoE forward in the run, selection forwards included
-        "moe_dropped_share": moe.dropped_share() if cfg.uses_moe else None,
+        # of every MoE forward in the run, selection forwards included;
+        # None where nothing was routed (no MoE layer)
+        "moe_dropped_share": moe.dropped_share(),
         "a2a_overflow": 0,
         "stragglers": watchdog.flagged,
         "ledger_hits_first": hits_log[0] if hits_log else None,

@@ -1,7 +1,7 @@
 """Model configuration: a copy of ``repro.models.config.ModelConfig``.
 
-The port runs the dense family so far; the other families' fields are kept
-so that one configuration describes a model in both packages.
+The port runs every family, so one configuration describes a model in both
+packages.
 
 One decoder-LM family with feature flags: GQA/MQA, MLA, qk-norm, sliding-
 window attention, MoE (top-k routing, shared experts, first-k-dense),

@@ -13,8 +13,11 @@ new arrays and donates the old ones), then attends through
 pool). The dense cache holds bf16 or int8 K/V (per-(position, head) f32
 scales) and, with a sliding window, a rolling layout of ``window`` slots.
 Attention takes any group size, MHA (deepseek-7b) to MQA (granite-34b),
-with or without qk-norm (qwen3-14b); the FFN is SwiGLU or the GELU MLP
-(granite-34b). MLA is not ported yet and raises ``NotImplementedError``.
+with or without qk-norm (qwen3-14b), or is DeepSeek-V2's multi-head latent
+attention (MLA: a compressed latent cache ``ckv [B, T, R]`` and ``kpe
+[B, T, pe]``, decoded with absorbed weights in plain einsums, as the JAX
+package computes it; no kernel); the FFN is SwiGLU or the GELU MLP
+(granite-34b).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ _MASK_VALUE = -1e30
 def _require_plain_gqa(cfg: ModelConfig) -> None:
     if cfg.attn_impl != "gqa":
         raise NotImplementedError(
-            f"attention {cfg.attn_impl!r} is not ported (only GQA is)")
+            f"attention {cfg.attn_impl!r}: the GQA cache does not hold it")
 
 
 # ---------------------------------------------------------------------------
@@ -142,11 +145,13 @@ def _gqa_blocked(
     block: int = 1024,
 ) -> torch.Tensor:
     """Causal attention blocked over queries and keys with an online
-    softmax, so no [S, S] score matrix is built: the long-prompt path."""
+    softmax, so no [S, S] score matrix is built: the long-prompt path.
+    q/k [.., D], v [.., Dv] (MLA's V is narrower than its q/k); the scale
+    is D^-0.5."""
     b, s, hq, d = q.shape
-    hkv = k.shape[2]
+    hkv, dv = k.shape[2], v.shape[-1]
     g = hq // hkv
-    out = torch.empty_like(q)
+    out = q.new_empty((b, s, hq, dv))
     scale = d**-0.5
     for q0 in range(0, s, block):
         qi = q[:, q0:q0 + block].reshape(b, -1, hkv, g, d).to(F32)
@@ -154,7 +159,7 @@ def _gqa_blocked(
         m = torch.full((b, hkv, g, qi.shape[1]), _MASK_VALUE, dtype=F32,
                        device=q.device)
         l_ = torch.zeros_like(m)
-        acc = torch.zeros((b, hkv, g, qi.shape[1], d), dtype=F32,
+        acc = torch.zeros((b, hkv, g, qi.shape[1], dv), dtype=F32,
                           device=q.device)
         for k0 in range(0, s, block):
             kj = k[:, k0:k0 + block].to(F32)
@@ -174,7 +179,8 @@ def _gqa_blocked(
             ).to(F32)
             m = m_new
         o = (acc / l_.clamp(min=1e-30)[..., None]).to(q.dtype)
-        out[:, q0:q0 + block] = o.permute(0, 3, 1, 2, 4).reshape(b, -1, hq, d)
+        out[:, q0:q0 + block] = o.permute(0, 3, 1, 2, 4).reshape(b, -1, hq,
+                                                                 dv)
     return out
 
 
@@ -353,6 +359,151 @@ def gqa_paged_decode(
     put_rows(vp.view(-1, *vp.shape[2:]), flat, v[:, 0], keep)
     o = kops.paged_decode_attn(q[:, 0], kp, vp, page_table, pos)
     return _out_proj(o[:, None].to(x.dtype), p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    d, h = cfg.d_model, cfg.num_heads
+    r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+    nope, pe, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    s = d**-0.5
+    return {
+        "wq_a": ParamSpec((d, qr), scale=s),
+        "q_norm": rmsnorm_spec(qr),
+        "wq_b": ParamSpec((qr, h, nope + pe), scale=qr**-0.5),
+        "wkv_a": ParamSpec((d, r + pe), scale=s),
+        "kv_norm": rmsnorm_spec(r),
+        "wkv_b": ParamSpec((r, h, nope + vd), scale=r**-0.5),
+        "wo": ParamSpec((h, vd, d), scale=(h * vd) ** -0.5),
+    }
+
+
+def _mla_q(x: torch.Tensor, p: dict, cfg: ModelConfig,
+           positions: torch.Tensor):
+    """-> (q_nope [B,S,H,nope], roped q_pe [B,S,H,pe])."""
+    nope = cfg.qk_nope_head_dim
+    cq = rmsnorm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = _proj_heads(cq, p["wq_b"])
+    return q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def _mla_kv_latent(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                   positions: torch.Tensor):
+    """-> (normed latent ckv [B,S,R], roped k_pe [B,S,pe], shared by every
+    head): what the cache holds."""
+    r = cfg.kv_lora_rank
+    kv_a = x @ p["wkv_a"].to(x.dtype)
+    ckv = rmsnorm(kv_a[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_pe = rope(kv_a[..., None, r:], positions, cfg.rope_theta)[..., 0, :]
+    return ckv, k_pe
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+
+
+def mla_attend(
+    x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.Tensor
+) -> torch.Tensor:
+    """Full-sequence MLA (train/prefill): the latent expanded into K/V by
+    ``wkv_b``, whose last dim splits into the K half (nope) and the V half.
+    From ``blocked_attn_min`` tokens the nope and rope halves join into one
+    q/k dim (k_pe broadcast over the heads) for ``_gqa_blocked``, whose
+    D^-0.5 is MLA's scale. Scores in f32, the softmax weights rounded to
+    the compute dtype before the value product, as in the JAX package."""
+    dt = x.dtype
+    nope = cfg.qk_nope_head_dim
+    q_nope, q_pe = _mla_q(x, p, cfg, positions)
+    ckv, k_pe = _mla_kv_latent(x, p, cfg, positions)
+    kv = _proj_heads(ckv, p["wkv_b"])
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    if x.shape[1] >= cfg.blocked_attn_min:
+        qcat = torch.cat([q_nope, q_pe], dim=-1)
+        kcat = torch.cat(
+            [k_nope, k_pe[:, :, None].expand(-1, -1, cfg.num_heads, -1)],
+            dim=-1)
+        out = _gqa_blocked(qcat, kcat, v, positions, None)
+    else:
+        scores = (torch.einsum("bshk,bthk->bhst", q_nope.to(F32),
+                               k_nope.to(F32))
+                  + torch.einsum("bshk,btk->bhst", q_pe.to(F32),
+                                 k_pe.to(F32))) * _mla_scale(cfg)
+        keep = causal_mask(positions, positions)
+        scores = torch.where(keep, scores, _MASK_VALUE)
+        w = torch.softmax(scores, dim=-1).to(dt)
+        out = torch.einsum("bhst,bthv->bshv", w, v)
+    return _out_proj(out, p["wo"])
+
+
+def mla_init_cache(
+    cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype,
+    device: torch.device | str,
+) -> dict:
+    """One layer's latent cache: ``ckv`` [B, T, R] and ``kpe`` [B, T, pe],
+    R + pe values a token (576 for deepseek-v2-236b) for every head."""
+    return {
+        "ckv": torch.zeros((batch, max_seq, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "kpe": torch.zeros((batch, max_seq, cfg.qk_rope_head_dim),
+                           dtype=dtype, device=device),
+    }
+
+
+def mla_fill_cache(
+    x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.Tensor,
+    max_seq: int,
+) -> tuple[torch.Tensor, dict]:
+    """Prefill: (output, the latent cache padded to ``max_seq``)."""
+    out = mla_attend(x, p, cfg, positions)
+    ckv, k_pe = _mla_kv_latent(x, p, cfg, positions)
+    pad = (0, 0, 0, max_seq - x.shape[1])
+    return out, {"ckv": F.pad(ckv, pad), "kpe": F.pad(k_pe, pad)}
+
+
+def mla_decode(
+    x: torch.Tensor, p: dict, cfg: ModelConfig, cache: dict,
+    pos: torch.Tensor, max_seq: int,
+) -> tuple[torch.Tensor, dict]:
+    """Absorbed-weight decode in the latent space, the cache written in
+    place. x [B,1,D]; pos a scalar or a [B] vector (each row ropes its
+    token and masks its cache at its own depth).
+
+    wkv_b's K half is absorbed into q (q_lat [B,1,H,R]) and its V half
+    applied after the weighted latent sum, so nothing of size [T, H, hd] is
+    built. Scores in f32 over the cache's ``max_seq`` slots, softmax
+    weights rounded to the compute dtype before the latent sum, as the JAX
+    ``mla_decode`` rounds them."""
+    dt = x.dtype
+    nope = cfg.qk_nope_head_dim
+    b = x.shape[0]
+    per_slot = pos.dim() == 1 and pos.shape[0] == b
+    rope_pos = pos[:, None] if per_slot else pos.reshape(1)
+    q_nope, q_pe = _mla_q(x, p, cfg, rope_pos)
+    ckv_new, kpe_new = _mla_kv_latent(x, p, cfg, rope_pos)
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    if per_slot:
+        bidx = torch.arange(b, device=x.device)
+        ckv[bidx, pos.long()] = ckv_new[:, 0]
+        kpe[bidx, pos.long()] = kpe_new[:, 0]
+    else:
+        ckv.index_copy_(1, pos.long().reshape(1), ckv_new)
+        kpe.index_copy_(1, pos.long().reshape(1), kpe_new)
+    wkv = p["wkv_b"].to(dt)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wkv[..., :nope])
+    scores = (torch.einsum("bshr,btr->bhst", q_lat.to(F32), ckv.to(F32))
+              + torch.einsum("bshk,btk->bhst", q_pe.to(F32), kpe.to(F32))
+              ) * _mla_scale(cfg)
+    posq = pos.long()[:, None] if per_slot else pos.long().reshape(1, 1)
+    valid = torch.arange(max_seq, device=x.device)[None] <= posq  # [B|1, T]
+    scores = torch.where(valid[:, None, None], scores, _MASK_VALUE)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    ctx = torch.einsum("bhst,btr->bshr", w, ckv)
+    out = torch.einsum("bshr,rhv->bshv", ctx, wkv[..., nope:])
+    return _out_proj(out, p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,12 @@
-"""Decoder-LM assembly for the dense, moe, ssm and hybrid families.
+"""Decoder-LM assembly for every family of the JAX package.
 
 The PyTorch counterpart of ``repro.models.model``:
 
-* dense:  [norm -> GQA attention -> +res] [norm -> SwiGLU or GELU MLP ->
-  +res] per layer (any group size, MHA to MQA; qk-norm optional);
+* dense / vlm / audio: [norm -> attention (GQA, or MLA) -> +res] [norm ->
+  SwiGLU or GELU MLP -> +res] per layer (any group size, MHA to MQA;
+  qk-norm optional); vlm and audio prepend a precomputed ``prefix``
+  [B, P, D] of frame or patch embeddings (their frontends are stubs, as in
+  the JAX package) and take the loss over the token positions only;
 * moe:    the same with the MoE FFN (``models.moe``), after
   ``first_k_dense`` leading dense layers (``dense_blocks``) where set;
 * ssm:    [norm -> Mamba2/SSD -> +res] per layer (mamba2-370m);
@@ -17,11 +20,11 @@ and run by Python loops over those dims.
 Entry points: ``forward_hidden`` (full sequence, with the MoE aux loss
 summed over the layers), ``per_example_loss`` / ``loss_fn`` (the OBFTF
 loss signal, per-token CE through the cross-entropy kernel, plus
-``router_aux_coef`` times the aux loss for MoE; dense and moe only),
-``per_example_signals`` (CE, entropy and margin), ``prefill`` (full
-sequence, builds the decode cache) and ``decode_step`` (one token per row
-against the dense or the paged cache). Other families raise
-``NotImplementedError`` naming themselves.
+``router_aux_coef`` times the aux loss for MoE; not the ssm and hybrid
+families, which raise ``NotImplementedError``), ``per_example_signals``
+(CE, entropy and margin), ``prefill`` (full sequence, builds the decode
+cache) and ``decode_step`` (one token per row against the dense or the
+paged cache).
 """
 
 from __future__ import annotations
@@ -40,8 +43,12 @@ from repro_torch.models.params import ParamSpec, tree_map
 
 # families each entry point runs; training the ssm and hybrid families
 # (a gradient for the SSD scan) is not ported yet
-SERVING_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-TRAINING_FAMILIES = ("dense", "moe")
+SERVING_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
+TRAINING_FAMILIES = ("dense", "vlm", "audio", "moe")
+# the families built of attention blocks alone, and those whose attention
+# cache may be paged
+ATTN_FAMILIES = ("dense", "vlm", "audio", "moe")
+PAGED_FAMILIES = ("dense", "vlm", "audio")
 
 
 def _require(cfg: ModelConfig, families: tuple[str, ...], what: str) -> None:
@@ -72,7 +79,8 @@ def _attn_block_specs(cfg: ModelConfig, ffn: str = "dense") -> dict:
     d = cfg.d_model
     spec = {
         "attn_norm": L.rmsnorm_spec(d),
-        "attn": L.gqa_specs(cfg),
+        "attn": (L.mla_specs(cfg) if cfg.attn_impl == "mla"
+                 else L.gqa_specs(cfg)),
         "ffn_norm": L.rmsnorm_spec(d),
     }
     if ffn == "moe":
@@ -84,9 +92,11 @@ def _attn_block_specs(cfg: ModelConfig, ffn: str = "dense") -> dict:
 
 def _attn_stacks(cfg: ModelConfig) -> tuple[tuple[str, int], ...]:
     """(key, depth) of each stack of attention blocks, in layer order: the
-    dense family's ``blocks``; the moe family's ``first_k_dense`` leading
-    dense layers (``dense_blocks``) where set, then its MoE ``blocks``."""
-    if cfg.family == "dense":
+    dense, vlm and audio families' ``blocks``; the moe family's
+    ``first_k_dense`` leading dense layers (``dense_blocks``) where set,
+    then its MoE ``blocks`` (of depth 0 where the depth is cut to
+    ``first_k_dense``, as the JAX package scans an empty stack)."""
+    if cfg.family != "moe":
         return (("blocks", cfg.num_layers),)
     lead = (("dense_blocks", cfg.first_k_dense),) if cfg.first_k_dense else ()
     return lead + (("blocks", cfg.num_layers - cfg.first_k_dense),)
@@ -105,7 +115,7 @@ def param_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((v, d), scale=d**-0.5)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
         for key, n in _attn_stacks(cfg):
             ffn = "moe" if key == "blocks" and cfg.family == "moe" else "dense"
             specs[key] = stack_specs(_attn_block_specs(cfg, ffn), n)
@@ -133,14 +143,19 @@ def layer(blocks: dict, i: int) -> dict:
 
 
 def embed_tokens(
-    params: dict, cfg: ModelConfig, tokens: torch.Tensor
+    params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+    prefix: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Row gather by ``index_select``, whose gradient is an ``index_add_``
     that reads nothing back to the host (an advanced-index gather's
-    backward may, on CUDA)."""
+    backward may, on CUDA); a ``prefix`` [B, P, D] goes in front, cast to
+    the compute dtype."""
     w = params["embed"].to(dtype_of(cfg.compute_dtype))
-    return w.index_select(0, tokens.reshape(-1).long()).reshape(
+    x = w.index_select(0, tokens.reshape(-1).long()).reshape(
         *tokens.shape, w.shape[1])
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    return x
 
 
 def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -149,34 +164,46 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn(h, p, cfg):
-    """The block's FFN -> (output, MoE aux loss, or None for a dense
-    FFN)."""
+    """The block's FFN -> (output, MoE aux loss, MoE routing count
+    ``(choices, kept)``), the last two None for a dense FFN. Nothing is
+    counted here."""
     if "moe" in p:
-        return MoE.moe_ffn(h, p["moe"], cfg)
-    return L.mlp(h, p["mlp"]), None
+        return MoE.moe_ffn_routed(h, p["moe"], cfg)
+    return L.mlp(h, p["mlp"]), None, None
+
+
+def _attend(h, p, cfg, positions):
+    if cfg.attn_impl == "mla":
+        return L.mla_attend(h, p, cfg, positions)
+    return L.gqa_attend(h, p, cfg, positions)
 
 
 def _block(x, p, cfg, positions):
     h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    x = x + L.gqa_attend(h, p["attn"], cfg, positions)
-    out, aux = _ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p, cfg)
-    return x + out, aux
+    x = x + _attend(h, p["attn"], cfg, positions)
+    out, aux, routed = _ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p,
+                            cfg)
+    return x + out, aux, routed
 
 
 def forward_hidden(
-    params: dict, cfg: ModelConfig, tokens: torch.Tensor
+    params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+    prefix: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B,S] -> (final-normed hidden states [B,S,D], MoE aux loss
-    summed over the MoE layers: an f32 scalar, 0 for the dense family).
+    """tokens [B,S] (after a ``prefix`` [B,P,D] where given) ->
+    (final-normed hidden states [B,P+S,D], MoE aux loss summed over the
+    MoE layers: an f32 scalar, 0 without MoE layers).
 
     With ``cfg.remat`` and autograd recording, each layer runs under
     ``torch.utils.checkpoint``, as the JAX scan wraps its body in
     ``jax.checkpoint``: only layer inputs are kept for the backward, and
     the layer's aux loss comes out of the checkpoint with its output, so
-    it keeps its gradient. The model draws no random numbers, so no RNG
-    state is stashed."""
+    it keeps its gradient. So does the layer's routing count, which is
+    added to ``moe.ROUTED`` here: the backward's recompute of the layer
+    adds nothing. The model draws no random numbers, so no RNG state is
+    stashed."""
     _require(cfg, TRAINING_FAMILIES, "the full-sequence forward")
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, prefix)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -184,13 +211,14 @@ def forward_hidden(
         for i in range(n):
             p = layer(params[key], i)
             if remat:
-                x, a = checkpoint(_block, x, p, cfg, positions,
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
+                x, a, routed = checkpoint(_block, x, p, cfg, positions,
+                                          use_reentrant=False,
+                                          preserve_rng_state=False)
             else:
-                x, a = _block(x, p, cfg, positions)
+                x, a, routed = _block(x, p, cfg, positions)
             if a is not None:
                 aux = aux + a
+                MoE.count_routing(*routed)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -203,12 +231,24 @@ def per_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.where(labels >= 0, loss.reshape(labels.shape), 0.0)
 
 
+def _token_hidden(params, cfg, batch):
+    """``forward_hidden`` over the batch's prefix (``prefix_embed``, where
+    given) and tokens -> (the token positions' hidden states, aux)."""
+    prefix = batch.get("prefix_embed")
+    hidden, aux = forward_hidden(params, cfg, batch["tokens"], prefix)
+    if prefix is not None:
+        hidden = hidden[:, prefix.shape[1]:]
+    return hidden, aux
+
+
 def per_example_loss(
     params: dict, cfg: ModelConfig, batch: dict[str, torch.Tensor]
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (per-example mean CE [B] over the label positions, the MoE aux
-    loss). The OBFTF loss signal."""
-    hidden, aux = forward_hidden(params, cfg, batch["tokens"])
+    loss). The OBFTF loss signal. A batch's ``prefix_embed`` [B, P, D]
+    goes in front of the tokens, and the loss is over the token positions
+    only."""
+    hidden, aux = _token_hidden(params, cfg, batch)
     ce = per_token_loss(unembed(params, cfg, hidden), batch["labels"])
     denom = torch.clamp((batch["labels"] >= 0).sum(dim=-1), min=1)
     return ce.sum(dim=-1) / denom.to(torch.float32), aux
@@ -225,9 +265,9 @@ def per_example_signals(
     entropy ``lse - sum(softmax * logits)`` and the top-1 minus top-2
     logit margin, each a masked mean over the label positions in f32. The
     two signals come from detached logits: they are read, never
-    differentiated. ``aux`` is the MoE aux loss (0 for the dense
-    family)."""
-    hidden, aux = forward_hidden(params, cfg, batch["tokens"])
+    differentiated. ``aux`` is the MoE aux loss (0 without MoE layers);
+    a ``prefix_embed`` is read as ``per_example_loss`` reads it."""
+    hidden, aux = _token_hidden(params, cfg, batch)
     logits = unembed(params, cfg, hidden).to(torch.float32)
     labels = batch["labels"]
     ce = per_token_loss(logits, labels)
@@ -274,22 +314,30 @@ def _stack_over(n: int, one: dict) -> dict:
     return {k: v.new_zeros((n, *v.shape)) for k, v in one.items()}
 
 
+def _attn_init_cache(cfg, batch, max_seq, dtype, device) -> dict:
+    if cfg.attn_impl == "mla":
+        return L.mla_init_cache(cfg, batch, max_seq, dtype, device)
+    return L.gqa_init_cache(cfg, batch, max_seq, dtype, device)
+
+
 def init_cache(
     cfg: ModelConfig, batch: int, max_seq: int, device: torch.device | str
 ) -> dict:
     """Decode cache with a batch dim of ``batch`` rows.
 
-    dense: ``blocks`` K/V [L, B, T, kv, hd] (T = ``gqa_cache_len``; int8
-    K/V with f32 scales [L, B, T, kv]); moe: the same for its MoE
-    ``blocks`` and, with ``first_k_dense``, its ``dense_blocks``; ssm:
+    dense, vlm, audio: ``blocks`` K/V [L, B, T, kv, hd] (T =
+    ``gqa_cache_len``; int8 K/V with f32 scales [L, B, T, kv]), or with
+    MLA the latent ``ckv`` [L, B, T, R] and ``kpe`` [L, B, T, pe]; moe:
+    the same for its MoE ``blocks`` and, with ``first_k_dense``, its
+    ``dense_blocks``; ssm:
     ``blocks`` state [L, B, H, P, N] f32 and conv [L, B, K-1, C]; hybrid:
     ``blocks`` [groups, every, B, ...] and ``shared_attn`` K/V
     [groups, B, T, kv, hd], one cache per group though the groups share
     their attention weights."""
     _require(cfg, SERVING_FAMILIES, "the decode cache")
     dt = dtype_of(cfg.compute_dtype)
-    if cfg.family in ("dense", "moe"):
-        one = L.gqa_init_cache(cfg, batch, max_seq, dt, device)
+    if cfg.family in ATTN_FAMILIES:
+        one = _attn_init_cache(cfg, batch, max_seq, dt, device)
         return {key: _stack_over(n, one) for key, n in _attn_stacks(cfg)}
     ssm = S.ssm_init_cache(cfg, batch, dt, device)
     if cfg.family == "ssm":
@@ -308,13 +356,17 @@ def init_paged_cache(
 ) -> dict:
     """Global paged KV pool, stacked over layers: [L, P, page, kv, hd]. A
     physical page id addresses the same page in every layer, so one table
-    per row serves the whole stack. Only the dense family pages its cache:
-    recurrent state, the hybrid's shared block and MoE capacity keep the
-    dense layout, as in the JAX package."""
-    if cfg.family != "dense":
+    per row serves the whole stack. Only plain-GQA caches of the dense,
+    vlm and audio families are paged: recurrent state, the hybrid's shared
+    block, MoE capacity, latent (MLA) caches, rolling windows and int8 K/V
+    keep the dense layout, as in the JAX package."""
+    if cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(
             f"paged KV cache: family {cfg.family!r} has non-KV or "
             "capacity-coupled cache state")
+    if cfg.attn_impl == "mla":
+        raise NotImplementedError(
+            "paged KV cache requires plain GQA without a sliding window")
     dt = dtype_of(cfg.compute_dtype)
     one = L.gqa_paged_init_cache(cfg, num_pages, page_size, dt, device)
     return {"blocks": _stack_over(cfg.num_layers, one)}
@@ -326,9 +378,10 @@ def _stack_caches(caches: list[dict]) -> dict:
 
 def _attn_block_fill(x, p, cfg, positions, max_seq):
     h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    a, cache = L.gqa_fill_cache(h, p["attn"], cfg, positions, max_seq)
+    fill = L.mla_fill_cache if cfg.attn_impl == "mla" else L.gqa_fill_cache
+    a, cache = fill(h, p["attn"], cfg, positions, max_seq)
     x = x + a
-    out, _ = _ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p, cfg)
+    out, _, _ = _ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p, cfg)
     return x + out, cache
 
 
@@ -343,17 +396,20 @@ def prefill(
     cfg: ModelConfig,
     tokens: torch.Tensor,
     max_seq: int,
+    prefix: Optional[torch.Tensor] = None,
     last_pos: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward building the decode cache.
 
     Returns (logits [B,V] at the last position, or at ``last_pos[b]`` for
     right-padded prompts, and the cache in :func:`init_cache`'s layout).
+    A ``prefix`` [B,P,D] goes in front of the tokens and takes the cache's
+    first P positions; ``last_pos`` counts them.
     """
     _require(cfg, SERVING_FAMILIES, "prefill")
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, prefix)
     positions = torch.arange(x.shape[1], device=x.device)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
         cache = {}
         for key, n in _attn_stacks(cfg):
             caches = []
@@ -361,7 +417,9 @@ def prefill(
                 x, c = _attn_block_fill(x, layer(params[key], i), cfg,
                                         positions, max_seq)
                 caches.append(c)
-            cache[key] = _stack_caches(caches)
+            cache[key] = _stack_caches(caches) if n else _stack_over(
+                0, _attn_init_cache(cfg, x.shape[0], max_seq, x.dtype,
+                                    x.device))
     elif cfg.family == "ssm":
         caches = []
         for i in range(cfg.num_layers):
@@ -396,10 +454,12 @@ def _attn_block_decode(x, p, cfg, c, pos, page_table=None):
     h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     if page_table is not None:
         a, _ = L.gqa_paged_decode(h, p["attn"], cfg, c, page_table, pos)
+    elif cfg.attn_impl == "mla":
+        a, _ = L.mla_decode(h, p["attn"], cfg, c, pos, c["ckv"].shape[1])
     else:
         a, _ = L.gqa_decode(h, p["attn"], cfg, c, pos, c["k"].shape[1])
     x = x + a
-    out, _ = _ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p, cfg)
+    out, _, _ = _ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p, cfg)
     return x + out
 
 
@@ -425,16 +485,17 @@ def decode_step(
 
     ``pos`` is the number of tokens already cached: a scalar or a [B]
     vector (the SSM recurrence ignores it). ``page_table`` ([B, NP] i32,
-    -1 = unallocated) switches the dense family to the paged pool of
-    :func:`init_paged_cache`. The cache is updated in place and returned.
+    -1 = unallocated) switches the dense, vlm and audio families to the
+    paged pool of :func:`init_paged_cache`. The cache is updated in place
+    and returned.
     """
     _require(cfg, SERVING_FAMILIES, "decode")
-    if page_table is not None and cfg.family != "dense":
+    if page_table is not None and cfg.family not in PAGED_FAMILIES:
         raise NotImplementedError(
             f"paged decode: unsupported family {cfg.family!r}")
     x = embed_tokens(params, cfg, tokens)
     blocks = cache["blocks"]
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
         for key, n in _attn_stacks(cfg):
             for i in range(n):
                 x = _attn_block_decode(x, layer(params[key], i), cfg,

@@ -18,6 +18,8 @@ an order among equal values).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -26,9 +28,11 @@ from repro_torch.models.layers import mlp, mlp_specs
 from repro_torch.models.params import ParamSpec
 
 F32 = torch.float32
-# (token, choice) assignments that moe_ffn routed and that capacity kept,
-# summed since reset_routing_counts(); "kept" is a device tensor, so the
-# count syncs nothing. launch.train reports the dropped share.
+# (token, choice) assignments routed and kept by capacity, summed since
+# reset_routing_counts(); "kept" is a device tensor, so the count syncs
+# nothing. launch.train reports the dropped share. ``moe_ffn`` counts each
+# call; the model's full-sequence forward counts each layer once, outside
+# ``torch.utils.checkpoint``, so a remat recompute adds nothing.
 ROUTED: dict = {"choices": 0, "kept": 0}
 
 
@@ -105,17 +109,33 @@ def reset_routing_counts() -> None:
     ROUTED.update(choices=0, kept=0)
 
 
-def dropped_share() -> float:
+def count_routing(choices: int, kept: torch.Tensor) -> None:
+    ROUTED["choices"] += choices
+    ROUTED["kept"] = ROUTED["kept"] + kept
+
+
+def dropped_share() -> Optional[float]:
     """The share of the choices routed since the last reset that capacity
-    dropped (0 when none were routed); reads the device count."""
+    dropped (None when none were routed); reads the device count."""
     n = ROUTED["choices"]
-    return 1.0 - float(ROUTED["kept"]) / n if n else 0.0
+    return 1.0 - float(ROUTED["kept"]) / n if n else None
 
 
 def moe_ffn(
     x: torch.Tensor, p: dict, cfg: ModelConfig
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B,S,D] -> (out [B,S,D], aux loss, a scalar f32)."""
+    """x [B,S,D] -> (out [B,S,D], aux loss, a scalar f32); the routing is
+    counted in ``ROUTED``."""
+    out, aux, routed = moe_ffn_routed(x, p, cfg)
+    count_routing(*routed)
+    return out, aux
+
+
+def moe_ffn_routed(
+    x: torch.Tensor, p: dict, cfg: ModelConfig
+) -> tuple[torch.Tensor, torch.Tensor, tuple[int, torch.Tensor]]:
+    """``moe_ffn`` counting nothing: (out, aux, (choices routed, choices
+    kept as a device tensor)) for the caller to count."""
     dt = x.dtype
     bsz, seq, d = x.shape
     gs = cfg.moe_group
@@ -132,8 +152,7 @@ def moe_ffn(
                                      cfg.route_norm)
     disp, comb = _dispatch_combine(idx, gates, e, c)
     aux = load_balance_loss(probs, idx, e)
-    ROUTED["choices"] += idx.numel()
-    ROUTED["kept"] = ROUTED["kept"] + disp.sum()
+    routed = (idx.numel(), disp.sum())
 
     # dispatch -> expert FFN (batched over the expert axis) -> combine
     xe = torch.einsum("gsec,gsd->egcd", disp.to(dt), x).reshape(e, g * c, d)
@@ -145,7 +164,7 @@ def moe_ffn(
         out = out + mlp(x, p["shared"])
     if regroup:
         out = out.reshape(bsz, seq, d)
-    return out, aux
+    return out, aux, routed
 
 
 def routing_stats(logits: torch.Tensor, k: int) -> dict[str, torch.Tensor]:

@@ -1,7 +1,12 @@
-"""deepseek-7b (MHA), qwen3-14b (qk-norm, GQA) and granite-34b (MQA, the
-GELU MLP) in the port against the JAX package, on their smoke configs in
-float32 with the same weights (the port's seeded draw, carried to JAX as
-numpy and back by ``from_jax``).
+"""deepseek-7b (MHA), qwen3-14b (qk-norm, GQA), granite-34b (MQA, the
+GELU MLP) and the prefix-embedding families, pixtral-12b (vlm) and
+musicgen-medium (audio, MHA with heads of 16 in its smoke config), in the
+port against the JAX package, on their smoke configs in float32 with the
+same weights (the port's seeded draw, carried to JAX as numpy and back by
+``from_jax``). The prefix archs also run with a prefix of frame or patch
+embeddings (numpy draws): the forward, the loss over the token positions
+only, the signals, and prefill with ``last_pos`` counting the prefix, then
+decode, through the dense cache and a page pool.
 
 Tolerances are those of ``tests/test_torch_model.py`` and
 ``tests/test_torch_train.py`` for llama3-8b: logits atol 1e-4, per-example
@@ -46,23 +51,30 @@ torch.set_num_threads(1)
 jit = functools.partial(
     jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
-ARCHS = ["deepseek-7b", "qwen3-14b", "granite-34b"]
+ARCHS = ["deepseek-7b", "qwen3-14b", "granite-34b", "pixtral-12b",
+         "musicgen-medium"]
+PREFIX_ARCHS = ["pixtral-12b", "musicgen-medium"]
 ATOL = 1e-4
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 1e-6
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def arch(request):
+@functools.lru_cache(maxsize=None)
+def _arch(name):
     """(name, JAX config, port config, JAX weights, port weights)."""
-    jcfg = dataclasses.replace(jconfigs.get_smoke(request.param),
+    jcfg = dataclasses.replace(jconfigs.get_smoke(name),
                                param_dtype="float32", compute_dtype="float32")
     cfg = ModelConfig(**dataclasses.asdict(jcfg))
     # the port's seeded weights as a JAX tree (keys sorted, as
     # jax.tree.leaves orders them) and the port's tree of it
     jp = jax.tree.map(lambda x: x.numpy(), materialize(
         M.param_specs(cfg), 0, torch.float32, "cpu"))
-    return request.param, jcfg, cfg, jp, from_jax(jp, "cpu")
+    return name, jcfg, cfg, jp, from_jax(jp, "cpu")
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    return _arch(request.param)
 
 
 def _tokens(cfg, b, s, seed):
@@ -257,3 +269,106 @@ def test_train_cli_runs_each_arch(arch, ledger, tmp_path):
     s = json.loads(out.read_text())
     assert s["mean_step_cost"] == pytest.approx(0.75)
     assert np.isfinite([s["loss_first"], s["loss_last"]]).all()
+
+
+# ---------------------------------------------------------------------------
+# the prefix-embedding families with a prefix
+# ---------------------------------------------------------------------------
+
+
+def _prefix(cfg, b, seed):
+    return np.random.default_rng(seed).standard_normal(
+        (b, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", PREFIX_ARCHS)
+def test_forward_loss_and_signals_with_a_prefix_match_jax(name):
+    """``prefix_embed`` [B, P, D] in front of the tokens: hidden states at
+    every position, the per-example losses (token positions only) and
+    signals, each against the JAX package's."""
+    _, jcfg, cfg, jp, tp = _arch(name)
+    toks = _tokens(cfg, 2, 10, seed=11)
+    labels = _tokens(cfg, 2, 10, seed=12)
+    labels[0, -2:] = -1
+    pre = _prefix(cfg, 2, 13)
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+          "prefix_embed": jnp.asarray(pre)}
+    tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels),
+          "prefix_embed": torch.from_numpy(pre)}
+    (jh, _), jloss, (jce, jsig, _) = jit(lambda p, b: (
+        JM.forward_hidden(p, jcfg, b["tokens"], b["prefix_embed"]),
+        JM.loss_fn(jcfg)(p, b, None), JM.per_example_signals(p, jcfg, b)))(
+        jp, jb)
+    th, _ = M.forward_hidden(tp, cfg, tb["tokens"], tb["prefix_embed"])
+    assert th.shape == (2, cfg.prefix_len + 10, cfg.d_model)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL)
+    np.testing.assert_allclose(M.loss_fn(cfg)(tp, tb).numpy(),
+                               np.asarray(jloss), rtol=LOSS_RTOL)
+    tce, tsig, _ = M.per_example_signals(tp, cfg, tb)
+    np.testing.assert_allclose(tce.numpy(), np.asarray(jce), rtol=LOSS_RTOL)
+    for key in jsig:
+        np.testing.assert_allclose(tsig[key].numpy(), np.asarray(jsig[key]),
+                                   rtol=LOSS_RTOL, atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("name", PREFIX_ARCHS)
+def test_loss_is_over_the_token_positions_only(name):
+    """As the JAX package's ``test_vlm_loss_masks_prefix``: one loss per
+    example, 0 where every label is -1; and the loss is the token
+    positions' CE, read past the prefix, which moves it."""
+    _, _, cfg, _, tp = _arch(name)
+    toks = torch.from_numpy(_tokens(cfg, 2, 8, seed=14))
+    labels = torch.from_numpy(_tokens(cfg, 2, 8, seed=15))
+    pre = torch.from_numpy(_prefix(cfg, 2, 16))
+    batch = {"tokens": toks, "labels": labels, "prefix_embed": pre}
+    losses, _ = M.per_example_loss(tp, cfg, batch)
+    assert losses.shape == (2,)
+    masked, _ = M.per_example_loss(tp, cfg, dict(
+        batch, labels=torch.full_like(labels, -1)))
+    np.testing.assert_allclose(masked.numpy(), 0.0)
+    hidden, _ = M.forward_hidden(tp, cfg, toks, pre)
+    logits = M.unembed(tp, cfg, hidden[:, cfg.prefix_len:])
+    ce = F.cross_entropy(logits.transpose(1, 2), labels.long(),
+                         reduction="none").mean(-1)
+    np.testing.assert_allclose(losses.numpy(), ce.numpy(), rtol=1e-6)
+    plain, _ = M.per_example_loss(tp, cfg, {"tokens": toks, "labels": labels})
+    assert not torch.allclose(plain, losses)
+
+
+@pytest.mark.parametrize("name", PREFIX_ARCHS)
+def test_prefill_with_a_prefix_then_decode_match_jax(name):
+    """A prefix and right-padded prompts, ``last_pos`` counting the prefix
+    positions, then three decode steps at per-row depths through the dense
+    cache and through a shuffled page pool, each against the JAX steps."""
+    _, jcfg, cfg, jp, tp = _arch(name)
+    b, plen, page = 3, 6, 4
+    p_ = cfg.prefix_len
+    npg = (p_ + plen + 4) // page + 1
+    toks = _tokens(cfg, b, plen, seed=17)
+    pre = _prefix(cfg, b, 18)
+    last = p_ + np.asarray([5, 3, 1], np.int32)
+    jl, jc = jit(lambda p, t, x, lp: JM.prefill(
+        p, jcfg, t, npg * page, prefix=x, last_pos=lp))(
+        jp, jnp.asarray(toks), jnp.asarray(pre), jnp.asarray(last))
+    tl, tc = M.prefill(tp, cfg, torch.from_numpy(toks), npg * page,
+                       prefix=torch.from_numpy(pre),
+                       last_pos=torch.from_numpy(last))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    perm = np.random.default_rng(19).permutation(b * npg + 2)
+    jpool, table = _paged_from_dense(jc, b, npg, page, perm)
+    tpool = from_jax(jpool, "cpu")
+    jdec = jit(lambda p, c, t, pos: JM.decode_step(p, jcfg, c, t, pos))
+    pos = last + 1
+    nxt = np.array(jnp.argmax(jl, -1), np.int32)[:, None]
+    for step in range(3):
+        jl, jc = jdec(jp, jc, jnp.asarray(nxt), jnp.asarray(pos))
+        tl, tc = M.decode_step(tp, cfg, tc, torch.from_numpy(nxt),
+                               torch.from_numpy(pos))
+        tlp, tpool = M.decode_step(tp, cfg, tpool, torch.from_numpy(nxt),
+                                   torch.from_numpy(pos),
+                                   page_table=torch.from_numpy(table))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
+                                   err_msg=f"step {step}")
+        np.testing.assert_allclose(tlp.numpy(), tl.numpy(), atol=1e-5)
+        nxt = np.array(jnp.argmax(jl, -1), np.int32)[:, None]
+        pos = pos + 1

@@ -35,12 +35,14 @@ def cuda():
 # 4096 (past a block's threads: no bound, the cluster-wide select, survivors
 # sorted in shared memory); a vocabulary no multiple of a 16-byte load with
 # k = 64 and k = V (sorted in global scratch); a row shorter than a warp's
-# loads; the other archs' vocabularies at the serve shape (deepseek-7b,
-# qwen3-14b, granite-34b, mixtral-8x22b)
+# loads; the other archs' vocabularies at the serve shape (deepseek-7b and
+# deepseek-v2-236b, qwen3-14b, granite-34b, mixtral-8x22b, pixtral-12b,
+# musicgen-medium)
 TOPK_CASES = [(8, 128256, 64), (8, 128256, 1), (8, 128256, 65),
               (8, 128256, 256), (4, 128256, 4096), (3, 4097, 64),
               (3, 4097, 4097), (5, 97, 7), (8, 102400, 64), (8, 151936, 64),
-              (8, 49152, 64), (8, 32768, 64)]
+              (8, 49152, 64), (8, 32768, 64), (8, 131072, 64),
+              (8, 2048, 64)]
 
 
 def _topk_check(x, k):
@@ -84,9 +86,9 @@ def test_topk_lse_kernel_routes_match_plain(cuda, monkeypatch, dtype):
 # (Hq, Hkv, D): llama3-8b's heads, the JAX test's G = 16, granite-34b's
 # G = 48 (three head slices), D = 36 (rows of 144 bytes in f32, of 72 in
 # bf16, which take the scalar copy), deepseek-7b's G = 1 and qwen3-14b's
-# G = 5
+# G = 5; musicgen-medium's 24 kv heads of 64 (G = 1, D = 64)
 PAGED_HEADS = [(32, 8, 128), (16, 1, 64), (48, 1, 128), (8, 2, 36),
-               (32, 32, 128), (40, 8, 128)]
+               (32, 32, 128), (40, 8, 128), (24, 24, 64)]
 
 
 @pytest.mark.gpu
@@ -139,13 +141,16 @@ def test_paged_decode_attn_kernel_asserts_on_page_past_the_pool(cuda):
 # the training path's shapes (T = 1024 kept tokens, V = llama3's vocab) and
 # edge cases: a row length that is no multiple of 16 bytes (scalar loop),
 # tiny rows, -1 labels and a row of ±1e4 logits in every case; the kept
-# tokens at qwen3-14b's and granite-34b's vocabularies; mixtral-8x22b's
-# selection forward (T = 4096) and kept tokens (T = 1024)
+# tokens at qwen3-14b's and granite-34b's vocabularies; mixtral-8x22b's,
+# deepseek-v2-236b's and pixtral-12b's selection forward (T = 4096) and kept
+# tokens (T = 1024); musicgen-medium's kept tokens (recycled)
 XENT_CASES = [(1024, 128256, torch.bfloat16), (64, 128256, torch.float32),
               (7, 128257, torch.bfloat16), (5, 97, torch.float32),
               (3, 130, torch.bfloat16), (1024, 151936, torch.bfloat16),
               (1024, 49152, torch.bfloat16), (4096, 32768, torch.bfloat16),
-              (1024, 32768, torch.bfloat16)]
+              (1024, 32768, torch.bfloat16), (4096, 102400, torch.bfloat16),
+              (1024, 102400, torch.bfloat16), (4096, 131072, torch.bfloat16),
+              (1024, 131072, torch.bfloat16), (1024, 2048, torch.bfloat16)]
 
 
 def _xent_inputs(cuda, t, v, dtype):
@@ -351,11 +356,14 @@ def test_ledger_kernel_outputs_are_disjoint_views(cuda):
 # block: D = 80, G = 1), the JAX test's shapes (T no multiple of the tile or
 # of the span, G = 16), a granite-34b-like MQA group (G = 48, sliced over
 # three blocks), D = 256 with a group of 16 (the most shared memory a block
-# takes) and rows of mixed lengths in a 2048-slot cache (empty tiles skipped)
+# takes), rows of mixed lengths in a 2048-slot cache (empty tiles skipped)
+# and the prefix checks' dense caches: pixtral-12b's 1,024 patches + 128
+# tokens + 16 new ones, musicgen-medium's 64 frames + 128 + 16
 DECODE_CASES = [(8, 32, 8, 128, 160), (8, 32, 32, 80, 332),
                 (2, 8, 2, 64, 300), (3, 8, 1, 64, 700), (2, 4, 2, 32, 129),
                 (3, 16, 1, 64, 700), (8, 48, 1, 128, 512),
-                (2, 16, 1, 256, 300), (8, 32, 8, 128, 2048)]
+                (2, 16, 1, 256, 300), (8, 32, 8, 128, 2048),
+                (2, 32, 8, 128, 1168), (2, 24, 24, 64, 208)]
 # test_decode_attn_matches_ref's tolerances: f32 summation order only; bf16
 # inputs rounded once, weights kept in f32 by both versions
 DECODE_TOL = {torch.float32: 2e-6, torch.bfloat16: 3e-2}

@@ -156,15 +156,37 @@ def test_put_rows_drops_masked_items_exactly():
 @pytest.mark.parametrize("arch,names", [("pixtral-12b", "vlm family"),
                                         ("deepseek-v2-236b", "MLA")])
 def test_unported_archs_raise_naming_their_family(arch, names):
-    """pixtral-12b's family is not ported; deepseek-v2-236b's (moe) is,
-    and it names the MLA attention it still lacks."""
-    with pytest.raises(NotImplementedError, match=names):
-        configs.get(arch)
+    """Every arch of ``configs.ARCHS`` resolves through ``configs.get`` to
+    the JAX package's config, full and smoke. Among them the two that
+    raised until the port ran them: pixtral-12b (the vlm family) and
+    deepseek-v2-236b (MLA)."""
+    assert configs.ARCHS == jconfigs.ARCHS
+    for name in configs.ARCHS:
+        for smoke in (False, True):
+            got = configs.get(name, smoke=smoke)
+            want = (jconfigs.get_smoke if smoke else jconfigs.get)(name)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+    field, value = {"vlm family": ("family", "vlm"),
+                    "MLA": ("attn_impl", "mla")}[names]
+    assert getattr(configs.get(arch), field) == value
 
 
 def test_unported_layer_options_raise():
-    """MLA is not ported (int8 KV caches and sliding windows are:
-    ``tests/test_torch_decode.py``; the GELU MLP is:
-    ``tests/test_torch_archs.py``)."""
-    with pytest.raises(NotImplementedError):
-        M.init_cache(dataclasses.replace(CFG, attn_impl="mla"), 1, 8, "cpu")
+    """The paged cache refuses an MLA config, as the JAX
+    ``init_paged_cache`` does (a latent cache keeps the dense layout; int8
+    K/V and sliding windows: ``tests/test_torch_decode.py``)."""
+    cfg = dataclasses.replace(CFG, attn_impl="mla", kv_lora_rank=16,
+                              v_head_dim=16, qk_rope_head_dim=8,
+                              qk_nope_head_dim=16, q_lora_rank=32)
+    jcfg = dataclasses.replace(JCFG, **{k: getattr(cfg, k) for k in (
+        "attn_impl", "kv_lora_rank", "v_head_dim", "qk_rope_head_dim",
+        "qk_nope_head_dim", "q_lora_rank")})
+    with pytest.raises(NotImplementedError) as want:
+        JM.init_paged_cache(jcfg, 8, 4)
+    with pytest.raises(NotImplementedError) as got:
+        M.init_paged_cache(cfg, 8, 4, "cpu")
+    assert str(got.value) == str(want.value)
+    M.init_cache(cfg, 1, 8, "cpu")  # the dense latent cache
+    deepseek = configs.get_smoke("deepseek-v2-236b")
+    with pytest.raises(NotImplementedError, match="family 'moe'"):
+        M.init_paged_cache(deepseek, 8, 4, "cpu")
