@@ -35,7 +35,11 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    mamba2's 300-token prefills, a long case, one chunk, an exact multiple
    of the chunk, N = 256 in bf16 and in f32, the JAX test's odd shapes in
    f32, against the chunked scan and the sequential oracle; each grid's
-   device time);
+   device time), and the scan's backward (``ssd_bwd``: mamba2-370m's
+   train shape, 8 kept rows of 512, in bf16 and f32, zamba2-2.7b's heads,
+   G = 2, a short last chunk, S < L and a final-state cotangent, against
+   its plain version and autograd through the chunked scan; two calls
+   equal bits; each of its four grids' device time);
 4. serve — ``repro_torch.launch.serve.main`` at the full width of
    llama3-8b (32 layers, bf16, random weights from a seed): 8 slots, 16
    requests, prompt 128, 32 new tokens, paged KV (16-token pages), top-k
@@ -50,7 +54,9 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    card (kernels) and once on the CPU (plain versions): equal tokens and
    ledgers agreeing to 1e-5; then two OBFTF train steps of the smoke config
    in float32 on the card and on the CPU, with the same selection draws:
-   equal selected rows, losses and ledger tables within 1e-5;
+   equal selected rows, losses and ledger tables within 1e-5, and one
+   step's parameter gradients within ``REF_GRAD_ATOL`` · max +
+   ``REF_GRAD_RTOL`` · |cpu| leaf by leaf;
 6a. the slice's serving paths, each through ``launch.serve.main`` at full
    width and depth, dense cache, top-k retention, device ledger, greedy, 8
    slots and 16 requests: zamba2-2.7b (54 layers, prompts of 300, 32 new
@@ -62,7 +68,11 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    every id. Then a profile of zamba2's decode step, its 300-token prefill
    timed and profiled, and the mamba2 and zamba2 smoke configs in float32
    on the card and on the CPU: equal greedy tokens, logits within 1e-4,
-   and zamba2's engine with equal tokens and ledgers;
+   and zamba2's engine with equal tokens and ledgers; then mamba2-370m's
+   smoke config trained two steps in f32 on the card (xent, ledger, ssd
+   and ssd_bwd kernels) and on the CPU: equal kept rows, losses,
+   priorities and ledgers within 1e-5, one step's grads within
+   ``REF_GRAD_*`` (the llama3-8b reference of phase 6 checks them too);
 7. xent and ledger — the training path's kernels against their plain
    versions at its shapes (cross-entropy at T = 4096 and 1024 rows of the
    128256-token vocabulary in bf16, with -1 labels, a row of ±1e4 logits
@@ -100,7 +110,13 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    to the deepest that fits (``ARCH_TRAIN``; musicgen-medium at full
    depth): qwen3-14b and pixtral-12b as run (a), granite-34b and
    musicgen-medium as run (b), each with finite losses, its step cost and
-   its kernels launched;
+   its kernels launched; mamba2-370m at full depth (48 layers, the ssm
+   family) on rows of 512 tokens (four chunks of its scan) as runs (a)
+   and (b), with ``ssd_bwd`` launched 48 times a step and ``ssd`` as often
+   as ``ssd_launches_per_step`` derives from the code (144 a step in (a):
+   the selection forward, the kept rows' forward and the remat recompute;
+   96 in (b)); then a profile of its steady step (device time of ``ssd``
+   and ``ssd_bwd`` a step among the kinds of kernel);
 10a. mixtral-8x22b (moe: 8 experts, top-2, a 4,096-token window) at full
    width cut to 12 of 56 layers, dense cache: 8 slots and 16 requests of
    128-token prompts, 32 new tokens; then 4 requests of 4,160-token
@@ -184,9 +200,25 @@ DECODE_BF16_REL = 2e-2
 # the f32 sums cancel; the state is f32 in every case
 SSD_ATOL, SSD_RTOL = 3e-4, 1e-3
 SSD_BF16_RTOL, SSD_BF16_ATOL = 2**-7, 1e-3
+# ssd_bwd against its plain version and against autograd through the
+# chunked scan, entry by entry: |kernel - plain| <= SSD_BWD_ATOL *
+# max|plain| + rtol * |plain|. Every version computes in f32 and sums in
+# its own order; each gradient entry sums up to L (P + N) products, and the
+# decays e^{cum_i - cum_j} of two large, close cums carry their rounding
+# (cum reaches a few hundred over a chunk), hence the absolute part, scaled
+# by the output's largest entry, and rtol 1e-3 (SSD_RTOL); ddt and da are
+# f32 in every case. A bf16 dx, dB or dC is rounded once from f32 in each
+# version, so it may also differ by one bf16 unit in the last place (2^-7)
+SSD_BWD_ATOL, SSD_BWD_RTOL, SSD_BWD_BF16_RTOL = 2e-4, 1e-3, 2**-7
 REF_LOGIT_TOL = 1e-4  # card vs CPU logits of the ssm/hybrid smoke configs
 LEDGER_RTOL = 1e-6  # ema / priority; the integer tables must be equal
 REF_TRAIN_RTOL = 1e-5  # card vs CPU train steps in f32
+# one step's parameter gradients, card vs CPU in f32, leaf by leaf:
+# |card - cpu| <= REF_GRAD_ATOL * max|cpu| + REF_GRAD_RTOL * |cpu|. Every
+# kernel on the path (xent, ssd, ssd_bwd) sums in its own order, and the
+# backward adds those differences up over the layers; a scan whose
+# gradient went missing leaves its parameters' grads off by all of them
+REF_GRAD_ATOL, REF_GRAD_RTOL = 1e-4, 1e-3
 # the ledger's signal channels, card vs CPU, besides rtol 1e-5: the margin
 # is the difference of the two largest f32 logits, so a logit's last-bit
 # difference (5e-7 at 4) is a large relative one where the two are close;
@@ -1043,6 +1075,153 @@ def ssd_phase(torch, ops, ref) -> dict:
     )
 
 
+def ssd_bwd_inputs(torch, g, bsz, s, h, p, gr, n, dtype, fin):
+    """ssd_inputs, a cotangent dy of y and, with ``fin``, one of the final
+    state, on the card."""
+    x, dt, a, b, c = ssd_inputs(torch, g, bsz, s, h, p, gr, n, dtype)
+    dy = torch.randn(x.shape, device="cuda", generator=g).to(dtype)
+    df = (torch.randn((bsz, h, p, n), device="cuda", generator=g) if fin
+          else None)
+    return x, dt, a, b, c, dy, df
+
+
+def ssd_bwd_check(torch, ops, case, chunk) -> tuple[float, tuple]:
+    """The backward kernel against its plain version (``ssd_bwd_ref``) and
+    against torch autograd through the plain chunked scan, on the states
+    the forward kernel kept -> (max abs err against the plain version,
+    (largest share of the tolerance an entry used, where))."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    x, dt, a, b, c, dy, df = case
+    _, _, states = ops._ssd_forward(x, dt, a, b, c, chunk, "cuda", True)
+    got = ops.ssd_bwd(x, dt, a, b, c, states, dy, df, chunk, impl="cuda")
+    plain = ops.ssd_bwd(x, dt, a, b, c, states, dy, df, chunk, impl="ref")
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, dt, a, b, c)]
+    y, final = ssd_chunked(*leaves, chunk=chunk)
+    outs, cots = ([y, final], [dy, df]) if df is not None else ([y], [dy])
+    auto = torch.autograd.grad(outs, leaves, cots)
+    what = f"ssd_bwd {tuple(x.shape)} N={b.shape[3]} G={b.shape[2]} {x.dtype}"
+    err, used = 0.0, (0.0, "")
+    for name, k, w, v in zip(("dx", "ddt", "da", "dB", "dC"), got, plain,
+                             auto):
+        if k.dtype != w.dtype or k.shape != w.shape:
+            raise AssertionError(f"{what} {name}: {k.dtype} {tuple(k.shape)}"
+                                 f" for {w.dtype} {tuple(w.shape)}")
+        rtol = (SSD_BWD_BF16_RTOL if k.dtype == torch.bfloat16
+                else SSD_BWD_RTOL)
+        for want, against in ((w, "plain"), (v, "autograd")):
+            atol = SSD_BWD_ATOL * want.float().abs().max().item()
+            e, u = _close(torch, k, want, atol, rtol,
+                          f"{what} {name} vs {against}")
+            used = max(used, (u, f"{name} vs {against}"))
+            if against == "plain":
+                err = max(err, e)
+    return err, used
+
+
+def ssd_bwd_flops(bsz, s, h, p, n, chunk) -> float:
+    """Operations of the scan's gradient by its formulas (``ssd_bwd_ref``):
+    per head and chunk of Lc steps, C . B^T, q = dy . x^T, M^T dy, W B and
+    W^T C on and below the diagonal (3 n + 2 p) Lc (Lc + 1), and the five
+    [Lc, P] x [P, N]-sized products (the chunk's dy C^T, dS' B_j, S C_i,
+    S^T dy_i, dS'^T x_j) 10 Lc p n."""
+    total = 0.0
+    for c0 in range(0, s, chunk):
+        lc = min(chunk, s - c0)
+        total += (3 * n + 2 * p) * lc * (lc + 1) + 10 * lc * p * n
+    return bsz * h * total
+
+
+def ssd_bwd_bounds(bsz, s, h, p, gr, n, dtype, chunk=128) -> dict:
+    """Least times of one call: the bytes (x, dy, B, C, dt, a and the
+    kept states read once; dx, ddt, da, dB, dC written once) at 3.35 TB/s
+    against the operations at the inputs' peak rate ("type": bf16 on the
+    tensor cores, f32 on the CUDA cores), and at the CUDA cores' f32 rate,
+    the units the kernel uses ("f32")."""
+    isz = dtype.itemsize
+    nc = -(-s // chunk)
+    moved = (3 * bsz * s * h * p * isz + 4 * bsz * s * gr * n * isz
+             + 2 * bsz * s * h * 4 + 2 * h * 4 + bsz * h * nc * p * n * 4)
+    ops_ = ssd_bwd_flops(bsz, s, h, p, n, chunk)
+    return {"type": bound(moved, ops_, "bf16" if isz == 2 else "f32"),
+            "f32": bound(moved, ops_, "f32"), "bytes": moved,
+            "flops": ops_}
+
+
+def ssd_bwd_phase(torch, ops) -> dict:
+    """The scan's backward kernel at mamba2-370m's train shape (8 kept rows
+    of 512, H 32, N 128) in bf16 and f32, zamba2-2.7b's heads (H 80, N 64)
+    in bf16, G = 2, S = 300 (a short last chunk), S < L and a non-zero
+    final-state cotangent, each against its plain version and autograd
+    through the chunked scan; two calls give the same bits; timed at the
+    train shape in bf16 (each of its four grids by the profiler)."""
+    from repro_torch.kernels import ssd as SSD
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    bf, f32 = torch.bfloat16, torch.float32
+    train = (8, 512, 32, 64, 1, 128)
+    shapes = {"mamba2 train bf16": (*train, bf, False),
+              "mamba2 train f32": (*train, f32, False),
+              "zamba2 bf16": (2, 512, 80, 64, 1, 64, bf, False),
+              "G=2 S=300 bf16": (2, 300, 8, 64, 2, 64, bf, False),
+              "G=2 S=300 f32, final cotangent": (2, 300, 8, 64, 2, 64, f32,
+                                                 True),
+              "S=300 bf16, final cotangent": (2, 300, 32, 64, 1, 128, bf,
+                                              True),
+              "S=100 < L bf16": (2, 100, 32, 64, 1, 128, bf, False)}
+    err, used = 0.0, (0.0, "")
+    for key, case_shape in shapes.items():
+        e, (u, where) = ssd_bwd_check(torch, ops, ssd_bwd_inputs(
+            torch, g, *case_shape), 128)
+        err, used = max(err, e), max(used, (u, f"{where}, {key}"))
+        _free(torch)
+    x, dt, a, b, c, dy, df = ssd_bwd_inputs(torch, g, *train, bf, False)
+    _, _, states = ops._ssd_forward(x, dt, a, b, c, 128, "cuda", True)
+
+    def kernel():
+        return ops.ssd_bwd(x, dt, a, b, c, states, dy, None, 128,
+                           impl="cuda")
+
+    first, second = kernel(), kernel()
+    if not all(torch.equal(u, v) for u, v in zip(first, second)):
+        raise AssertionError("ssd_bwd: two calls gave other bits")
+    del first, second
+    ms = time_ms(kernel, iters=10, reps=5)
+    plain_ms = time_ms(lambda: ops.ssd_bwd(x, dt, a, b, c, states, dy, None,
+                                           128, impl="ref"),
+                       iters=5, reps=2, warmup=2)
+    per = kernel_ms(torch, kernel)
+    grids = {key: sum(v[0] for n, v in per.items() if key in n)
+             for key in ("ssd_bwd_contrib", "ssd_bwd_fold", "ssd_bwd_chunk",
+                         "ssd_bwd_reduce")}
+    bnd = ssd_bwd_bounds(*train, bf)
+    split = ", ".join(f"{k[8:]} {v:.4f}" for k, v in grids.items())
+    return dict(
+        name="ssd_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_bwd.cu",
+        replaces="src/repro/kernels/ssd.py:89",
+        replaces_note=("the gradient of that kernel, which the JAX package "
+                       "takes by autodiff through "
+                       "src/repro/models/ssm.py:76 ssd_chunked"),
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        dev_ms=sum(grids.values()), bound_ms=bnd["type"][0],
+        bound_by=bnd["type"][1], bound_f32_ms=bnd["f32"][0],
+        library_ms=None,
+        tol=(f"{SSD_BWD_ATOL}·max|plain| + {SSD_BWD_RTOL}·|plain| (f32; "
+             f"bf16 dx/dB/dC 2^-7·|plain|), also against autograd"),
+        shape=(f"x [8,512,32,64] G=1 N=128 chunk 128 bf16 (mamba2-370m's "
+               f"kept rows), {bnd['bytes'] / 1e6:.1f} MB moved, "
+               f"{bnd['flops'] / 1e9:.2f} GFLOP, bound at the CUDA cores' "
+               f"f32 rate (its units) {bnd['f32'][0]:.4f}; device ms by grid "
+               f"(torch.profiler): {split}; chunk grid's shared memory "
+               f"{SSD.bwd_smem_bytes(128, 64)} B; checked also at "
+               f"{', '.join(list(shapes)[1:])}; at most {used[0]:.2f} of an "
+               f"entry's tolerance ({used[1]}); two calls equal bits; no "
+               f"single PyTorch call computes this gradient"),
+    )
+
+
 def serve_phase(torch, ops, tmp: str, argv=SERVE_ARGV,
                 kernels=SERVE_KERNELS) -> dict:
     """``launch.serve.main(argv)`` with every launch count set to 0 just
@@ -1171,7 +1350,8 @@ def _profile_summary(torch, prof, n) -> tuple[float, float, str]:
 
 KERNEL_GROUPS = (("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("xent", ("xent_",)), ("ledger", ("ledger_",)),
-                 ("ssd", ("ssd_scan",)), ("decode_attn", ("dense_decode",)),
+                 ("ssd", ("ssd_scan",)), ("ssd_bwd", ("ssd_bwd",)),
+                 ("decode_attn", ("dense_decode",)),
                  ("paged_decode_attn", ("paged_decode",)),
                  ("topk_lse", ("topk",)),
                  ("elementwise", ("elementwise",)), ("reduce", ("reduce",)))
@@ -1404,11 +1584,14 @@ class SharedDraws:
         return self.torch.randn((), generator=self.g).to(self.device)
 
 
-def train_reference(torch) -> str:
+def train_reference(torch, arch: str = "llama3-8b") -> str:
     """Two OBFTF steps (selection forward, obftf with a noisy target,
     AdamW), each followed by the ledger write of the fresh losses, on the
-    smoke config in f32: on the card (xent and ledger kernels) and on the
-    CPU (plain versions), with the same weights, batches and draws."""
+    arch's smoke config in f32 (rows of 24 tokens: two chunks, 16 and 8, of
+    mamba2's scan): on the card (xent, ledger and, for the ssm family, ssd
+    and ssd_bwd kernels) and on the CPU (plain versions), with the same
+    weights, batches and draws; then one step's parameter gradients on
+    both."""
     import dataclasses
 
     import numpy as np
@@ -1416,24 +1599,32 @@ def train_reference(torch) -> str:
     from repro_torch import configs
     from repro_torch.core import device_ledger as dledger
     from repro_torch.core.history import HistoryConfig
-    from repro_torch.core.obftf import OBFTFConfig, make_train_step
+    from repro_torch.core.obftf import (OBFTFConfig, loss_and_grads,
+                                        make_train_step, model_inputs)
     from repro_torch.core.selection import SelectionConfig
     from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.kernels import ops
     from repro_torch.launch.train import build_optimizer
     from repro_torch.models import model as Mdl
-    from repro_torch.models.params import materialize, tree_map
+    from repro_torch.models.params import materialize, tree_leaves, tree_map
 
-    cfg = dataclasses.replace(configs.get_smoke("llama3-8b"),
+    cfg = dataclasses.replace(configs.get_smoke(arch),
                               param_dtype="float32", compute_dtype="float32")
     stream = SyntheticLMStream(DataConfig(16, 24, cfg.vocab_size, seed=3))
     weights = materialize(Mdl.param_specs(cfg), 0, torch.float32, "cpu")
     lcfg = HistoryConfig(capacity=1 << 12)
-    runs = []
+    runs, grads = [], []
     for device in ("cuda", "cpu"):
+        ops.reset_launches()
         opt = build_optimizer(1e-3, 2)
         step_fn = make_train_step(Mdl.loss_fn(cfg), opt, OBFTFConfig(
             SelectionConfig(method="obftf", ratio=0.25)))
         params = tree_map(lambda _, x: x.to(device), weights)
+        raw = stream.batch(7)
+        _, g = loss_and_grads(Mdl.loss_fn(cfg), params, model_inputs(
+            {k: torch.from_numpy(raw[k]).to(device)
+             for k in ("tokens", "labels")}))
+        grads.append(tree_map(lambda _, x: x.detach().cpu(), g))
         state = {"params": params, "opt": opt.init(params),
                  "step": torch.zeros((), dtype=torch.int32, device=device)}
         led = dledger.init_state(lcfg, device)
@@ -1452,6 +1643,10 @@ def train_reference(torch) -> str:
                         ("per_example_loss", "selected", "loss")})
             out[-1]["priority"] = pri.cpu().numpy()
         runs.append((out, dledger.state_dict_of(led)))
+        if device == "cuda" and cfg.family == "ssm" and min(
+                ops.LAUNCHES[k] for k in ("ssd", "ssd_bwd")) <= 0:
+            raise AssertionError(f"{arch} on the card skipped a scan "
+                                 f"kernel: {ops.LAUNCHES}")
     (ca, la), (cb, lb) = runs
     for sa, sb in zip(ca, cb):
         if not np.array_equal(sa["selected"], sb["selected"]):
@@ -1462,8 +1657,34 @@ def train_reference(torch) -> str:
     for key in la:
         np.testing.assert_allclose(la[key], lb[key], rtol=REF_TRAIN_RTOL,
                                    err_msg=key)
-    return (f"2 steps, kept rows equal {[s['selected'].tolist() for s in ca]}"
-            f", losses, priorities and ledgers within rtol {REF_TRAIN_RTOL}")
+    worst = 0.0
+    for (name, gc), gh in zip(_named_leaves(grads[0]),
+                              tree_leaves(grads[1])):
+        lim = REF_GRAD_ATOL * gh.abs().max() + REF_GRAD_RTOL * gh.abs()
+        diff = (gc - gh).abs()
+        if not (diff <= lim).all():
+            raise AssertionError(f"{arch} grad {name}: card and CPU differ "
+                                 f"by {diff.max().item()}")
+        worst = max(worst, (diff / lim.clamp_min(1e-30)).max().item())
+    if cfg.family == "ssm":  # parameters the scan's gradient alone reaches
+        ssm = grads[0]["blocks"]["ssm"]
+        for k in ("a_log", "dt_bias", "conv_w"):
+            if not ssm[k].abs().max() > 0:
+                raise AssertionError(f"{arch}: no gradient reached {k}")
+    return (f"{arch}: 2 steps, kept rows equal "
+            f"{[s['selected'].tolist() for s in ca]}, losses, priorities and "
+            f"ledgers within rtol {REF_TRAIN_RTOL}; one step's grads within "
+            f"{REF_GRAD_ATOL}·max + {REF_GRAD_RTOL}·|cpu| (at most "
+            f"{worst:.2f} of it)")
+
+
+def _named_leaves(tree):
+    """(path, tensor) of a params tree, in ``tree_leaves``' order."""
+    from repro_torch.models.params import tree_map
+
+    out = []
+    tree_map(lambda path, x: out.append((path, x)), tree)
+    return out
 
 
 def xent_case(torch, t, v, dtype, seed):
@@ -1849,10 +2070,12 @@ def train_phase(torch, ops, tmp: str) -> tuple[dict, dict]:
     return a, b
 
 
-def train_profile_phase(torch) -> str:
-    """Where a steady train step of run (a)'s configuration goes: host wall
-    time per step, device kernel time per step (torch.profiler), kernel
-    launches per step and the top kernels."""
+def train_profile_phase(torch, arch="llama3-8b", layers=TRAIN_LAYERS,
+                        seq=128) -> str:
+    """Where a steady train step of run (a)'s configuration goes (32 rows
+    of ``seq`` tokens, obftf at 0.25, AdamW): host wall time per step,
+    device kernel time per step (torch.profiler), kernel launches per step,
+    device time by kind of kernel and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
@@ -1864,7 +2087,7 @@ def train_profile_phase(torch) -> str:
     from repro_torch.models.params import materialize
 
     _free(torch)
-    cfg = configs.get("llama3-8b", layers=TRAIN_LAYERS)
+    cfg = configs.get(arch, layers=layers)
     opt = build_optimizer(1e-3, 100)
     step_fn = make_train_step(Mdl.loss_fn(cfg), opt, OBFTFConfig(
         SelectionConfig(method="obftf", ratio=0.25)))
@@ -1872,7 +2095,7 @@ def train_profile_phase(torch) -> str:
     state = {"params": params, "opt": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
     del params
-    stream = SyntheticLMStream(DataConfig(32, 128, cfg.vocab_size))
+    stream = SyntheticLMStream(DataConfig(32, seq, cfg.vocab_size))
     noise = GeneratorNoise(torch.Generator("cuda").manual_seed(0))
 
     def step(i):
@@ -1969,13 +2192,27 @@ def arch_serve_phases(torch, ops, tmp: str) -> dict:
 # 100 GB: not run), both ways, so no MoE layer of it trains here;
 # pixtral-12b with a selection forward at 9 of 40 layers (3.79 B params;
 # at 10 the train CLI runs out of memory); musicgen-medium recycled at full
-# depth
+# depth; mamba2-370m at full depth both ways, on rows of 512 tokens
+# (``ARCH_SEQ``: four chunks of the scan, so its backward's reverse fold
+# runs)
 RECYCLED = ("--recycle", "--ledger", "device", "--instance-pool", "64")
 ARCH_TRAIN = (("qwen3-14b", 7, ()), ("granite-34b", 8, RECYCLED),
               ("mixtral-8x22b", 1, ()), ("mixtral-8x22b", 1, RECYCLED),
               ("deepseek-v2-236b", 1, ()), ("deepseek-v2-236b", 1, RECYCLED),
               ("pixtral-12b", 9, ()),
-              ("musicgen-medium", 0, RECYCLED))
+              ("musicgen-medium", 0, RECYCLED),
+              ("mamba2-370m", 0, ()), ("mamba2-370m", 0, RECYCLED))
+ARCH_SEQ = {"mamba2-370m": 512}  # the others' rows: TRAIN_ARGV's 128
+
+
+def ssd_launches_per_step(cfg, recycled: bool) -> tuple[int, int]:
+    """(ssd, ssd_bwd) launches of one train step of an ssm model, from
+    ``core.obftf``'s step and ``models.model.forward_hidden``: one scan a
+    layer in each forward, which are the selection forward (no grad,
+    skipped when recycled) and the kept rows' forward, plus the backward's
+    recompute of each layer under remat; one backward a layer."""
+    forwards = (0 if recycled else 1) + 1 + (1 if cfg.remat else 0)
+    return cfg.num_layers * forwards, cfg.num_layers
 
 
 def arch_train_phase(torch, ops, tmp: str) -> dict:
@@ -1988,6 +2225,7 @@ def arch_train_phase(torch, ops, tmp: str) -> dict:
         argv = [*TRAIN_ARGV, "--steps", "4" if not extra else "6", *extra]
         argv[argv.index("--arch") + 1] = arch
         argv[argv.index("--layers") + 1] = str(layers)
+        argv[argv.index("--seq-len") + 1] = str(ARCH_SEQ.get(arch, 128))
         key = f"{arch} ({'b' if extra else 'a'})"
         r = train_run(torch, ops, argv, os.path.join(tmp, f"{key}.json"))
         want = ("xent_fwd", "xent_bwd") + (("ledger_record_priority",)
@@ -2002,6 +2240,9 @@ def arch_train_phase(torch, ops, tmp: str) -> dict:
         if share is not None and not 0.0 <= share < 1.0:
             raise AssertionError(f"{arch} dropped-token share {share}")
         cfg = configs.get(arch, layers=layers)
+        if cfg.family == "ssm":
+            fwd, bwd = ssd_launches_per_step(cfg, bool(extra))
+            _per_path(r, {"ssd": (fwd, "step"), "ssd_bwd": (bwd, "step")})
         routes = cfg.uses_moe and cfg.num_layers > cfg.first_k_dense
         if (share is not None) != routes:
             raise AssertionError(f"{arch}: dropped-token share {share} with "
@@ -2357,6 +2598,8 @@ def main() -> int:
 
     for phase in (topk_phase, paged_phase, decode_attn_phase, ssd_phase):
         show(phase(torch, ops, ref))
+    show(ssd_bwd_phase(torch, ops))
+    _free(torch)
     with tempfile.TemporaryDirectory() as tmp:
         s = serve_phase(torch, ops, tmp)
     serve_gates(s, 32)
@@ -2373,6 +2616,8 @@ def main() -> int:
     print(f"hybrid prefill: {prefill_phase(torch)}", flush=True)
     print(f"hybrid reference: {hybrid_reference_phase(torch, ops)}",
           flush=True)
+    print(f"mamba2 train reference: "
+          f"{train_reference(torch, 'mamba2-370m')}", flush=True)
     # launches over each kernel's own main path: the paged llama3-8b serve
     # for topk_lse and paged_decode_attn, the zamba2 serve for the slice's
     # two kernels, the two train runs for the training kernels
@@ -2399,8 +2644,6 @@ def main() -> int:
               f"guard on {r['guarded_steps']} warm steps", flush=True)
     for k in ("xent_fwd", "xent_bwd", "ledger_record_priority"):
         launches[k] = a["launches"][k] + b["launches"][k]
-    for row in kernels:
-        row["launches"] = launches[row["name"]]
     print(f"train profile: {train_profile_phase(torch)}", flush=True)
     by_path = {"serve llama3-8b paged": s["launches"],
                "serve zamba2-2.7b": sl["hybrid"]["launches"],
@@ -2420,6 +2663,13 @@ def main() -> int:
         by_path[f"serve deepseek-v2-236b {key}"] = r["launches"]
     for key, r in trains.items():
         by_path[f"train {key}"] = r["launches"]
+    # ssd_bwd's main path: mamba2-370m's two train runs
+    launches["ssd_bwd"] = sum(trains[f"mamba2-370m ({k})"]["launches"]
+                              ["ssd_bwd"] for k in "ab")
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
+    print(f"mamba2 train profile: "
+          f"{train_profile_phase(torch, 'mamba2-370m', 0, 512)}", flush=True)
     for arch in ("pixtral-12b", "musicgen-medium"):
         by_path[f"prefix {arch}"] = prefix_phase(torch, ops, arch)
     t3, claims = paper_phase(torch, ops)
@@ -2432,10 +2682,12 @@ def main() -> int:
                                    if n[row["name"]]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # ssd: its bound at the CUDA cores' f32 rate; topk_lse and
-    # paged_decode_attn: device time alone, warm and cold, and the library's
+    # ssd and ssd_bwd: their bounds at the CUDA cores' f32 rate (ssd_bwd:
+    # its four grids' device time, and what the JAX package differentiates
+    # in its place); topk_lse and paged_decode_attn: device time alone, warm
+    # and cold, and the library's
     extra = ("bound_f32_ms", "dev_ms", "dev_cold_ms", "dev_library_ms",
-             "span_ms", "host_ms", "launches_by_path")
+             "span_ms", "host_ms", "replaces_note", "launches_by_path")
     print(f"total: every phase passed in {time.perf_counter() - start:.1f} "
           f"s", flush=True)
     print(json.dumps({"kernels": [

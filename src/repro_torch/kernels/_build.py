@@ -52,6 +52,7 @@ SIGNATURES = {
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
         _I, _I, _I, _P,
     ],
+    "ssd_bwd": [_I] + [_P] * 18 + [_I] * 8 + [_P],
     "xent_fwd": [_I, _P, _P, _I, _I, _I, _P, _P, _P],
     "xent_bwd": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "ledger_record_priority": [

@@ -26,7 +26,7 @@ from repro_torch.kernels import xent as _xent
 IMPLS = ("ref", "cuda")
 LAUNCHES = {"topk_lse": 0, "paged_decode_attn": 0, "decode_attn": 0,
             "xent_fwd": 0, "xent_bwd": 0, "ledger_record_priority": 0,
-            "ssd": 0}
+            "ssd": 0, "ssd_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -227,6 +227,70 @@ def ledger_record_priority(
 # ---------------------------------------------------------------------------
 
 
+def _ssd_forward(x, dt, a, b, c, chunk, impl, keep_states):
+    """The scan's forward by ``impl`` (already resolved): (y, final state)
+    and, with ``keep_states``, the states entering each chunk."""
+    if impl == "ref":
+        from repro_torch.models.ssm import ssd_chunked
+
+        return ssd_chunked(x, dt, a, b, c, chunk=chunk,
+                           return_states=keep_states)
+    out = _ssd.ssd_cuda(x, dt, a, b, c, chunk, keep_states=keep_states)
+    LAUNCHES["ssd"] += 1
+    return out
+
+
+def ssd_bwd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    states: torch.Tensor,
+    dy: torch.Tensor,
+    dfinal: Optional[torch.Tensor] = None,
+    chunk: int = 128,
+    impl: Optional[str] = None,
+) -> tuple[torch.Tensor, ...]:
+    """The scan's gradient from the states entering each chunk [B,H,nc,P,N]
+    f32, dy [B,S,H,P] and the final state's cotangent (None = 0) -> (dx,
+    ddt, da, dB, dC), dx/dB/dC in x's dtype, ddt/da f32. Chunks of
+    ``min(chunk, S)`` steps, as the forward took them. The kernel takes dt,
+    a and the cotangent of the final state in f32 and dy in x's dtype, as
+    ``_SSDScan`` gives them."""
+    chunk = min(chunk, x.shape[1])
+    if _resolve(impl, x) == "ref":
+        return _ref.ssd_bwd_ref(x, dt, a, b, c, states, dy, dfinal,
+                                chunk=chunk)
+    out = _ssd.ssd_bwd_cuda(x, dt, a, b, c, states, dy, dfinal, chunk)
+    LAUNCHES["ssd_bwd"] += 1
+    return out
+
+
+class _SSDScan(torch.autograd.Function):
+    """The scan with its hand-written backward: the forward keeps the
+    states entering each chunk beside its inputs (the kernel's own fold
+    scratch on the card, ``ssd_chunked``'s on the CPU); the backward is
+    ``ssd_bwd`` on them. An unused output's cotangent arrives as None."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk, impl):
+        ctx.set_materialize_grads(False)
+        y, final, states = _ssd_forward(x, dt, a, b, c, chunk, impl, True)
+        ctx.save_for_backward(x, dt, a, b, c, states)
+        ctx.chunk, ctx.impl = chunk, impl
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, a, b, c, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssd_bwd(x, dt, a, b, c, states, dy, dfinal, ctx.chunk,
+                        ctx.impl)
+        return (*grads, None, None)
+
+
 def ssd_scan(
     x: torch.Tensor,
     dt: torch.Tensor,
@@ -239,14 +303,18 @@ def ssd_scan(
     """Mamba2 chunk scan: x [B,S,H,P], dt [B,S,H] (positive), a [H]
     (negative), B/C [B,S,G,N] -> (y [B,S,H,P] in x's dtype, final state
     [B,H,P,N] f32) in chunks of ``min(chunk, S)`` steps. The plain version
-    is the chunked scan of ``models.ssm``, as in the JAX package."""
-    chunk = min(chunk, x.shape[1])
-    if _resolve(impl, x) == "ref":
-        from repro_torch.models.ssm import ssd_chunked
+    is the chunked scan of ``models.ssm``, as in the JAX package.
 
-        return ssd_chunked(x, dt, a, b, c, chunk=chunk)
-    dt, a = (t if t.dtype == torch.float32 else t.to(torch.float32)
-             for t in (dt, a))
-    out = _ssd.ssd_cuda(x, dt, a, b, c, chunk)
-    LAUNCHES["ssd"] += 1
-    return out
+    Differentiable: where autograd records and an input needs a gradient,
+    the call goes through ``_SSDScan``, whose backward is ``ssd_bwd`` (the
+    CUDA kernel on the card, ``ref.ssd_bwd_ref`` on the CPU); otherwise the
+    forward alone runs and keeps nothing."""
+    chunk = min(chunk, x.shape[1])
+    impl = _resolve(impl, x)
+    if impl == "cuda":
+        dt, a = (t if t.dtype == torch.float32 else t.to(torch.float32)
+                 for t in (dt, a))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b, c)):
+        return _SSDScan.apply(x, dt, a, b, c, chunk, impl)
+    return _ssd_forward(x, dt, a, b, c, chunk, impl, False)

@@ -230,3 +230,104 @@ def ssd_ref(
         ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros(x.shape)
     return y.to(x.dtype), state
+
+
+def ssd_bwd_ref(
+    x: torch.Tensor,  # [B, S, H, P]
+    dt: torch.Tensor,  # [B, S, H] positive
+    a: torch.Tensor,  # [H] negative
+    b: torch.Tensor,  # [B, S, G, N]
+    c: torch.Tensor,  # [B, S, G, N]
+    states: torch.Tensor,  # [B, H, nc, P, N] f32, entering each chunk
+    dy: torch.Tensor,  # [B, S, H, P]
+    dfinal: Optional[torch.Tensor] = None,  # [B, H, P, N]; None = 0
+    chunk: int = 128,
+) -> tuple[torch.Tensor, ...]:
+    """The chunked scan's gradient, written out (no autograd) -> (dx, ddt,
+    da, dB, dC): dx, dB, dC in x's dtype, ddt and da f32, all computed in
+    f32 and rounded once, as JAX's VJP through ``x.astype(F32)`` gives.
+
+    Per (batch, head) and chunk of L steps, with cum_i = sum_{k<=i} a dt_k,
+    total = cum_L, S the state entering the chunk, dS' the gradient of the
+    state leaving it, M_ij = (C_i . B_j) e^{cum_i - cum_j} for j <= i (0
+    above the diagonal) and q_ij = dy_i . x_j:
+      dS_c   = e^{total_c} dS_{c+1} + sum_i e^{cum_i} dy_i C_i^T (reverse)
+      dx_j   = dt_j sum_{i>=j} M_ij dy_i + e^{total-cum_j} dt_j dS' B_j
+      dC_i   = sum_{j<=i} e^{cum_i-cum_j} dt_j q_ij B_j + e^{cum_i} S^T dy_i
+      dB_j   = sum_{i>=j} e^{cum_i-cum_j} dt_j q_ij C_i
+               + e^{total-cum_j} dt_j dS'^T x_j
+      ddt_j  = sum_{i>=j} M_ij q_ij + e^{total-cum_j} x_j^T dS' B_j
+               + a dda_j
+    where dda_k = sum_{m>=k} g_m and g = d/d cum: each T_ij = M_ij dt_j
+    q_ij adds to g_i and takes from g_j; g_i += e^{cum_i} dy_i^T S C_i;
+    the state terms add e^{total} <dS', S> + sum_j e^{total-cum_j} dt_j
+    x_j^T dS' B_j to g_L and take each j's share from g_j. da = sum_k dt_k
+    dda_k; dB and dC are summed over a group's heads. A short last chunk
+    is padded with dt = 0 steps, exact no-ops here as in the forward."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep, nc = h // g, -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t):  # [B, S, ...] -> f32 [B, nc, L, ...], zero-padded
+        t = t.to(F32)
+        if pad:
+            t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(bsz, nc, chunk, *t.shape[2:])
+
+    xf, dyf, dtf = chunks(x), chunks(dy), chunks(dt)
+    bh = chunks(b).repeat_interleave(rep, dim=3)  # [B,nc,L,H,N]
+    ch = chunks(c).repeat_interleave(rep, dim=3)
+    af = a.to(F32)
+    cum = torch.cumsum(dtf * af, dim=2)  # [B,nc,L,H]
+    total = cum[:, :, -1]  # [B,nc,H]
+    ecum = torch.exp(cum)
+    tail = torch.exp(total[:, :, None] - cum)  # e^{total - cum_j}
+    st = states.to(F32).transpose(1, 2)  # [B,nc,H,P,N]
+
+    # reverse state pass: gs[c] = dS', the gradient of the state leaving c
+    u = torch.einsum("bclhp,bclhn->bchpn", dyf * ecum[..., None], ch)
+    gcur = (torch.zeros((bsz, h, p, n), dtype=F32, device=x.device)
+            if dfinal is None else dfinal.to(F32))
+    gs = [None] * nc
+    for ci in reversed(range(nc)):
+        gs[ci] = gcur
+        gcur = torch.exp(total[:, ci])[..., None, None] * gcur + u[:, ci]
+    gs = torch.stack(gs, dim=1)  # [B,nc,H,P,N]
+
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))[None, None, :, :, None]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,nc,Li,Lj,H]
+    decay = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)
+    m = torch.einsum("bcihn,bcjhn->bcijh", ch, bh) * decay  # M_ij
+    q = torch.einsum("bcihp,bcjhp->bcijh", dyf, xf)  # q_ij
+    w = decay * q * dtf[:, :, None]  # e^{cum_i-cum_j} dt_j q_ij
+    gb = torch.einsum("bchpn,bcjhn->bcjhp", gs, bh)  # dS' B_j
+    sdy = torch.einsum("bchpn,bcihp->bcihn", st, dyf)  # S^T dy_i
+    gx = torch.einsum("bchpn,bcjhp->bcjhn", gs, xf)  # dS'^T x_j
+    dx = (dtf[..., None] * torch.einsum("bcijh,bcihp->bcjhp", m, dyf)
+          + (tail * dtf)[..., None] * gb)
+    dc = torch.einsum("bcijh,bcjhn->bcihn", w, bh) + ecum[..., None] * sdy
+    db = (torch.einsum("bcijh,bcihn->bcjhn", w, ch)
+          + (tail * dtf)[..., None] * gx)
+
+    r = m * q  # M_ij q_ij
+    xgb = (xf * gb).sum(-1)  # x_j^T dS' B_j
+    sterm = tail * dtf * xgb
+    t = r * dtf[:, :, None]  # T_ij
+    gcum = (t.sum(dim=3) - t.sum(dim=2) + ecum * (sdy * ch).sum(-1)
+            - sterm)
+    gcum[:, :, -1] += torch.exp(total) * (gs * st).sum((-1, -2)) \
+        + sterm.sum(dim=2)
+    dda = torch.flip(torch.cumsum(torch.flip(gcum, [2]), dim=2), [2])
+    ddt = r.sum(dim=2) + tail * xgb + af * dda
+
+    def unchunk(t, dtype):  # [B, nc, L, ...] -> [B, S, ...]
+        return t.reshape(bsz, nc * chunk, *t.shape[3:])[:, :s].to(dtype)
+
+    def group_sum(t):  # [B, nc, L, H, N] -> [B, nc, L, G, N]
+        return t.reshape(*t.shape[:3], g, rep, n).sum(dim=4)
+
+    return (unchunk(dx, x.dtype), unchunk(ddt, F32),
+            (dtf * dda).sum((0, 1, 2)),
+            unchunk(group_sum(db), b.dtype), unchunk(group_sum(dc), c.dtype))

@@ -4,11 +4,13 @@
         --smoke --device cpu --steps 20 --method obftf --ratio 0.25
 
 The single-device path of ``repro.launch.train`` with its flags, printed
-lines and ``--json-out`` names, for the dense, vlm, audio and moe families
-(the vlm and audio archs train on tokens alone, as the JAX CLI feeds no
-``prefix_embed``; the moe
-family's per-example losses carry ``router_aux_coef`` times the router's
-load-balancing loss, in the step and in the ledger, as in the JAX package):
+lines and ``--json-out`` names, for the dense, vlm, audio, moe and ssm
+families (the vlm and audio archs train on tokens alone, as the JAX CLI
+feeds no ``prefix_embed``; the moe family's per-example losses carry
+``router_aux_coef`` times the router's load-balancing loss, in the step and
+in the ledger, as in the JAX package; the ssm family's scan takes its
+gradient from the ``ssd_bwd`` kernel on the card; the hybrid family
+raises ``NotImplementedError``):
   * batches from ``SyntheticLMStream``, or through ``RecycleFeed`` under
     ``--recycle --ledger host``;
   * the OBFTF step (``core.obftf``): selection forward (or recycled

@@ -20,8 +20,10 @@ and run by Python loops over those dims.
 Entry points: ``forward_hidden`` (full sequence, with the MoE aux loss
 summed over the layers), ``per_example_loss`` / ``loss_fn`` (the OBFTF
 loss signal, per-token CE through the cross-entropy kernel, plus
-``router_aux_coef`` times the aux loss for MoE; not the ssm and hybrid
-families, which raise ``NotImplementedError``), ``per_example_signals``
+``router_aux_coef`` times the aux loss for MoE; the ssm family's scan
+differentiates through ``kernels.ops.ssd_scan``'s hand-written backward;
+not the hybrid family, which raises ``NotImplementedError``),
+``per_example_signals``
 (CE, entropy and margin), ``prefill`` (full sequence, builds the decode
 cache) and ``decode_step`` (one token per row against the dense or the
 paged cache).
@@ -41,10 +43,10 @@ from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec, tree_map
 
-# families each entry point runs; training the ssm and hybrid families
-# (a gradient for the SSD scan) is not ported yet
+# families each entry point runs; training the hybrid family (the shared
+# attention block's gradient through its groups) is the next slice
 SERVING_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
-TRAINING_FAMILIES = ("dense", "vlm", "audio", "moe")
+TRAINING_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm")
 # the families built of attention blocks alone, and those whose attention
 # cache may be paged
 ATTN_FAMILIES = ("dense", "vlm", "audio", "moe")
@@ -53,9 +55,12 @@ PAGED_FAMILIES = ("dense", "vlm", "audio")
 
 def _require(cfg: ModelConfig, families: tuple[str, ...], what: str) -> None:
     if cfg.family not in families:
+        nxt = ("; training the hybrid family, the shared attention block's "
+               "gradient through its groups, is the next slice"
+               if cfg.family == "hybrid" else "")
         raise NotImplementedError(
             f"model family {cfg.family!r}: {what} is not ported to PyTorch "
-            f"yet (ported for {', '.join(families)})"
+            f"yet (ported for {', '.join(families)}){nxt}"
         )
 
 
@@ -186,13 +191,20 @@ def _block(x, p, cfg, positions):
     return x + out, aux, routed
 
 
+def _ssm_layer(x, p, cfg):
+    """One layer of the ssm family: x + Mamba2(rmsnorm(x))."""
+    return x + S.ssm_block(L.rmsnorm(x, p["norm"], cfg.norm_eps), p["ssm"],
+                           cfg)
+
+
 def forward_hidden(
     params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     prefix: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B,S] (after a ``prefix`` [B,P,D] where given) ->
     (final-normed hidden states [B,P+S,D], MoE aux loss summed over the
-    MoE layers: an f32 scalar, 0 without MoE layers).
+    MoE layers: an f32 scalar, 0 without MoE layers; the ssm family runs
+    its Mamba2 layers).
 
     With ``cfg.remat`` and autograd recording, each layer runs under
     ``torch.utils.checkpoint``, as the JAX scan wraps its body in
@@ -207,6 +219,13 @@ def forward_hidden(
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            p = layer(params["blocks"], i)
+            x = (checkpoint(_ssm_layer, x, p, cfg, use_reentrant=False,
+                            preserve_rng_state=False)
+                 if remat else _ssm_layer(x, p, cfg))
+        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
     for key, n in _attn_stacks(cfg):
         for i in range(n):
             p = layer(params[key], i)

@@ -79,11 +79,14 @@ def ssd_chunked(
     cmat: torch.Tensor,  # [B, S, G, N]
     chunk: int,
     h0: Optional[torch.Tensor] = None,  # [B, H, P, N] initial state
-) -> tuple[torch.Tensor, torch.Tensor]:
+    return_states: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """SSD algorithm: intra-chunk quadratic form + inter-chunk state scan.
-    -> (y [B,S,H,P] in x's dtype, final state [B,H,P,N] f32). A sequence
-    that is no multiple of ``chunk`` is padded with dt = 0 steps, which are
-    exact no-ops (decay exp(0) = 1, update dt B x = 0)."""
+    -> (y [B,S,H,P] in x's dtype, final state [B,H,P,N] f32), and with
+    ``return_states`` also the state entering each chunk [B,H,nc,P,N] f32
+    (what ``kernels.ref.ssd_bwd_ref`` takes). A sequence that is no
+    multiple of ``chunk`` is padded with dt = 0 steps, which are exact
+    no-ops (decay exp(0) = 1, update dt B x = 0)."""
     bsz, s_orig, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
     pad = (-s_orig) % chunk
@@ -133,6 +136,8 @@ def ssd_chunked(
     y_inter = torch.einsum("bclhn,bchpn->bclhp",
                            ch * torch.exp(cum)[..., None], h_in)
     y = (y_intra + y_inter).reshape(bsz, s, h, p)[:, :s_orig]
+    if return_states:
+        return y.to(x.dtype), state, h_in.transpose(1, 2)
     return y.to(x.dtype), state
 
 

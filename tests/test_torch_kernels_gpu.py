@@ -514,3 +514,92 @@ def test_ssd_kernel_matches_plain(cuda, bsz, s, h, p, g, n, chunk, dtype):
     else:
         torch.testing.assert_close(y.float(), cy.float(), rtol=SSD_BF16_RTOL,
                                    atol=SSD_BF16_ATOL)
+
+
+# ssd_bwd at mamba2-370m's train shape (8 x 512 kept rows, H 32, N 128) in
+# bf16 and f32, zamba2-2.7b's heads (H 80, N 64), G = 2, S = 300 (a short
+# last chunk), S < L, and a non-zero final-state cotangent
+# (bsz, s, h, p, g, n, chunk, dtype, final-state cotangent)
+SSD_BWD_CASES = [(8, 512, 32, 64, 1, 128, 128, torch.bfloat16, False),
+                 (8, 512, 32, 64, 1, 128, 128, torch.float32, False),
+                 (2, 512, 80, 64, 1, 64, 128, torch.bfloat16, False),
+                 (2, 300, 8, 64, 2, 64, 128, torch.float32, False),
+                 (2, 300, 8, 64, 2, 64, 128, torch.bfloat16, True),
+                 (1, 100, 32, 64, 1, 128, 128, torch.bfloat16, False),
+                 (2, 300, 32, 64, 1, 128, 128, torch.float32, True),
+                 (2, 50, 4, 16, 2, 16, 16, torch.float32, True)]
+# f32 sums in another order: |kernel - plain| <= atol * max|plain| + rtol
+# * |plain| (the decays e^{cum_i - cum_j} differ where cum_i and cum_j are
+# large and close); a bf16 dx, dB or dC also by one bf16 unit in the last
+# place (both versions compute in f32 and round once)
+SSD_BWD_ATOL, SSD_BWD_RTOL, SSD_BWD_BF16_RTOL = 2e-4, 1e-3, 2**-7
+
+
+def _ssd_bwd_case(cuda, bsz, s, h, p, g, n, dtype, fin):
+    x, dt, a, b, c = (torch.from_numpy(t).to(cuda)
+                      for t in ssd_case(bsz, s, h, p, g, n, seed=s))
+    rs = np.random.default_rng(s + 1)
+    dy = torch.from_numpy(rs.standard_normal(x.shape).astype(np.float32))
+    df = (torch.from_numpy(rs.standard_normal((bsz, h, p, n)).astype(
+        np.float32)).to(cuda) if fin else None)
+    return (x.to(dtype), dt, a, b.to(dtype), c.to(dtype),
+            dy.to(cuda).to(dtype), df)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz,s,h,p,g,n,chunk,dtype,fin", SSD_BWD_CASES)
+def test_ssd_bwd_kernel_matches_plain(cuda, bsz, s, h, p, g, n, chunk, dtype,
+                                      fin):
+    x, dt, a, b, c, dy, df = _ssd_bwd_case(cuda, bsz, s, h, p, g, n, dtype,
+                                           fin)
+    y, st, states = ops._ssd_forward(x, dt, a, b, c, chunk, "cuda", True)
+    _, _, want_states = ssd_chunked(x, dt, a, b, c, chunk=chunk,
+                                    return_states=True)
+    torch.testing.assert_close(states, want_states.contiguous(), **SSD_TOL)
+    got = ops.ssd_bwd(x, dt, a, b, c, states, dy, df, chunk, impl="cuda")
+    want = ops.ssd_bwd(x, dt, a, b, c, states, dy, df, chunk, impl="ref")
+    for name, k, w in zip(("dx", "ddt", "da", "dB", "dC"), got, want):
+        assert k.dtype == w.dtype and k.shape == w.shape, name
+        kf, wf = k.float(), w.float()
+        rtol = SSD_BWD_BF16_RTOL if k.dtype == torch.bfloat16 else \
+            SSD_BWD_RTOL
+        lim = SSD_BWD_ATOL * wf.abs().max() + rtol * wf.abs()
+        assert ((kf - wf).abs() <= lim).all(), \
+            f"{name}: err {(kf - wf).abs().max().item()}"
+    again = ops.ssd_bwd(x, dt, a, b, c, states, dy, df, chunk, impl="cuda")
+    for k, k2 in zip(got, again):  # no atomics: the same bits every call
+        assert torch.equal(k, k2)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_autograd_launches_the_backward_kernel(cuda):
+    """Through ``ssd_scan`` under autograd: the forward kernel keeps its
+    states, the backward kernel gives the gradients, the launch counts
+    tick once each, and a no-grad call launches the forward alone."""
+    x, dt, a, b, c, dy, _ = _ssd_bwd_case(cuda, 2, 300, 8, 64, 1, 64,
+                                          torch.bfloat16, False)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, a, b, c)]
+    before = dict(ops.LAUNCHES)
+    y, _ = ops.ssd_scan(*leaves, chunk=128)
+    y.backward(dy)
+    assert ops.LAUNCHES["ssd"] == before["ssd"] + 1
+    assert ops.LAUNCHES["ssd_bwd"] == before["ssd_bwd"] + 1
+    y2, _, st = ops._ssd_forward(x, dt, a, b, c, 128, "cuda", True)
+    assert torch.equal(y.detach(), y2)
+    want = ops.ssd_bwd(x, dt, a, b, c, st, dy, None, 128, impl="cuda")
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+    with torch.no_grad():
+        ops.ssd_scan(*leaves, chunk=128)
+    assert ops.LAUNCHES["ssd_bwd"] == before["ssd_bwd"] + 2
+
+
+def test_ssd_bwd_cuda_refuses_cpu_tensors():
+    """``impl="cuda"`` on CPU tensors raises instead of taking the plain
+    version (no card needed)."""
+    x, dt, a, b, c = (torch.from_numpy(t) for t in ssd_case(1, 20, 2, 8, 1,
+                                                            8))
+    _, _, states = ssd_chunked(x, dt, a, b, c, chunk=16, return_states=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_bwd(x, dt, a, b, c, states, torch.ones_like(x), None, 16,
+                    impl="cuda")
