@@ -37,9 +37,11 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    f32, against the chunked scan and the sequential oracle; each grid's
    device time), and the scan's backward (``ssd_bwd``: mamba2-370m's
    train shape, 8 kept rows of 512, in bf16 and f32, zamba2-2.7b's heads,
-   G = 2, a short last chunk, S < L and a final-state cotangent, against
-   its plain version and autograd through the chunked scan; two calls
-   equal bits; each of its four grids' device time);
+   G = 2, a short last chunk, S < L, a final-state cotangent, N = 256 and
+   chunks of 64 in bf16, against its plain version and autograd through
+   the chunked scan; two calls equal bits; each of its grids' device time,
+   its bound at the design's units and the bf16 chunk grid's blocks an SM,
+   from ptxas's registers and its shared memory);
 4. serve — ``repro_torch.launch.serve.main`` at the full width of
    llama3-8b (32 layers, bf16, random weights from a seed): 8 slots, 16
    requests, prompt 128, 32 new tokens, paged KV (16-token pages), top-k
@@ -1120,16 +1122,22 @@ def ssd_bwd_check(torch, ops, case, chunk) -> tuple[float, tuple]:
     return err, used
 
 
-def ssd_bwd_flops(bsz, s, h, p, n, chunk) -> float:
+def ssd_bwd_flops(bsz, s, h, p, n, chunk, design=False) -> float:
     """Operations of the scan's gradient by its formulas (``ssd_bwd_ref``):
     per head and chunk of Lc steps, C . B^T, q = dy . x^T, M^T dy, W B and
     W^T C on and below the diagonal (3 n + 2 p) Lc (Lc + 1), and the five
     [Lc, P] x [P, N]-sized products (the chunk's dy C^T, dS' B_j, S C_i,
-    S^T dy_i, dS'^T x_j) 10 Lc p n."""
+    S^T dy_i, dS'^T x_j) 10 Lc p n. With ``design``, as the bf16 kernel
+    feeds the tensor cores: every product with an f32 operand (M^T dy, W B,
+    W^T C and the five state products) counted twice, for its hi and lo
+    halves, (5 n + 3 p) Lc (Lc + 1) + 20 Lc p n."""
     total = 0.0
     for c0 in range(0, s, chunk):
         lc = min(chunk, s - c0)
-        total += (3 * n + 2 * p) * lc * (lc + 1) + 10 * lc * p * n
+        if design:
+            total += (5 * n + 3 * p) * lc * (lc + 1) + 20 * lc * p * n
+        else:
+            total += (3 * n + 2 * p) * lc * (lc + 1) + 10 * lc * p * n
     return bsz * h * total
 
 
@@ -1137,25 +1145,70 @@ def ssd_bwd_bounds(bsz, s, h, p, gr, n, dtype, chunk=128) -> dict:
     """Least times of one call: the bytes (x, dy, B, C, dt, a and the
     kept states read once; dx, ddt, da, dB, dC written once) at 3.35 TB/s
     against the operations at the inputs' peak rate ("type": bf16 on the
-    tensor cores, f32 on the CUDA cores), and at the CUDA cores' f32 rate,
-    the units the kernel uses ("f32")."""
+    tensor cores, f32 on the CUDA cores), at the rate of the units the
+    kernel uses ("design": in bf16 the tensor cores with each split product
+    counted twice, in f32 the CUDA cores) and at the CUDA cores' f32 rate,
+    the units of the f32 path ("f32")."""
     isz = dtype.itemsize
     nc = -(-s // chunk)
     moved = (3 * bsz * s * h * p * isz + 4 * bsz * s * gr * n * isz
              + 2 * bsz * s * h * 4 + 2 * h * 4 + bsz * h * nc * p * n * 4)
     ops_ = ssd_bwd_flops(bsz, s, h, p, n, chunk)
+    design = ((ssd_bwd_flops(bsz, s, h, p, n, chunk, True), "bf16")
+              if isz == 2 else (ops_, "f32"))
     return {"type": bound(moved, ops_, "bf16" if isz == 2 else "f32"),
-            "f32": bound(moved, ops_, "f32"), "bytes": moved,
-            "flops": ops_}
+            "design": bound(moved, *design), "f32": bound(moved, ops_, "f32"),
+            "bytes": moved, "flops": ops_, "design_flops": design[0]}
+
+
+def grid_ms(per: dict, prefix: str) -> dict:
+    """{kernel: device ms a call} of ``kernel_ms``'s entries whose name
+    holds ``prefix``, each name cut to the kernel's own."""
+    import re
+
+    out = {}
+    for name, (ms, _) in per.items():
+        m = re.search(rf"{prefix}\w*", name)
+        if m:
+            out[m.group(0)] = out.get(m.group(0), 0.0) + ms
+    return out
+
+
+def ptxas_regs(log: str) -> dict:
+    """{kernel entry (mangled): registers a thread} from ``nvcc -Xptxas=-v``
+    output (``_build.build_report()["log"]``)."""
+    import re
+
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = int(m.group(1))
+    return out
+
+
+def blocks_per_sm(regs: int, threads: int, smem: int) -> int:
+    """Blocks of ``threads`` that fit one H100 SM by registers (65,536, in
+    granules of 256 a warp), shared memory (233,472 bytes, 1 KB kept for
+    each block) and threads (2,048)."""
+    per_warp = -(-regs * 32 // 256) * 256
+    by_regs = 65536 // (per_warp * (threads // 32))
+    return min(by_regs, 233472 // (smem + 1024), 2048 // threads)
 
 
 def ssd_bwd_phase(torch, ops) -> dict:
     """The scan's backward kernel at mamba2-370m's train shape (8 kept rows
     of 512, H 32, N 128) in bf16 and f32, zamba2-2.7b's heads (H 80, N 64)
-    in bf16, G = 2, S = 300 (a short last chunk), S < L and a non-zero
-    final-state cotangent, each against its plain version and autograd
-    through the chunked scan; two calls give the same bits; timed at the
-    train shape in bf16 (each of its four grids by the profiler)."""
+    in bf16, G = 2, S = 300 (a short last chunk), S < L, a non-zero
+    final-state cotangent, N = 256 and chunks of 64 in bf16, each against
+    its plain version and autograd through the chunked scan; two calls give
+    the same bits; timed at the train shape in bf16 (each of its grids by
+    the profiler); the bf16 chunk grid's blocks an SM at mamba2's and
+    zamba2's N, from ptxas's registers and its shared memory (at least
+    two)."""
     from repro_torch.kernels import ssd as SSD
 
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -1169,11 +1222,15 @@ def ssd_bwd_phase(torch, ops) -> dict:
                                                  True),
               "S=300 bf16, final cotangent": (2, 300, 32, 64, 1, 128, bf,
                                               True),
-              "S=100 < L bf16": (2, 100, 32, 64, 1, 128, bf, False)}
+              "S=100 < L bf16": (2, 100, 32, 64, 1, 128, bf, False),
+              "N=256 bf16, final cotangent": (2, 300, 8, 64, 1, 256, bf,
+                                              True),
+              "chunk 64 G=2 bf16": (2, 200, 16, 64, 2, 128, bf, False)}
     err, used = 0.0, (0.0, "")
     for key, case_shape in shapes.items():
+        chunk = 64 if key.startswith("chunk 64") else 128
         e, (u, where) = ssd_bwd_check(torch, ops, ssd_bwd_inputs(
-            torch, g, *case_shape), 128)
+            torch, g, *case_shape), chunk)
         err, used = max(err, e), max(used, (u, f"{where}, {key}"))
         _free(torch)
     x, dt, a, b, c, dy, df = ssd_bwd_inputs(torch, g, *train, bf, False)
@@ -1191,12 +1248,25 @@ def ssd_bwd_phase(torch, ops) -> dict:
     plain_ms = time_ms(lambda: ops.ssd_bwd(x, dt, a, b, c, states, dy, None,
                                            128, impl="ref"),
                        iters=5, reps=2, warmup=2)
-    per = kernel_ms(torch, kernel)
-    grids = {key: sum(v[0] for n, v in per.items() if key in n)
-             for key in ("ssd_bwd_contrib", "ssd_bwd_fold", "ssd_bwd_chunk",
-                         "ssd_bwd_reduce")}
+    grids = grid_ms(kernel_ms(torch, kernel), "ssd_bwd")
     bnd = ssd_bwd_bounds(*train, bf)
     split = ", ".join(f"{k[8:]} {v:.4f}" for k, v in grids.items())
+    from repro_torch.kernels import _build
+
+    regs = ptxas_regs(_build.build_report().get("log", ""))
+    fit = {}  # blocks of the bf16 chunk grid an SM, mamba2's and zamba2's
+    for key, n, ntm in (("mamba2", 128, 16), ("zamba2", 64, 8)):
+        r = next((v for k, v in regs.items()
+                  if f"ssd_bwd_chunk_tcILi{ntm}E" in k), None)
+        smem = SSD.bwd_smem_bytes(128, 64, n, 2)
+        fit[key] = (r, smem, None if r is None else blocks_per_sm(
+            r, SSD.BWD_TC_THREADS, smem))
+        if r is not None and fit[key][2] < 2:
+            raise AssertionError(f"ssd_bwd_chunk_tc at {key}'s N={n}: "
+                                 f"{fit[key][2]} block an SM ({r} "
+                                 f"registers, {smem} B)")
+    fits = "; ".join(f"{k} {v[2]} ({v[0]} registers, {v[1]} B)"
+                     for k, v in fit.items())
     return dict(
         name="ssd_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_bwd.cu",
@@ -1205,20 +1275,25 @@ def ssd_bwd_phase(torch, ops) -> dict:
                        "takes by autodiff through "
                        "src/repro/models/ssm.py:76 ssd_chunked"),
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        dev_ms=sum(grids.values()), bound_ms=bnd["type"][0],
-        bound_by=bnd["type"][1], bound_f32_ms=bnd["f32"][0],
-        library_ms=None,
+        dev_ms=sum(grids.values()), grids_ms=grids,
+        bound_ms=bnd["type"][0], bound_by=bnd["type"][1],
+        bound_design_ms=bnd["design"][0], bound_f32_ms=bnd["f32"][0],
+        library_ms=None, tol_used=used[0],
         tol=(f"{SSD_BWD_ATOL}·max|plain| + {SSD_BWD_RTOL}·|plain| (f32; "
              f"bf16 dx/dB/dC 2^-7·|plain|), also against autograd"),
         shape=(f"x [8,512,32,64] G=1 N=128 chunk 128 bf16 (mamba2-370m's "
                f"kept rows), {bnd['bytes'] / 1e6:.1f} MB moved, "
-               f"{bnd['flops'] / 1e9:.2f} GFLOP, bound at the CUDA cores' "
-               f"f32 rate (its units) {bnd['f32'][0]:.4f}; device ms by grid "
-               f"(torch.profiler): {split}; chunk grid's shared memory "
-               f"{SSD.bwd_smem_bytes(128, 64)} B; checked also at "
-               f"{', '.join(list(shapes)[1:])}; at most {used[0]:.2f} of an "
-               f"entry's tolerance ({used[1]}); two calls equal bits; no "
-               f"single PyTorch call computes this gradient"),
+               f"{bnd['flops'] / 1e9:.2f} GFLOP; bound at the design's "
+               f"units (bf16 tensor cores, each split product twice, "
+               f"{bnd['design_flops'] / 1e9:.2f} GFLOP) "
+               f"{bnd['design'][0]:.4f} ({bnd['design'][1]}), at the CUDA "
+               f"cores' f32 rate {bnd['f32'][0]:.4f}; device ms by grid "
+               f"(torch.profiler): {split}; the bf16 chunk grid's blocks an "
+               f"SM: {fits}; f32 chunk grid {SSD.bwd_smem_bytes(128, 64, 128)}"
+               f" B; checked also at {', '.join(list(shapes)[1:])}; at most "
+               f"{used[0]:.2f} of an entry's tolerance ({used[1]}); two "
+               f"calls equal bits; no single PyTorch call computes this "
+               f"gradient"),
     )
 
 
@@ -2683,11 +2758,13 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # ssd and ssd_bwd: their bounds at the CUDA cores' f32 rate (ssd_bwd:
-    # its four grids' device time, and what the JAX package differentiates
-    # in its place); topk_lse and paged_decode_attn: device time alone, warm
-    # and cold, and the library's
-    extra = ("bound_f32_ms", "dev_ms", "dev_cold_ms", "dev_library_ms",
-             "span_ms", "host_ms", "replaces_note", "launches_by_path")
+    # also at its design's units, its grids' device time, the share of the
+    # tolerance it used, and what the JAX package differentiates in its
+    # place); topk_lse and paged_decode_attn: device time alone, warm and
+    # cold, and the library's
+    extra = ("bound_design_ms", "bound_f32_ms", "dev_ms", "grids_ms",
+             "tol_used", "dev_cold_ms", "dev_library_ms", "span_ms",
+             "host_ms", "replaces_note", "launches_by_path")
     print(f"total: every phase passed in {time.perf_counter() - start:.1f} "
           f"s", flush=True)
     print(json.dumps({"kernels": [

@@ -6,8 +6,8 @@ The libraries are loaded with ``ctypes``; nothing includes PyTorch's headers,
 which keeps a cold build to seconds instead of minutes.
 
 Libraries land in ``build/kernels/`` at the repository root, named by a
-hash of their source, so an edited source rebuilds and an unchanged one is
-reused.
+hash of their source and of the headers beside it (``*.cuh``), so an
+edited source or header rebuilds and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ SIGNATURES = {
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
         _I, _I, _I, _P,
     ],
-    "ssd_bwd": [_I] + [_P] * 18 + [_I] * 8 + [_P],
+    "ssd_bwd": [_I] + [_P] * 19 + [_I] * 8 + [_P],
     "xent_fwd": [_I, _P, _P, _I, _I, _I, _P, _P, _P],
     "xent_bwd": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "ledger_record_priority": [
@@ -72,7 +72,12 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``src``, named by a hash of the source, every header
+    beside it (a source may include any of them) and the flags."""
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,5 +1,6 @@
 """Wrappers of the CUDA SSD chunk-scan kernels (``csrc/ssd.cu``, and its
-backward ``csrc/ssd_bwd.cu``).
+backward ``csrc/ssd_bwd.cu``; the pieces both share are in
+``csrc/ssd_common.cuh``).
 
 The forward replaces the Pallas TPU kernel ``repro.kernels.ssd.ssd``; the
 backward replaces its gradient, which the JAX package takes by autodiff
@@ -9,14 +10,21 @@ plain version is the chunked scan ``repro_torch.models.ssm.ssd_chunked``
 (and the sequential oracle ``kernels.ref.ssd_ref``), the backward's
 ``kernels.ref.ssd_bwd_ref``. A forward call is two grids: the chunks' state
 contributions (and their fold into the state entering each chunk), then
-the outputs; a backward call four (``csrc/ssd_bwd.cu``).
+the outputs. A backward call in bf16 is five grids on the tensor cores:
+each chunk's contribution to dS', the reverse fold, the chunk grid
+(FlashAttention-2's backward: a query-side block for dC and a key-side
+block each for dx and dB, per chunk), g's suffix sums with ddt, and the sum
+of dB and dC over a group's heads; in f32 four, on the CUDA cores.
 
-Each block must fit the card's shared memory (``smem_bytes``): at chunks
-of 128 steps and P = 64, f32 takes N up to 272 (the output grid takes 32
-rows a block instead of 64 where 64 do not fit) and bf16 N up to 256; the
-wrapper raises past that. The backward takes any N, chunks of at most 256
-steps with chunk * P at most 8192, and its chunk grid's shared memory
-(``bwd_smem_bytes``) within the card's: at P = 64, chunks up to 128.
+Each block must fit the card's shared memory (``smem_bytes``,
+``bwd_smem_bytes``): at chunks of 128 steps and P = 64 the forward takes N
+up to 272 in f32 (its output grid takes 32 rows a block instead of 64
+where 64 do not fit) and 256 in bf16. The backward in bf16 takes chunks up
+to 128, P up to 64, N up to 256, P and N multiples of 8 (at L 128, P 64 a
+chunk-grid block holds 114,688 bytes at N = 128, two an SM, and 73,728 at
+N = 64, three); in f32 chunks up to 256 with chunk * P at most 8192 and its
+chunk grid within the card's shared memory: at P = 64, chunks up to 128.
+Each wrapper raises past its limits, with the reason.
 """
 
 from __future__ import annotations
@@ -201,28 +209,48 @@ def _check_scan(what, x, dt, a, b, c, chunk) -> None:
         raise ValueError(f"{what}: chunk {chunk} must be positive")
 
 
-# mirror csrc/ssd_bwd.cu: columns of N a tile of the chunk grid, the [L, P]
-# register tiles a thread keeps, the longest chunk
+# mirror csrc/ssd_bwd.cu. f32: columns of N a tile of the chunk grid, the
+# [L, P] register tiles a thread keeps, the longest chunk, its threads. bf16
+# (the tensor-core path): the chunk grid's threads, the longest chunk, the
+# widest P and N
 BWD_NT = 32
 BWD_LP = 2
 BWD_MAX_CHUNK = 256
 _THREADS = 256
+BWD_TC_THREADS = 128
+BWD_TC_MAX_CHUNK = 128
+BWD_TC_MAX_P = 64
+BWD_TC_MAX_N = 256
 
 
-def bwd_contrib_smem_bytes(chunk: int, p: int, nb: int) -> int:
+def bwd_contrib_smem_bytes(chunk: int, p: int, nb: int,
+                           itemsize: int = 4) -> int:
     """Shared memory of a block of the backward's first grid for its ``nb``
-    columns of N: dy [L, P4] and C e^{cum} [L, nb4], dt and cum [L4], f32."""
+    columns of N: in bf16 the forward's first grid's (``state_tc``: dy
+    for x, C e^{cum}'s hi and lo for B w's); in f32 dy [L, P4] and C e^{cum}
+    [L, nb4], dt and cum [L4]."""
+    if itemsize == 2:
+        return state_smem_bytes(chunk, p, nb, 2)
     return (_a16(chunk * _up(p, 4) * 4) + _a16(chunk * _up(nb, 4) * 4)
             + 2 * _a16(_up(chunk, 4) * 4))
 
 
 @functools.lru_cache(maxsize=64)
-def bwd_smem_bytes(chunk: int, p: int) -> int:
-    """Shared memory of a block of the backward's chunk grid, in f32 for
-    either dtype: x and dy [L4, P4], the L x L matrix [L4, L4 + 4], a tile
-    area (the first pass's K-major tiles, the reductions' partial sums or
-    the second pass's row-major tiles, the largest of the three), four [L4]
-    vectors and a [256] reduction buffer."""
+def bwd_smem_bytes(chunk: int, p: int, n: int, itemsize: int = 4) -> int:
+    """Shared memory of a block of the backward's chunk grid. In bf16
+    (``chunk_tc``, any of its three kinds of block): [L16, P16 + 8] bf16 (x
+    or dy), [L16, Np + 8] bf16 (B or C), the f32 state [P16, Np + 4] (S or
+    dS', split in place into bf16 halves), dt and cum [L16] f32, and each
+    of the 4 warps' own rows, [16, P16 + 8] and [16, Np + 8] bf16. In f32
+    (N does not enter): x and dy [L4, P4], the L x L matrix [L4, L4 + 4], a
+    tile area (the first pass's K-major tiles, the reductions' partial sums
+    or the second pass's row-major tiles, the largest of the three), four
+    [L4] vectors and a [256] reduction buffer."""
+    if itemsize == 2:
+        l16, p16, np_ = _up(chunk, 16), _up(p, 16), _up(n, 16)
+        return (_a16(l16 * (p16 + 8) * 2) + _a16(l16 * (np_ + 8) * 2)
+                + _a16(p16 * (np_ + 4) * 4) + 2 * _a16(l16 * 4)
+                + BWD_TC_THREADS // 32 * 16 * (p16 + np_ + 16) * 2)
     l4, p4 = _up(chunk, 4), _up(p, 4)
     pass1 = BWD_NT * (2 * (l4 + 4) + 2 * (p4 + 4))
     parts = l4 * (2 * (l4 // 4) + 2 * (p4 // 4))
@@ -232,14 +260,32 @@ def bwd_smem_bytes(chunk: int, p: int) -> int:
             + _a16(_THREADS * 4))
 
 
-def bwd_limit(chunk: int, p: int, n: int, nb: int) -> str | None:
-    """Why the backward kernel refuses (chunk, P, N), or None."""
-    if chunk > BWD_MAX_CHUNK:
-        return f"chunk {chunk} is past {BWD_MAX_CHUNK}"
-    if _up(chunk, 4) * _up(p, 4) > 16 * BWD_LP * _THREADS:
-        return (f"chunk {chunk} x P={p} is past {16 * BWD_LP * _THREADS} "
-                f"(the register tiles of dS' B and S C)")
-    need = max(bwd_smem_bytes(chunk, p), bwd_contrib_smem_bytes(chunk, p, nb))
+def bwd_limit(chunk: int, p: int, n: int, nb: int,
+              itemsize: int = 4) -> str | None:
+    """Why the backward kernel refuses (chunk, P, N) in the dtype of
+    ``itemsize`` (``nb`` columns of N a block of its first grid), or
+    None."""
+    if itemsize == 2:
+        if chunk > BWD_TC_MAX_CHUNK:
+            return (f"chunk {chunk} is past {BWD_TC_MAX_CHUNK} in bf16 (8 "
+                    f"tiles of 16 rows, two a warp)")
+        if p > BWD_TC_MAX_P:
+            return (f"P={p} is past {BWD_TC_MAX_P} in bf16 (the dx tile a "
+                    f"warp keeps)")
+        if n > BWD_TC_MAX_N:
+            return (f"N={n} is past {BWD_TC_MAX_N} in bf16 (the dB and dC "
+                    f"tiles a warp keeps)")
+        if p % 8 or n % 8:
+            return (f"P={p} and N={n} must be multiples of 8 in bf16 (rows "
+                    f"copied 16 bytes at a time)")
+    else:
+        if chunk > BWD_MAX_CHUNK:
+            return f"chunk {chunk} is past {BWD_MAX_CHUNK}"
+        if _up(chunk, 4) * _up(p, 4) > 16 * BWD_LP * _THREADS:
+            return (f"chunk {chunk} x P={p} is past {16 * BWD_LP * _THREADS}"
+                    f" (the register tiles of dS' B and S C)")
+    need = max(bwd_smem_bytes(chunk, p, n, itemsize),
+               bwd_contrib_smem_bytes(chunk, p, nb, itemsize))
     if need > MAX_SMEM:
         return (f"chunk {chunk}, P={p}, N={n} need {need} bytes of shared "
                 f"memory, past the card's {MAX_SMEM}")
@@ -280,11 +326,15 @@ def ssd_bwd_cuda(
         raise ValueError(f"ssd_bwd: dfinal {tuple(dfinal.shape)} "
                          f"{dfinal.dtype} must be [{bsz},{h},{p},{n}] f32")
     ns = n_parts(bsz, h, nchunks, n)
-    why = bwd_limit(chunk, p, n, _up(-(-n // ns), 8))
+    tc = x.dtype == torch.bfloat16
+    why = bwd_limit(chunk, p, n, _up(-(-n // ns), 8), x.element_size())
     if why:
-        raise ValueError(f"ssd_bwd kernel: {why}")
+        raise ValueError(f"ssd_bwd kernel: {why} ({x.dtype})")
+    # contiguous, and in bf16 16-byte aligned (the chunk grid copies rows
+    # 16 bytes at a time)
     x, dt, a, b, c, states, dy = (
-        t if t.is_contiguous() else t.contiguous()
+        t if t.is_contiguous() and not (tc and t.data_ptr() % 16)
+        else t.clone(memory_format=torch.contiguous_format)
         for t in (x, dt, a, b, c, states, dy))
     if dfinal is not None and not dfinal.is_contiguous():
         dfinal = dfinal.contiguous()
@@ -298,6 +348,10 @@ def ssd_bwd_cuda(
     dapart = torch.empty(bsz * h * nchunks, **f32)
     dbp = torch.empty((bsz, s, h, n), **f32)  # dB, dC of each head
     dcp = torch.empty((bsz, s, h, n), **f32)
+    # bf16: each chunk's row terms, column sums and dS' terms of g, [L]
+    # each, and its last-step term
+    rows = (torch.empty((3 * chunk + 1) * bsz * h * nchunks, **f32) if tc
+            else None)
     lib = _build.libraries()["ssd_bwd"]
     err = lib.ssd_bwd(
         _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
@@ -305,7 +359,8 @@ def ssd_bwd_cuda(
         None if dfinal is None else dfinal.data_ptr(), dx.data_ptr(),
         ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
         gs.data_ptr(), dec.data_ptr(), dapart.data_ptr(), dbp.data_ptr(),
-        dcp.data_ptr(), bsz, s, h, p, g, n, chunk, ns,
+        dcp.data_ptr(), None if rows is None else rows.data_ptr(), bsz, s,
+        h, p, g, n, chunk, ns,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "ssd_bwd")

@@ -4,6 +4,8 @@ On the CPU the port's ops take their plain PyTorch versions; these must
 compute what the Pallas kernels compute (run here in interpret mode, at
 the smallest shapes) and what the jnp oracles compute. The CUDA kernels
 are held against the same plain versions in ``test_torch_kernels_gpu.py``.
+Also how the kernels' libraries are named (``_build._target``): an edited
+header rebuilds every source beside it.
 """
 
 import jax.numpy as jnp
@@ -173,3 +175,22 @@ def test_dispatch_follows_the_tensor_device():
         ops.paged_decode_attn(*case, impl="cuda")
     with pytest.raises(ValueError):
         ops.topk_lse(x, 4, impl="pallas")
+
+
+def test_build_target_changes_with_a_header(tmp_path):
+    """A library is named by its source, the headers beside it and the
+    flags: editing an included header (``ssd_common.cuh``) rebuilds every
+    source, an unchanged tree reuses the library."""
+    from repro_torch.kernels import _build
+
+    src, hdr = tmp_path / "k.cu", tmp_path / "k.cuh"
+    src.write_text('#include "k.cuh"\n')
+    hdr.write_text("// one\n")
+    first = _build._target(src)
+    assert _build._target(src) == first and first.stem.startswith("k-")
+    hdr.write_text("// two\n")
+    second = _build._target(src)
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// a new header\n")
+    assert _build._target(src) not in (first, second)
+    assert sorted(_build.CSRC.glob("*.cuh")), "csrc/ keeps its headers"

@@ -518,7 +518,8 @@ def test_ssd_kernel_matches_plain(cuda, bsz, s, h, p, g, n, chunk, dtype):
 
 # ssd_bwd at mamba2-370m's train shape (8 x 512 kept rows, H 32, N 128) in
 # bf16 and f32, zamba2-2.7b's heads (H 80, N 64), G = 2, S = 300 (a short
-# last chunk), S < L, and a non-zero final-state cotangent
+# last chunk), S < L, and a non-zero final-state cotangent; in bf16 also N
+# = 256, chunks of 64 and the smoke configs' widths (P 16, N 16, chunk 16)
 # (bsz, s, h, p, g, n, chunk, dtype, final-state cotangent)
 SSD_BWD_CASES = [(8, 512, 32, 64, 1, 128, 128, torch.bfloat16, False),
                  (8, 512, 32, 64, 1, 128, 128, torch.float32, False),
@@ -527,7 +528,10 @@ SSD_BWD_CASES = [(8, 512, 32, 64, 1, 128, 128, torch.bfloat16, False),
                  (2, 300, 8, 64, 2, 64, 128, torch.bfloat16, True),
                  (1, 100, 32, 64, 1, 128, 128, torch.bfloat16, False),
                  (2, 300, 32, 64, 1, 128, 128, torch.float32, True),
-                 (2, 50, 4, 16, 2, 16, 16, torch.float32, True)]
+                 (2, 50, 4, 16, 2, 16, 16, torch.float32, True),
+                 (2, 300, 8, 64, 1, 256, 128, torch.bfloat16, True),
+                 (2, 200, 16, 64, 2, 128, 64, torch.bfloat16, False),
+                 (2, 50, 4, 16, 2, 16, 16, torch.bfloat16, True)]
 # f32 sums in another order: |kernel - plain| <= atol * max|plain| + rtol
 # * |plain| (the decays e^{cum_i - cum_j} differ where cum_i and cum_j are
 # large and close); a bf16 dx, dB or dC also by one bf16 unit in the last

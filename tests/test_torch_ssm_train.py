@@ -18,6 +18,12 @@ exact, grads (the optimizer state) rtol 1e-4 atol 1e-6, params atol 1e-6
 (an update of lr = 0.05 times the grads), the device ledger
 through ``assert_ledger_states_close``. Then the same grads with and
 without remat, the no-grad scan that keeps nothing, and the train CLI.
+
+The bf16 backward kernel's plan, before any card: its arithmetic written
+out in torch with the kernel's rounding points (bf16 operands exact, each
+f32 operand split into hi + lo bf16, f32 sums) against the plain backward
+within the card's tolerances, and its shared-memory layouts and limits
+(``kernels/ssd.py::bwd_smem_bytes``, ``bwd_limit``) against sums by hand.
 """
 
 import dataclasses
@@ -157,6 +163,209 @@ def test_ssd_bwd_ref_matches_jax_vjp_and_autograd(case, dtype):
     for name, mine, leaf in zip(("dx", "ddt", "da", "dB", "dC"), got,
                                 leaves):
         assert torch.equal(leaf.grad, mine), name
+
+
+# the card's tolerances for the backward kernel (chip_smoke.py's and
+# tests/test_torch_kernels_gpu.py's SSD_BWD_*): |kernel - plain| <=
+# SSD_BWD_ATOL * max|plain| + rtol * |plain|, rtol SSD_BWD_BF16_RTOL for a
+# bf16 dx, dB or dC, else SSD_BWD_RTOL
+SSD_BWD_ATOL, SSD_BWD_RTOL, SSD_BWD_BF16_RTOL = 2e-4, 1e-3, 2**-7
+
+
+def _split(t):
+    """An f32 operand as the kernel feeds it to the tensor cores: hi the
+    nearest bf16, lo the nearest bf16 to the rest (both as f32)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _tc(eq, u, v, split):
+    """einsum ``eq`` of u and v as mma.sync takes it: the f32 operand
+    (``split`` = 0 for u, 1 for v) as hi + lo, two products in f32; the
+    other operand is exact bf16."""
+    if split == 0:
+        hi, lo = _split(u)
+        return torch.einsum(eq, hi, v) + torch.einsum(eq, lo, v)
+    hi, lo = _split(v)
+    return torch.einsum(eq, u, hi) + torch.einsum(eq, u, lo)
+
+
+def _design_bwd(x, dt, a, b, c, states, dy, dfinal, chunk):
+    """The bf16 path of csrc/ssd_bwd.cu written out with its rounding
+    points -> (dx, ddt, da, dB, dC) in f32, before the outputs' rounding.
+    The contribution grid's dy^T (C e^{cum}) and the fold; the query side
+    (per block of i rows) dC_i = e^{cum_i} S^T dy_i + sum_{j <= i} W_ij
+    B_j, its row term sum_j W_ij (C_i . B_j) + e^{cum_i} C_i . S^T dy_i;
+    the key side (per block of j rows) dB_j = e^{total - cum_j} dt_j dS'^T
+    x_j + sum_{i >= j} W_ij C_i and its column sums sum_i M_ij q_ij, and
+    dx_j = dt_j (e^{total - cum_j} dS' B_j + sum_{i >= j} M_ij dy_i) with
+    x_j . dS' B_j; then g, ddt and da from those terms."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep, nc = h // g, -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t):  # [B, S, ...] -> f32 [B, nc, L, ...], zero-padded
+        t = t.float()
+        if pad:
+            t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(bsz, nc, chunk, *t.shape[2:])
+
+    xf, dyf, dtf = chunks(x), chunks(dy), chunks(dt)
+    bh = chunks(b).repeat_interleave(rep, dim=3)
+    ch = chunks(c).repeat_interleave(rep, dim=3)
+    cum = torch.cumsum(dtf * a, dim=2)
+    total = cum[:, :, -1]
+    ecum, tail = torch.exp(cum), torch.exp(total[:, :, None] - cum)
+    st = states.float().transpose(1, 2)  # [B, nc, H, P, N]
+
+    u = _tc("bclhp,bclhn->bchpn", dyf, ch * ecum[..., None], 1)
+    gcur = (torch.zeros((bsz, h, p, n)) if dfinal is None
+            else dfinal.float())
+    gs = [None] * nc
+    for ci in reversed(range(nc)):
+        gs[ci] = gcur
+        gcur = torch.exp(total[:, ci])[..., None, None] * gcur + u[:, ci]
+    gs = torch.stack(gs, dim=1)
+
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    causal = causal[None, None, :, :, None]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    decay = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)),
+                        0.0)
+    sc = torch.einsum("bcihn,bcjhn->bcijh", ch, bh)  # exact C . B^T
+    q = torch.einsum("bcihp,bcjhp->bcijh", dyf, xf)  # exact dy . x^T
+    m = sc * decay
+    w = decay * q * dtf[:, :, None]
+
+    sdy = _tc("bcihp,bchpn->bcihn", dyf, st, 1)  # S^T dy_i
+    dc = ecum[..., None] * sdy + _tc("bcijh,bcjhn->bcihn", w, bh, 0)
+    qrow = (w * sc).sum(3) + ecum * (ch * sdy).sum(-1)
+    db = ((tail * dtf)[..., None] * _tc("bcjhp,bchpn->bcjhn", xf, gs, 1)
+          + _tc("bcijh,bcihn->bcjhn", w, ch, 0))
+    colr = (m * q).sum(2)
+    gb = _tc("bcjhn,bchpn->bcjhp", bh, gs, 1)  # dS' B_j
+    krow = tail * (xf * gb).sum(-1)
+    dxu = tail[..., None] * gb + _tc("bcijh,bcihp->bcjhp", m, dyf, 0)
+    glast = (torch.exp(total) * (gs * st).sum((-1, -2))
+             + (dtf * krow).sum(dim=2))
+    gcum = qrow - dtf * (colr + krow)
+    gcum[:, :, -1] += glast
+    dda = torch.flip(torch.cumsum(torch.flip(gcum, [2]), dim=2), [2])
+
+    def unchunk(t):
+        return t.reshape(bsz, nc * chunk, *t.shape[3:])[:, :s]
+
+    def group_sum(t):
+        return t.reshape(*t.shape[:3], g, rep, n).sum(dim=4)
+
+    return (unchunk(dtf[..., None] * dxu), unchunk(colr + krow + a * dda),
+            (dtf * dda).sum((0, 1, 2)), unchunk(group_sum(db)),
+            unchunk(group_sum(dc)))
+
+
+# (bsz, s, h, p, g, n, chunk, final-state cotangent): mamba2-370m's widths
+# with two chunks; zamba2-2.7b's N, a short last chunk, G = 2 and a final
+# cotangent
+DESIGN_CASES = {"mamba2": (1, 256, 4, 64, 1, 128, 128, False),
+                "zamba2_short_g2": (1, 200, 4, 64, 2, 64, 128, True)}
+
+
+@pytest.mark.parametrize("case", DESIGN_CASES.values(),
+                         ids=DESIGN_CASES.keys())
+def test_bwd_split_design_is_within_half_the_card_tolerance(case):
+    """The bf16 kernel's design before any chip call: bf16 operands exact,
+    every f32 operand (the decayed M and W, C e^{cum}, S and dS') split
+    into hi + lo bf16, sums in f32, the column and row terms of g taken as
+    x_j . u_j and C_i . dC_i. Before rounding it uses under half of the
+    card's tolerances against the plain version in f32 on the same inputs
+    (at f32's rtol even for dx, dB and dC); rounded to the outputs' types,
+    it holds against the plain version within the tolerances the card
+    holds the kernel to."""
+    (x, dt, a, b, c, dy), df, chunk = _bwd_inputs(case, torch.bfloat16)
+    _, _, states = S.ssd_chunked(x, dt, a, b, c, chunk=chunk,
+                                 return_states=True)
+    design = _design_bwd(x, dt, a, b, c, states, dy, df, chunk)
+    f32 = [t.float() for t in (x, b, c, dy)]
+    plain32 = ref.ssd_bwd_ref(f32[0], dt, a, f32[1], f32[2], states, f32[3],
+                              df, chunk=chunk)
+    plain = ref.ssd_bwd_ref(x, dt, a, b, c, states, dy, df, chunk=chunk)
+    for name, d, w32, w in zip(("dx", "ddt", "da", "dB", "dC"), design,
+                               plain32, plain):
+        lim = SSD_BWD_ATOL * w32.abs().max() + SSD_BWD_RTOL * w32.abs()
+        used = ((d - w32).abs() / lim).max().item()
+        assert used < 0.5, f"{name}: {used:.3f} of the f32 tolerance"
+        rtol = (SSD_BWD_BF16_RTOL if w.dtype == torch.bfloat16
+                else SSD_BWD_RTOL)
+        wf = w.float()
+        lim = SSD_BWD_ATOL * wf.abs().max() + rtol * wf.abs()
+        err = (d.to(w.dtype).float() - wf).abs()
+        assert (err <= lim).all(), f"{name}: err {err.max().item()}"
+
+
+# the card's shared memory: 228 KB an SM, 1 KB of it kept for each
+# resident block, at most 232,448 bytes for one block
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
+
+
+@pytest.mark.parametrize("chunk,p,n,total,blocks_per_sm", [
+    (128, 64, 128, 18432 + 34816 + 33792 + 1024 + 26624, 2),  # mamba2-370m
+    (128, 64, 64, 18432 + 18432 + 17408 + 1024 + 18432, 3),  # zamba2-2.7b
+    (128, 64, 256, 18432 + 67584 + 66560 + 1024 + 43008, 1),  # N = 256
+    (64, 64, 128, 9216 + 17408 + 33792 + 512 + 26624, 2),  # chunks of 64
+    (16, 16, 16, 768 + 768 + 1280 + 128 + 6144, 16)])  # the smoke configs
+def test_bwd_tc_chunk_grid_layout_mirror(chunk, p, n, total, blocks_per_sm):
+    """csrc/ssd_bwd.cu's chunk_tc summed by hand: [L16, P16 + 8] bf16 (x or
+    dy), [L16, Np + 8] bf16 (B or C), the f32 state [P16, Np + 4], dt and
+    cum [L16], then 4 warps' own rows [16, P16 + 8] and [16, Np + 8] bf16.
+    At mamba2-370m's and zamba2-2.7b's shapes two blocks or more fit an SM
+    beside their reserved kilobyte each."""
+    from repro_torch.kernels import ssd as SSD
+
+    need = SSD.bwd_smem_bytes(chunk, p, n, 2)
+    assert need == total
+    assert blocks_per_sm * (need + BLOCK_RESERVED) <= SM_SMEM
+    assert (blocks_per_sm + 1) * (need + BLOCK_RESERVED) > SM_SMEM \
+        or blocks_per_sm == 16  # 2,048 threads an SM
+    assert 2 * need <= SSD.MAX_SMEM or blocks_per_sm == 1
+    assert SSD.bwd_limit(chunk, p, n, n, 2) is None
+
+
+@pytest.mark.parametrize("chunk,p,n,why", [
+    (129, 64, 64, "chunk 129 is past 128 in bf16"),
+    (256, 32, 64, "chunk 256 is past 128 in bf16"),
+    (128, 72, 64, "P=72 is past 64 in bf16"),
+    (128, 64, 264, "N=264 is past 256 in bf16"),
+    (128, 60, 64, "P=60 and N=64 must be multiples of 8 in bf16"),
+    (128, 64, 100, "P=64 and N=100 must be multiples of 8 in bf16")])
+def test_bwd_tc_limits_refuse_with_the_reason(chunk, p, n, why):
+    """The bf16 path's limits, where its header puts them: chunks up to 128
+    (two 16-row tiles a warp), P up to 64 (the dx tile), N up to 256,
+    P and N multiples of 8; the wrapper raises with the reason."""
+    from repro_torch.kernels import ssd as SSD
+
+    assert SSD.bwd_limit(chunk, p, n, n, 2).startswith(why)
+    x, dt, a, b, c = (torch.from_numpy(t)
+                      for t in ssd_case(1, chunk, 1, p, 1, n))
+    states = torch.zeros((1, 1, 1, p, n))
+    x, b, c = (t.to(torch.bfloat16) for t in (x, b, c))
+    with pytest.raises(ValueError, match="CUDA"):  # before any limit
+        ops.ssd_bwd(x, dt, a, b, c, states, x, None, chunk, impl="cuda")
+
+
+def test_bwd_f32_path_keeps_its_limits_and_layout():
+    """The f32 path (the CUDA-core code) as before: 191,488 bytes at L 128,
+    P 64 whatever N, chunks to 256 with L P up to 8192."""
+    from repro_torch.kernels import ssd as SSD
+
+    for n in (16, 64, 128, 256):
+        assert SSD.bwd_smem_bytes(128, 64, n, 4) == 191488
+        assert SSD.bwd_limit(128, 64, n, n, 4) is None
+    assert SSD.bwd_limit(257, 16, 64, 64, 4).startswith("chunk 257 is past")
+    assert "register tiles" in SSD.bwd_limit(128, 72, 64, 64, 4)
+    assert "shared memory" in SSD.bwd_limit(256, 32, 64, 64, 4)
+    assert SSD.bwd_contrib_smem_bytes(128, 64, 128, 2) == \
+        SSD.state_smem_bytes(128, 64, 128, 2)
 
 
 def test_no_grad_scan_keeps_no_states_and_equals_the_old_forward(

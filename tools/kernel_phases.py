@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where a block's time goes inside the port's decode-attention, top-k and
-ledger kernels: clock stamps at the numbered points of a block's life.
+"""Where a block's time goes inside the port's decode-attention, top-k,
+ledger and SSD-backward kernels: clock stamps at the numbered points of a
+block's life.
 
     python3 tools/kernel_phases.py [--json FILE] [--only NAME]
 
@@ -21,8 +22,10 @@ row 0's first two chunks); ``paged_decode_attn`` at llama3-8b's heads with
 (blocks 0 and 1 are spans 0 and 1 of row 0, kv head 0); ``decode_attn`` at
 zamba2's shared block (T = 332); ``ledger_record_priority`` at
 capacities 65536 and 2^18 with batches of 32 and 32768 (blocks 0 and 1
-are tiles 0 and 1). One JSON line per case; ``--only`` keeps the cases
-whose name starts with NAME.
+are tiles 0 and 1); ``ssd_bwd`` at mamba2-370m's train shape and at
+zamba2-2.7b's heads (blocks 0, 1 and 2 of the bf16 chunk grid: the first
+chunk's query, dx and dB blocks; thread 0's tiles are 0 and 7). One JSON
+line per case; ``--only`` keeps the cases whose name starts with NAME.
 """
 
 from __future__ import annotations
@@ -49,6 +52,13 @@ TOPK_POINTS.update({5 + i: f"radix pass {i + 1}" for i in range(8)})
 DECODE_POINTS = {0: "start", 1: "q and probe read, first tile issued",
                  26: "tiles done", 27: "partial written",
                  28: "cluster barrier", 29: "merged"}
+SSD_BWD_POINTS = {0: "start", 1: "operands in shared memory", 10: "tiles done",
+                  11: "last-step term written (dx block)"}
+for _p, _t in enumerate(("first", "second")):
+    SSD_BWD_POINTS.update({2 + 4 * _p: f"{_t} tile: own rows read",
+                           3 + 4 * _p: f"{_t} tile: state product",
+                           4 + 4 * _p: f"{_t} tile: slices",
+                           5 + 4 * _p: f"{_t} tile: written"})
 LEDGER_POINTS = {0: "start", 1: "copy issued, winners cleared",
                  2: "batch walked", 3: "tile in shared memory",
                  4: "winners patched", 5: "tile written, items scored"}
@@ -59,9 +69,10 @@ for _t in range(6):
                           5 + 4 * _t: f"tile {_t + 1} P.V"})
 
 
-def stamps(torch, lib, names, fn, reps: int = 3) -> list[dict]:
+def stamps(torch, lib, names, fn, reps: int = 3,
+           blocks: int = 2) -> list[dict]:
     """Run ``fn`` ``reps`` times, then the cycles from start to each point
-    reached by blocks 0 and 1 of the last call."""
+    reached by the first ``blocks`` blocks of the last call."""
     lib.read_phases.argtypes = [ctypes.c_void_p]
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -69,11 +80,11 @@ def stamps(torch, lib, names, fn, reps: int = 3) -> list[dict]:
             raise RuntimeError("clear_phases failed")
         fn()
     torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * 64)()
+    buf = (ctypes.c_ulonglong * (32 * blocks))()
     if lib.read_phases(ctypes.addressof(buf)) != 0:
         raise RuntimeError("read_phases failed")
     out = []
-    for blk in range(2):
+    for blk in range(blocks):
         v = buf[32 * blk:32 * blk + 32]
         out.append({names.get(i, str(i)): v[i] - v[0]
                     for i in range(32) if v[i] and v[i] >= v[0]})
@@ -98,12 +109,12 @@ def main() -> int:
     card = cs.card_line()
     sink = open(args.json, "a") if args.json else None
 
-    def emit(case, lib, points, fn):
+    def emit(case, lib, points, fn, nblocks=2):
         if not case.startswith(args.only):
             return
-        blocks = stamps(torch, lib, points, fn)
-        line = json.dumps(dict(case=case, card=card, block0=blocks[0],
-                               block1=blocks[1]))
+        blocks = stamps(torch, lib, points, fn, blocks=nblocks)
+        line = json.dumps(dict(case=case, card=card, **{
+            f"block{i}": b for i, b in enumerate(blocks)}))
         print(line, flush=True)
         if sink:
             sink.write(line + "\n")
@@ -149,6 +160,16 @@ def main() -> int:
                  lambda: ops.ledger_record_priority(
                      *table, ids, losses, step, valid=valid, impl="cuda",
                      **kw))
+    for shape, gr in (((8, 512, 32, 64, 1, 128), "mamba2-370m's train shape"),
+                      ((2, 512, 80, 64, 1, 64), "zamba2-2.7b's heads")):
+        x, dt, a, b, c, dy, _ = cs.ssd_bwd_inputs(torch, g, *shape,
+                                                  torch.bfloat16, False)
+        states = ops._ssd_forward(x, dt, a, b, c, 128, "cuda", True)[2]
+        emit(f"ssd_bwd {list(shape)} bf16 ({gr})", libs["ssd_bwd"],
+             SSD_BWD_POINTS,
+             lambda: ops.ssd_bwd(x, dt, a, b, c, states, dy, None, 128,
+                                 impl="cuda"), nblocks=3)
+        del x, dt, a, b, c, dy, states
     if sink:
         sink.close()
     return 0
