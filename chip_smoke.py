@@ -52,6 +52,13 @@ Phases, one line each (any failure raises, exits non-zero and prints no
 5. profile — the same configuration again, five warm decode steps timed
    by the host clock and five under torch.profiler: device time per step,
    kernel launches per step and the kernels that take the most time;
+5a. telemetry — phase 4's serve again with ``--metrics-out``,
+   ``--trace-out`` and ``--metrics-every 8`` (``repro_torch.obs``): phase
+   4's gates (the sync guard on every warm step with the instruments on,
+   the kernels' launches), ``loop_health`` events in the JSONL with the
+   device ledger's EMA drift against its host shadow under 1e-4, one
+   ``summary`` whose engine counters equal the run's, and the engine's
+   spans in the trace; its tok/s beside phase 4's;
 6. reference — the same engine on the smoke config in float32, once on the
    card (kernels) and once on the CPU (plain versions): equal tokens and
    ledgers agreeing to 1e-5; then two OBFTF train steps of the smoke config
@@ -71,10 +78,11 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    timed and profiled, and the mamba2 and zamba2 smoke configs in float32
    on the card and on the CPU: equal greedy tokens, logits within 1e-4,
    and zamba2's engine with equal tokens and ledgers; then mamba2-370m's
-   smoke config trained two steps in f32 on the card (xent, ledger, ssd
-   and ssd_bwd kernels) and on the CPU: equal kept rows, losses,
-   priorities and ledgers within 1e-5, one step's grads within
-   ``REF_GRAD_*`` (the llama3-8b reference of phase 6 checks them too);
+   and zamba2-2.7b's smoke configs trained two steps in f32 on the card
+   (xent, ledger, ssd and ssd_bwd kernels) and on the CPU: equal kept
+   rows, losses, priorities and ledgers within 1e-5, one step's grads
+   within ``REF_GRAD_*`` (the llama3-8b reference of phase 6 checks them
+   too; zamba2's shared attention block's leaves named);
 7. xent and ledger — the training path's kernels against their plain
    versions at its shapes (cross-entropy at T = 4096 and 1024 rows of the
    128256-token vocabulary in bf16, with -1 labels, a row of ±1e4 logits
@@ -117,8 +125,14 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    and (b), with ``ssd_bwd`` launched 48 times a step and ``ssd`` as often
    as ``ssd_launches_per_step`` derives from the code (144 a step in (a):
    the selection forward, the kept rows' forward and the remat recompute;
-   96 in (b)); then a profile of its steady step (device time of ``ssd``
-   and ``ssd_bwd`` a step among the kinds of kernel);
+   96 in (b)); zamba2-2.7b (the hybrid family) the same way at full depth
+   (54 layers: ``ssd_bwd`` 54 a step, ``ssd`` 162 and 108), its run (b)
+   with ``--metrics-out`` and ``--trace-out`` (loop_health events, one
+   summary, the trainer's spans), each beside its floors (matmul
+   operations at the bf16 peak, AdamW's bytes); then a profile of each
+   one's steady step (device time of ``ssd`` and ``ssd_bwd`` a step among
+   the kinds of kernel, and the device time under the stacked layers'
+   index backward);
 10a. mixtral-8x22b (moe: 8 experts, top-2, a 4,096-token window) at full
    width cut to 12 of 56 layers, dense cache: 8 slots and 16 requests of
    128-token prompts, 32 new tokens; then 4 requests of 4,160-token
@@ -1339,6 +1353,46 @@ def serve_phase(torch, ops, tmp: str, argv=SERVE_ARGV,
     return summary
 
 
+def telemetry_serve_phase(torch, ops, tmp: str, base: dict) -> tuple:
+    """Phase 4's serve again with ``--metrics-out``, ``--trace-out`` and
+    ``--metrics-every 8``: the same gates (the sync guard on every warm
+    step, the kernels' launches), then the JSONL's loop_health events (the
+    device ledger's EMA drift against its host shadow under 1e-4) and its
+    one summary, and the engine's spans in the trace -> (summary, line)."""
+    from repro_torch import obs
+
+    path = os.path.join(tmp, "serve_telemetry")
+    argv = SERVE_ARGV + ["--metrics-out", path + ".jsonl", "--trace-out",
+                         path + ".trace.json", "--metrics-every", "8"]
+    try:
+        s = serve_phase(torch, ops, tmp, argv)
+    finally:
+        obs.install(obs.OFF)
+    serve_gates(s, 32)
+    rows = obs.read_jsonl(path + ".jsonl")
+    kinds = [r["kind"] for r in rows]
+    health = [r for r in rows if r["kind"] == "loop_health"]
+    spans = {e["name"] for e in obs.load_trace(path + ".trace.json")}
+    want = {"engine.admit", "engine.prefill", "engine.decode_step",
+            "engine.fetch_metrics", "engine.evict_fetch"}
+    if (kinds.count("summary") != 1 or kinds[-1] != "summary" or not health
+            or not want <= spans):
+        raise AssertionError(f"serve telemetry: kinds {kinds}, spans {spans}")
+    drift = max(r["ledger_drift"][c] for r in health
+                for c in ("ema", "entropy", "margin"))
+    if drift >= 1e-4:
+        raise AssertionError(f"ledger drift {drift}")
+    c = rows[-1]["metrics"]["counters"]
+    if (c["engine.steps"] != s["steps"]
+            or c["engine.ledger_records"] != s["recorded"]):
+        raise AssertionError(f"engine counters {c} against {s}")
+    return s, (f"{serve_line('telemetry serve: llama3-8b 32 layers, paged', s)}"
+               f"; phase 4 without telemetry {base['tok_per_s']:.1f} tok/s, "
+               f"step ms median {_median(base['step_ms']):.2f}; "
+               f"{len(health)} loop_health events (ledger drift at most "
+               f"{drift:.3g}) and a summary, spans {sorted(spans)}")
+
+
 def _median(xs):
     xs = sorted(xs)
     return xs[len(xs) // 2]
@@ -1659,14 +1713,25 @@ class SharedDraws:
         return self.torch.randn((), generator=self.g).to(self.device)
 
 
-def train_reference(torch, arch: str = "llama3-8b") -> str:
+def train_reference(torch, arch: str = "llama3-8b",
+                    resync: bool = False) -> str:
     """Two OBFTF steps (selection forward, obftf with a noisy target,
     AdamW), each followed by the ledger write of the fresh losses, on the
     arch's smoke config in f32 (rows of 24 tokens: two chunks, 16 and 8, of
-    mamba2's scan): on the card (xent, ledger and, for the ssm family, ssd
-    and ssd_bwd kernels) and on the CPU (plain versions), with the same
-    weights, batches and draws; then one step's parameter gradients on
-    both."""
+    the ssm and hybrid smoke configs' scan): on the card (xent, ledger and,
+    for the ssm and hybrid families, ssd and ssd_bwd kernels) and on the
+    CPU (plain versions), with the same weights, batches and draws; then
+    one step's parameter gradients on both (the hybrid's shared attention
+    block's leaves named with their share of the tolerance).
+
+    With ``resync`` the card's second step starts from the CPU's state
+    after the first (each device keeps its own ledger), so each step is
+    held to ``REF_TRAIN_RTOL`` on equal inputs: a config whose first AdamW
+    update turns f32 rounding into larger weight differences (AdamW's
+    first update is about lr times the grad's sign wherever |grad| is far
+    above its eps) is checked step by step. The card's own chained second
+    step, and on the CPU the same two steps from weights perturbed by
+    1e-7 relative, are then reported beside it, not gated."""
     import dataclasses
 
     import numpy as np
@@ -1688,28 +1753,30 @@ def train_reference(torch, arch: str = "llama3-8b") -> str:
     stream = SyntheticLMStream(DataConfig(16, 24, cfg.vocab_size, seed=3))
     weights = materialize(Mdl.param_specs(cfg), 0, torch.float32, "cpu")
     lcfg = HistoryConfig(capacity=1 << 12)
-    runs, grads = [], []
-    for device in ("cuda", "cpu"):
-        ops.reset_launches()
+    runs, grads, cpu_states = {}, {}, []
+
+    def two_steps(device, start, states=None, restart=None):
+        """The two steps on ``device`` from the params ``start``; with
+        ``restart`` the second step starts from that state instead."""
         opt = build_optimizer(1e-3, 2)
         step_fn = make_train_step(Mdl.loss_fn(cfg), opt, OBFTFConfig(
             SelectionConfig(method="obftf", ratio=0.25)))
-        params = tree_map(lambda _, x: x.to(device), weights)
-        raw = stream.batch(7)
-        _, g = loss_and_grads(Mdl.loss_fn(cfg), params, model_inputs(
-            {k: torch.from_numpy(raw[k]).to(device)
-             for k in ("tokens", "labels")}))
-        grads.append(tree_map(lambda _, x: x.detach().cpu(), g))
+        params = tree_map(lambda _, x: x.to(device), start)
         state = {"params": params, "opt": opt.init(params),
                  "step": torch.zeros((), dtype=torch.int32, device=device)}
         led = dledger.init_state(lcfg, device)
         draws = SharedDraws(torch, device, 7)
         out = []
         for step in range(2):
+            if step and restart is not None:
+                state = tree_map(lambda _, x: x.to(device), restart)
             raw = stream.batch(step)
             batch = {k: torch.from_numpy(raw[k]).to(device)
                      for k in ("tokens", "labels")}
             state, m = step_fn(state, batch, draws)
+            if states is not None:
+                states.append(tree_map(lambda _, x: x.detach().clone(),
+                                       state))
             ids = torch.from_numpy(raw["instance_id"].astype(np.int32))
             led, pri = dledger.record_priority(
                 lcfg, led, ids.to(device), m["per_example_loss"],
@@ -1717,11 +1784,40 @@ def train_reference(torch, arch: str = "llama3-8b") -> str:
             out.append({k: m[k].cpu().numpy() for k in
                         ("per_example_loss", "selected", "loss")})
             out[-1]["priority"] = pri.cpu().numpy()
-        runs.append((out, dledger.state_dict_of(led)))
-        if device == "cuda" and cfg.family == "ssm" and min(
+        return out, dledger.state_dict_of(led)
+
+    for device in (("cpu", "cuda") if resync else ("cuda", "cpu")):
+        ops.reset_launches()
+        raw = stream.batch(7)
+        params = tree_map(lambda _, x: x.to(device), weights)
+        _, g = loss_and_grads(Mdl.loss_fn(cfg), params, model_inputs(
+            {k: torch.from_numpy(raw[k]).to(device)
+             for k in ("tokens", "labels")}))
+        grads[device] = tree_map(lambda _, x: x.detach().cpu(), g)
+        runs[device] = two_steps(
+            device, weights, cpu_states if device == "cpu" else None,
+            cpu_states[0] if resync and device == "cuda" else None)
+        if device == "cuda" and cfg.family in ("ssm", "hybrid") and min(
                 ops.LAUNCHES[k] for k in ("ssd", "ssd_bwd")) <= 0:
             raise AssertionError(f"{arch} on the card skipped a scan "
                                  f"kernel: {ops.LAUNCHES}")
+    chained = ""
+    if resync:
+        def second_step_rel(out):
+            a = out[1]["per_example_loss"]
+            b = runs["cpu"][0][1]["per_example_loss"]
+            return float(np.max(np.abs(a - b) / np.abs(b)))
+
+        gen = torch.Generator().manual_seed(1)
+        nudged = tree_map(lambda _, x: x * (1 + 1e-7 * torch.randn(
+            x.shape, generator=gen)), weights)
+        chained = (f"; not gated: the card's own chained second step "
+                   f"{second_step_rel(two_steps('cuda', weights)[0]):.3g} "
+                   f"max relative loss difference, the CPU's from weights "
+                   f"perturbed by 1e-7 relative "
+                   f"{second_step_rel(two_steps('cpu', nudged)[0]):.3g}")
+    grads = [grads["cuda"], grads["cpu"]]
+    runs = [runs["cuda"], runs["cpu"]]
     (ca, la), (cb, lb) = runs
     for sa, sb in zip(ca, cb):
         if not np.array_equal(sa["selected"], sb["selected"]):
@@ -1732,7 +1828,7 @@ def train_reference(torch, arch: str = "llama3-8b") -> str:
     for key in la:
         np.testing.assert_allclose(la[key], lb[key], rtol=REF_TRAIN_RTOL,
                                    err_msg=key)
-    worst = 0.0
+    worst, shared = 0.0, {}
     for (name, gc), gh in zip(_named_leaves(grads[0]),
                               tree_leaves(grads[1])):
         lim = REF_GRAD_ATOL * gh.abs().max() + REF_GRAD_RTOL * gh.abs()
@@ -1740,17 +1836,28 @@ def train_reference(torch, arch: str = "llama3-8b") -> str:
         if not (diff <= lim).all():
             raise AssertionError(f"{arch} grad {name}: card and CPU differ "
                                  f"by {diff.max().item()}")
-        worst = max(worst, (diff / lim.clamp_min(1e-30)).max().item())
-    if cfg.family == "ssm":  # parameters the scan's gradient alone reaches
+        used = (diff / lim.clamp_min(1e-30)).max().item()
+        worst = max(worst, used)
+        if name[0] == "shared_attn":
+            shared["/".join(name[1:])] = used
+    if cfg.family in ("ssm", "hybrid"):  # reached through the scan alone
         ssm = grads[0]["blocks"]["ssm"]
         for k in ("a_log", "dt_bias", "conv_w"):
             if not ssm[k].abs().max() > 0:
                 raise AssertionError(f"{arch}: no gradient reached {k}")
-    return (f"{arch}: 2 steps, kept rows equal "
+    if cfg.family == "hybrid" and (len(shared) < 9 or not all(
+            grads[0]["shared_attn"]["attn"][k].abs().max() > 0
+            for k in ("wq", "wk", "wv", "wo"))):
+        raise AssertionError(f"{arch}: shared block grads {shared}")
+    names = (f"; shared block leaves (share of the tolerance): "
+             + ", ".join(f"{k} {v:.2f}" for k, v in shared.items())
+             if shared else "")
+    how = ", the second from equal states" if resync else ""
+    return (f"{arch}: 2 steps{how}, kept rows equal "
             f"{[s['selected'].tolist() for s in ca]}, losses, priorities and "
             f"ledgers within rtol {REF_TRAIN_RTOL}; one step's grads within "
             f"{REF_GRAD_ATOL}·max + {REF_GRAD_RTOL}·|cpu| (at most "
-            f"{worst:.2f} of it)")
+            f"{worst:.2f} of it){names}{chained}")
 
 
 def _named_leaves(tree):
@@ -2196,12 +2303,38 @@ def train_profile_phase(torch, arch="llama3-8b", layers=TRAIN_LAYERS,
         torch.cuda.synchronize()
     device_ms, launches, tops = _profile_summary(torch, prof, n)
     groups = _kernel_groups(torch, prof, n)
+    stacks = _op_device_ms(prof, n, ("SelectBackward0", "AccumulateGrad"))
     del state
     _free(torch)
     return (f"steady train step {wall_ms:.1f} ms host wall (run a), device "
             f"busy {device_ms:.1f} ms/step ({100 * device_ms / wall_ms:.1f}%)"
             f", {launches:.0f} kernel launches/step; device ms/step by kind: "
-            f"{groups}; top device ms/step: {tops}")
+            f"{groups}; device ms/step under the stacks' layer-index "
+            f"backward and the grads' accumulation: {stacks}; top device "
+            f"ms/step: {tops}")
+
+
+def _op_device_ms(prof, n, ops_: tuple) -> str:
+    """Device ms per step of the kernels each operator of ``ops_`` ran,
+    its children's included (``SelectBackward0``: the backward of a
+    layer's index into a stacked tensor, which writes a zero tensor the
+    size of the whole stack), with the operator's calls per step."""
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0.0)
+
+    out = []
+    events = prof.key_averages()
+    for op in ops_:
+        # the operator's own row, or the autograd engine's row around it
+        # ("autograd::engine::evaluate_function: <op>"), whichever holds
+        # more: the outer one includes the inner
+        best = max((e for e in events if e.key.endswith(op)), key=dev_us,
+                   default=None)
+        us, calls = (dev_us(best), best.count) if best else (0.0, 0)
+        out.append(f"{op} {us / 1e3 / n:.2f} ({calls / n:.0f} calls)")
+    return ", ".join(out)
 
 
 # the dense archs and the prefix-embedding families (served without a
@@ -2267,27 +2400,89 @@ def arch_serve_phases(torch, ops, tmp: str) -> dict:
 # 100 GB: not run), both ways, so no MoE layer of it trains here;
 # pixtral-12b with a selection forward at 9 of 40 layers (3.79 B params;
 # at 10 the train CLI runs out of memory); musicgen-medium recycled at full
-# depth; mamba2-370m at full depth both ways, on rows of 512 tokens
-# (``ARCH_SEQ``: four chunks of the scan, so its backward's reverse fold
-# runs)
+# depth; mamba2-370m and zamba2-2.7b (the hybrid family: 54 SSM layers in
+# 9 groups, each led by the weight-shared attention block; 2.42 B params)
+# at full depth both ways, on rows of 512 tokens (``ARCH_SEQ``: four chunks
+# of the scan, so its backward's reverse fold runs)
 RECYCLED = ("--recycle", "--ledger", "device", "--instance-pool", "64")
 ARCH_TRAIN = (("qwen3-14b", 7, ()), ("granite-34b", 8, RECYCLED),
               ("mixtral-8x22b", 1, ()), ("mixtral-8x22b", 1, RECYCLED),
               ("deepseek-v2-236b", 1, ()), ("deepseek-v2-236b", 1, RECYCLED),
               ("pixtral-12b", 9, ()),
               ("musicgen-medium", 0, RECYCLED),
-              ("mamba2-370m", 0, ()), ("mamba2-370m", 0, RECYCLED))
-ARCH_SEQ = {"mamba2-370m": 512}  # the others' rows: TRAIN_ARGV's 128
+              ("mamba2-370m", 0, ()), ("mamba2-370m", 0, RECYCLED),
+              ("zamba2-2.7b", 0, ()), ("zamba2-2.7b", 0, RECYCLED))
+# the others' rows: TRAIN_ARGV's 128
+ARCH_SEQ = {"mamba2-370m": 512, "zamba2-2.7b": 512}
+# zamba2-2.7b's run (b) also writes its telemetry (the trainer's spans)
+TELEMETRY_TRAIN = "zamba2-2.7b (b)"
 
 
 def ssd_launches_per_step(cfg, recycled: bool) -> tuple[int, int]:
-    """(ssd, ssd_bwd) launches of one train step of an ssm model, from
-    ``core.obftf``'s step and ``models.model.forward_hidden``: one scan a
-    layer in each forward, which are the selection forward (no grad,
-    skipped when recycled) and the kept rows' forward, plus the backward's
-    recompute of each layer under remat; one backward a layer."""
+    """(ssd, ssd_bwd) launches of one train step of an ssm or hybrid
+    model, from ``core.obftf``'s step and ``models.model.forward_hidden``:
+    one scan an SSM layer in each forward, which are the selection forward
+    (no grad, skipped when recycled) and the kept rows' forward, plus the
+    backward's recompute under remat (of each layer, or for the hybrid of
+    each group, which runs each of its SSM layers once); one backward an
+    SSM layer."""
     forwards = (0 if recycled else 1) + 1 + (1 if cfg.remat else 0)
     return cfg.num_layers * forwards, cfg.num_layers
+
+
+def train_floors(cfg, rows=32, seq=512, ratio=0.25) -> dict:
+    """The least time one OBFTF step could take on the card: the matmuls'
+    operations over the bf16 dense peak and AdamW's bytes over the memory
+    rate. Matmul work is 2 flops a token for each effective parameter
+    (every weight a token multiplies: the SSM and attention stacks, the
+    hybrid's shared block once a group, the unembedding; the embedding is
+    a gather), for the selection forward over every row and, on the kept
+    rows, the forward, the backward (twice the forward) and the remat
+    recompute; AdamW reads p, g, mu and nu and writes p, mu and nu once."""
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.params import tree_leaves
+
+    specs = Mdl.param_specs(cfg)
+
+    def count(tree):
+        return sum(math.prod(s.shape) for s in tree_leaves(tree))
+
+    total = count(specs)
+    eff = total - count(specs["embed"])
+    if cfg.tie_embeddings:
+        eff += count(specs["embed"])
+    if "shared_attn" in specs:
+        eff += (cfg.num_layers // cfg.hybrid_attn_every - 1) * count(
+            specs["shared_attn"])
+    kept = rows * ratio
+    per_fwd = 2 * eff * seq
+    flops_a = per_fwd * (rows + kept * (1 + 2 + (1 if cfg.remat else 0)))
+    flops_b = flops_a - per_fwd * rows
+    adamw_bytes = total * (2 + 2 + 4 + 4 + 2 + 4 + 4)
+    return {"params": total, "effective": eff,
+            "a_ms": flops_a / PEAK_FLOPS["bf16"] * 1e3, "a_tflop": flops_a /
+            1e12, "b_ms": flops_b / PEAK_FLOPS["bf16"] * 1e3,
+            "b_tflop": flops_b / 1e12, "adamw_gb": adamw_bytes / 1e9,
+            "adamw_ms": adamw_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def telemetry_train_check(path: str) -> str:
+    """A train run's ``--metrics-out`` and ``--trace-out``: loop_health
+    events, one summary, the trainer's spans."""
+    from repro_torch import obs
+
+    rows = obs.read_jsonl(path + ".jsonl")
+    kinds = [r["kind"] for r in rows]
+    spans = {e["name"] for e in obs.load_trace(path + ".trace.json")}
+    if (kinds.count("summary") != 1 or kinds[-1] != "summary"
+            or "loop_health" not in kinds
+            or not {"train.step", "train.fetch_metrics"} <= spans):
+        raise AssertionError(f"train telemetry: kinds {kinds}, spans {spans}")
+    c = rows[-1]["metrics"]["counters"]
+    if c["trainer.steps"] != rows[-1]["steps"]:
+        raise AssertionError(f"trainer.steps {c['trainer.steps']}")
+    return (f"telemetry: {kinds.count('loop_health')} loop_health events "
+            f"and a summary, spans {sorted(spans)}")
 
 
 def arch_train_phase(torch, ops, tmp: str) -> dict:
@@ -2302,7 +2497,17 @@ def arch_train_phase(torch, ops, tmp: str) -> dict:
         argv[argv.index("--layers") + 1] = str(layers)
         argv[argv.index("--seq-len") + 1] = str(ARCH_SEQ.get(arch, 128))
         key = f"{arch} ({'b' if extra else 'a'})"
+        telem = os.path.join(tmp, "train_telemetry")
+        if key == TELEMETRY_TRAIN:
+            argv += ["--metrics-out", telem + ".jsonl", "--trace-out",
+                     telem + ".trace.json", "--metrics-every", "2"]
         r = train_run(torch, ops, argv, os.path.join(tmp, f"{key}.json"))
+        note = ""
+        if key == TELEMETRY_TRAIN:
+            from repro_torch import obs
+
+            obs.install(obs.OFF)
+            note = f", {telemetry_train_check(telem)}"
         want = ("xent_fwd", "xent_bwd") + (("ledger_record_priority",)
                                            if extra else ())
         if min(r["launches"][k] for k in want) <= 0:
@@ -2315,9 +2520,16 @@ def arch_train_phase(torch, ops, tmp: str) -> dict:
         if share is not None and not 0.0 <= share < 1.0:
             raise AssertionError(f"{arch} dropped-token share {share}")
         cfg = configs.get(arch, layers=layers)
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             fwd, bwd = ssd_launches_per_step(cfg, bool(extra))
             _per_path(r, {"ssd": (fwd, "step"), "ssd_bwd": (bwd, "step")})
+            fl = train_floors(cfg, seq=ARCH_SEQ[arch])
+            note += (f", floors: {fl['effective'] / 1e9:.3f} B effective "
+                     f"params a token ({fl['params'] / 1e9:.3f} B params), "
+                     f"matmuls {fl['b_tflop' if extra else 'a_tflop']:.1f} "
+                     f"TFLOP = {fl['b_ms' if extra else 'a_ms']:.1f} ms at "
+                     f"the bf16 peak, AdamW {fl['adamw_gb']:.1f} GB = "
+                     f"{fl['adamw_ms']:.1f} ms")
         routes = cfg.uses_moe and cfg.num_layers > cfg.first_k_dense
         if (share is not None) != routes:
             raise AssertionError(f"{arch}: dropped-token share {share} with "
@@ -2333,7 +2545,8 @@ def arch_train_phase(torch, ops, tmp: str) -> dict:
               f"guard on {r['guarded_steps']} warm steps"
               + (f", dropped-token share {share:.4f}" if share is not None
                  else ", no MoE layer in the cut: nothing routed, no "
-                      "dropped share" if cfg.uses_moe else ""), flush=True)
+                      "dropped share" if cfg.uses_moe else "") + note,
+              flush=True)
         out[key] = r
     return out
 
@@ -2680,6 +2893,9 @@ def main() -> int:
     serve_gates(s, 32)
     print(serve_line("serve: llama3-8b 32 layers bf16, paged", s), flush=True)
     print(f"profile: {profile_phase(torch)}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        st, line = telemetry_serve_phase(torch, ops, tmp, s)
+    print(line, flush=True)
     print(f"reference: {reference_phase(torch)}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         sl = slice_serve_phases(torch, ops, tmp)
@@ -2693,6 +2909,9 @@ def main() -> int:
           flush=True)
     print(f"mamba2 train reference: "
           f"{train_reference(torch, 'mamba2-370m')}", flush=True)
+    print(f"zamba2 train reference: "
+          f"{train_reference(torch, 'zamba2-2.7b', resync=True)}",
+          flush=True)
     # launches over each kernel's own main path: the paged llama3-8b serve
     # for topk_lse and paged_decode_attn, the zamba2 serve for the slice's
     # two kernels, the two train runs for the training kernels
@@ -2721,6 +2940,7 @@ def main() -> int:
         launches[k] = a["launches"][k] + b["launches"][k]
     print(f"train profile: {train_profile_phase(torch)}", flush=True)
     by_path = {"serve llama3-8b paged": s["launches"],
+               "serve llama3-8b paged, telemetry": st["launches"],
                "serve zamba2-2.7b": sl["hybrid"]["launches"],
                "serve mamba2-370m": sl["mamba2"]["launches"],
                "serve llama3-8b dense": sl["dense"]["launches"],
@@ -2745,6 +2965,8 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
     print(f"mamba2 train profile: "
           f"{train_profile_phase(torch, 'mamba2-370m', 0, 512)}", flush=True)
+    print(f"zamba2 train profile: "
+          f"{train_profile_phase(torch, 'zamba2-2.7b', 0, 512)}", flush=True)
     for arch in ("pixtral-12b", "musicgen-medium"):
         by_path[f"prefix {arch}"] = prefix_phase(torch, ops, arch)
     t3, claims = paper_phase(torch, ops)

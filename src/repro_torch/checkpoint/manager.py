@@ -13,7 +13,10 @@ layout, so either package reads the other's checkpoints:
     the JAX package's ml_dtypes arrays give), and restored into a target
     tree of tensors on the target's devices;
   * ``ledger.npz`` beside the state holds the recycle ledger in the
-    ``.npz`` interchange format of ``--ledger-out``.
+    ``.npz`` interchange format of ``--ledger-out``;
+  * the spans ``checkpoint.fetch`` (the host copies), ``checkpoint.save``
+    (the write, on the save thread) and ``checkpoint.restore`` go to the
+    installed telemetry (``repro_torch.obs.current``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.models.params import tree_map
 
 LEDGER_FILE = "ledger.npz"
@@ -69,6 +73,11 @@ def save_checkpoint(
 
 def _write(directory: str, step: int, flat: dict,
            ledger: Optional[dict[str, np.ndarray]]) -> str:
+    with obs.span("checkpoint.save", cat="checkpoint", step=step):
+        return _write_files(directory, step, flat, ledger)
+
+
+def _write_files(directory, step, flat, ledger):
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:010d}")
     tmp = final + ".tmp"
@@ -135,15 +144,16 @@ def load_checkpoint(directory: str, step: int, target: Any) -> Any:
     """Restore into ``target``'s structure: each tensor leaf comes back on
     the target leaf's device in its dtype; other leaves as numpy arrays."""
     path = os.path.join(directory, f"step_{step:010d}")
-    with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
+    with obs.span("checkpoint.restore", cat="checkpoint", step=step):
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
 
-    def leaf(p, like):
-        meta = manifest["leaves"][_key(p)]
-        arr = np.load(os.path.join(path, meta["file"]))
-        return _from_numpy(arr, meta["dtype"], like)
+        def leaf(p, like):
+            meta = manifest["leaves"][_key(p)]
+            arr = np.load(os.path.join(path, meta["file"]))
+            return _from_numpy(arr, meta["dtype"], like)
 
-    return tree_map(leaf, target)
+        return tree_map(leaf, target)
 
 
 def load_ledger(directory: str, step: int) -> Optional[dict[str, np.ndarray]]:
@@ -181,7 +191,8 @@ class CheckpointManager:
         """Fetch ``state`` (and snapshot ``ledger``) now, write it in the
         background; ``block`` waits for the write."""
         self.wait()  # one save in flight
-        flat = _flatten(state)  # host copies, made before the thread runs
+        with obs.span("checkpoint.fetch", cat="checkpoint", step=step):
+            flat = _flatten(state)  # host copies, before the thread runs
         if ledger is not None:
             # a host ledger keeps mutating its arrays while the thread runs
             ledger = {k: np.array(v) for k, v in ledger.items()}

@@ -16,9 +16,18 @@ deterministic ``SyntheticLMStream`` with the trainer's instance ids, and
 ``--ledger-out`` writes the ``.npz`` ledger interchange format that the JAX
 package's ``LossHistory`` and ``device_ledger.state_from_dict`` load.
 
+``--metrics-out``, ``--trace-out`` and ``--metrics-every`` (``repro_torch.obs``)
+write the JAX CLI's telemetry: a ``loop_health`` event every
+``--metrics-every`` engine steps (with the device ledger's EMA drift
+against its host shadow) and a final ``summary`` event holding the
+``--json-out`` summary with the instruments' snapshot under ``metrics``;
+the engine's spans go to a Chrome trace. The summary has the JAX CLI's
+keys (``routed`` false, ``exchange`` "none", ``shards`` 1 on one device)
+and the port's own: ``seconds``, ``device``, ``layers``,
+``guarded_steps``, ``step_ms`` and ``instance_ids``.
+
 Not ported yet: ``--ledger-route``, ``--ledger-exchange`` and
-``--capacity-factor`` (they need the sharded ledger), ``--metrics-out`` and
-``--trace-out`` (they need the telemetry layer).
+``--capacity-factor`` (they need the sharded ledger).
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, obs
 from repro_torch.core.history import HistoryConfig
 from repro_torch.data import DataConfig, SyntheticLMStream
 from repro_torch.models import model as Mdl
@@ -39,7 +48,7 @@ from repro_torch.models.params import materialize
 from repro_torch.serving import Engine, OutcomeRecorder, delayed_outcomes, pad_safe
 
 
-def build_engine(args, cfg, params, device) -> Engine:
+def build_engine(args, cfg, params, device, telemetry=None) -> Engine:
     recorder = OutcomeRecorder(
         args.batch,
         args.gen,
@@ -62,6 +71,7 @@ def build_engine(args, cfg, params, device) -> Engine:
         temperature=args.temperature,
         top_p=args.top_p,
         sample_seed=args.seed,
+        telemetry=telemetry,
     )
 
 
@@ -152,6 +162,7 @@ def parse_args(argv=None):
                     help="warm-start from an .npz state_dict")
     ap.add_argument("--json-out", default="",
                     help="write a run summary as JSON")
+    obs.add_cli_args(ap)
     args = ap.parse_args(argv)
     if args.requests <= 0:
         args.requests = 3 * args.batch
@@ -162,10 +173,11 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     device = torch.device(args.device)
     cfg = configs.get(args.arch, args.smoke, args.layers)
+    telem = obs.from_args(args)
     params = materialize(
         Mdl.param_specs(cfg), args.seed, Mdl.dtype_of(cfg.param_dtype), device
     )
-    engine = build_engine(args, cfg, params, device)
+    engine = build_engine(args, cfg, params, device, telemetry=telem)
 
     if args.ledger_in:
         engine.load_ledger_state_dict(dict(np.load(args.ledger_in)))
@@ -188,13 +200,22 @@ def main(argv=None) -> int:
         if args.outcome_delay else None
     )
 
+    def on_step(eng, metrics):
+        if deliver is not None:
+            deliver(eng, metrics)
+        if telem.events is not None and \
+                eng.steps_run % args.metrics_every == 0:
+            # drift=True reads the device ledger back: the snapshot
+            # cadence, never inside a step
+            telem.event("loop_health", **eng.loop_health(drift=True))
+
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     sync()
     t0 = time.time()
-    stats = engine.run(max_steps=100_000, on_step=deliver)
+    stats = engine.run(max_steps=100_000, on_step=on_step)
     sync()
     dt = time.time() - t0
     tok_s = stats["generated_tokens"] / max(dt, 1e-9)
@@ -223,26 +244,36 @@ def main(argv=None) -> int:
     print("sample generations (token ids):")
     for iid in list(engine.finished)[:2]:
         print("  ", engine.finished[iid][:12].tolist())
+    # one summary for --json-out and the final "summary" event of
+    # --metrics-out
+    summary = dict(
+        stats,
+        tok_per_s=tok_s,
+        waves=waves,
+        ledger=args.ledger,
+        routed=False,  # no routed exchange on one device
+        exchange="none",
+        capacity_factor=None,
+        shards=1,
+        hit_rate=float(seen.mean()),
+        outcome_delay=args.outcome_delay,
+        retention=args.retain,
+        topk=args.topk,
+        retained_bytes_per_slot=bps,
+        health=engine.loop_health(drift=True),
+        seconds=dt,
+        device=str(device),
+        layers=cfg.num_layers,
+        guarded_steps=engine.guarded_steps,
+        step_ms=engine.step_ms,
+        instance_ids=ids.tolist(),
+    )
+    if telem.registry is not None:
+        summary["metrics"] = telem.snapshot()
     if args.json_out:
-        summary = dict(
-            stats,
-            tok_per_s=tok_s,
-            seconds=dt,
-            waves=waves,
-            ledger=args.ledger,
-            hit_rate=float(seen.mean()),
-            outcome_delay=args.outcome_delay,
-            retention=args.retain,
-            topk=args.topk,
-            retained_bytes_per_slot=bps,
-            device=str(device),
-            layers=cfg.num_layers,
-            guarded_steps=engine.guarded_steps,
-            step_ms=engine.step_ms,
-            instance_ids=ids.tolist(),
-        )
         with open(args.json_out, "w") as f:
             json.dump(summary, f)
+    telem.close(summary=summary)
     return 0
 
 

@@ -4,13 +4,13 @@
         --smoke --device cpu --steps 20 --method obftf --ratio 0.25
 
 The single-device path of ``repro.launch.train`` with its flags, printed
-lines and ``--json-out`` names, for the dense, vlm, audio, moe and ssm
-families (the vlm and audio archs train on tokens alone, as the JAX CLI
-feeds no ``prefix_embed``; the moe family's per-example losses carry
-``router_aux_coef`` times the router's load-balancing loss, in the step and
-in the ledger, as in the JAX package; the ssm family's scan takes its
-gradient from the ``ssd_bwd`` kernel on the card; the hybrid family
-raises ``NotImplementedError``):
+lines and ``--json-out`` names, for every family (the vlm and audio archs
+train on tokens alone, as the JAX CLI feeds no ``prefix_embed``; the moe
+family's per-example losses carry ``router_aux_coef`` times the router's
+load-balancing loss, in the step and in the ledger, as in the JAX package;
+the ssm and hybrid families' scan takes its gradient from the ``ssd_bwd``
+kernel on the card, and the hybrid family's ``--layers`` is a multiple of
+its ``hybrid_attn_every``):
   * batches from ``SyntheticLMStream``, or through ``RecycleFeed`` under
     ``--recycle --ledger host``;
   * the OBFTF step (``core.obftf``): selection forward (or recycled
@@ -22,7 +22,14 @@ raises ``NotImplementedError``):
     otherwise the fresh per-example losses go to the host ``LossHistory``;
   * async atomic keep-3 checkpoints with the ledger beside them,
     ``--resume auto``, a final save on SIGTERM/SIGINT, and the step-time
-    straggler watchdog.
+    straggler watchdog;
+  * telemetry (``repro_torch.obs``, the JAX trainer's names):
+    ``--metrics-out`` writes a ``loop_health`` event every
+    ``--metrics-every`` steps and a final ``summary`` event holding the
+    ``--json-out`` summary with the instruments' snapshot under
+    ``metrics``; ``--trace-out`` writes the spans ``train.step`` and
+    ``train.fetch_metrics`` (and the checkpoint manager's) as a Chrome
+    trace.
 
 Added: ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
 versions) and ``--layers`` (cut the depth, keeping the widths). On the
@@ -31,8 +38,7 @@ summary counts those steps in ``guarded_steps``; the metrics are fetched
 once, after the step. The summary's ``moe_dropped_share`` is the share of
 routing choices that expert capacity dropped over the run (null where no
 MoE layer routed any). Not ported: ``--ledger-route``, ``--ledger-exchange``,
-``--capacity-factor`` and ``--model-parallel`` (they need a mesh),
-``--metrics-out``, ``--trace-out`` and ``--metrics-every`` (telemetry).
+``--capacity-factor`` and ``--model-parallel`` (they need a mesh).
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, obs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import device_ledger as dledger
 from repro_torch.core.guard import no_host_sync
@@ -142,6 +148,7 @@ def parse_args(argv=None):
     ap.add_argument("--resume", default="", help="'auto' or a step number")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    obs.add_cli_args(ap)
     return ap.parse_args(argv)
 
 
@@ -159,6 +166,7 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     device = torch.device(args.device)
     cfg = configs.get(args.arch, args.smoke, args.layers)
+    telem = obs.from_args(args)
     print(
         f"arch={cfg.name} layers={cfg.num_layers} device={device} "
         f"global_batch={args.global_batch} method={args.method} "
@@ -274,6 +282,21 @@ def main(argv=None) -> int:
     guarded_steps = 0
     moe.reset_routing_counts()
 
+    # telemetry: bound once; each step updates them from the metrics it
+    # has already read back, so nothing enters the guarded step. No
+    # EMA-drift shadow here: the device-ledger step returns no per-example
+    # arrays, so the loop-health gauges are rates only, as in the JAX
+    # trainer
+    c_steps = telem.counter("trainer.steps")
+    c_straggler = telem.counter("trainer.stragglers")
+    # no routed exchange on one device: bound for the JAX names, stays 0
+    telem.counter("trainer.a2a_overflow")
+    g_loss = telem.gauge("trainer.loss")
+    g_cost = telem.gauge("trainer.step_cost")
+    g_savings = telem.gauge("trainer.step_cost_savings")
+    g_hits = telem.gauge("trainer.ledger_hit_rate")
+    h_step = telem.histogram("trainer.step_ms")
+
     def train_health() -> dict:
         steps_done = len(losses_log)
         return {
@@ -286,8 +309,7 @@ def main(argv=None) -> int:
             "mean_step_cost": float(np.mean(cost_log)) if cost_log else None,
             "ledger_hit_rate": hits_log[-1] if hits_log else None,
             "a2a_overflow_rate": 0.0,  # no routed exchange on one device
-            "straggler_rate": (watchdog.flagged / steps_done
-                               if steps_done else 0.0),
+            "straggler_rate": obs.rate_of(watchdog.flagged, steps_done),
             "step_ms_ema": (watchdog.ema or 0.0) * 1e3,
         }
 
@@ -306,14 +328,15 @@ def main(argv=None) -> int:
                 batch["recorded_loss"] = torch.from_numpy(
                     raw["recorded_loss"]).to(device)
             guard = device.type == "cuda" and step > start_step
-            with no_host_sync(guard):
+            with telem.span("train.step", step=step), no_host_sync(guard):
                 if use_device_ledger:
                     state, led_state, metrics = step_with_ledger(
                         state, led_state, batch, noise)
                 else:
                     state, metrics = step_fn(state, batch, noise)
             guarded_steps += guard
-            metrics = _fetch(metrics)
+            with telem.span("train.fetch_metrics"):
+                metrics = _fetch(metrics)
             dt = time.time() - t0
             step_ms.append(dt * 1e3)
             slow = watchdog.observe(dt)
@@ -330,6 +353,18 @@ def main(argv=None) -> int:
                 hits_log.append(float(raw.get("ledger_hit_rate", 0.0)))
             losses_log.append(metrics["loss"])
             cost_log.append(metrics["step_cost"])
+            c_steps.inc()
+            if slow:
+                c_straggler.inc()
+            g_loss.set(losses_log[-1])
+            g_cost.set(cost_log[-1])
+            g_savings.set(step_cost_savings(cost_log[-1]))
+            h_step.observe(dt * 1e3)
+            if hits_log:
+                g_hits.set(hits_log[-1])
+            if telem.events is not None and \
+                    (step + 1) % args.metrics_every == 0:
+                telem.event("loop_health", **train_health())
             if step % args.log_every == 0 or slow:
                 print(
                     f"step {step:5d} loss={metrics['loss']:.4f} "
@@ -385,9 +420,12 @@ def main(argv=None) -> int:
         "guarded_steps": guarded_steps,
         "step_ms": step_ms,
     }
+    if telem.registry is not None:
+        summary["metrics"] = telem.snapshot()
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(summary, f)
+    telem.close(summary=summary)
     return 0
 
 

@@ -20,10 +20,9 @@ and run by Python loops over those dims.
 Entry points: ``forward_hidden`` (full sequence, with the MoE aux loss
 summed over the layers), ``per_example_loss`` / ``loss_fn`` (the OBFTF
 loss signal, per-token CE through the cross-entropy kernel, plus
-``router_aux_coef`` times the aux loss for MoE; the ssm family's scan
-differentiates through ``kernels.ops.ssd_scan``'s hand-written backward;
-not the hybrid family, which raises ``NotImplementedError``),
-``per_example_signals``
+``router_aux_coef`` times the aux loss for MoE; the ssm and hybrid
+families' scan differentiates through ``kernels.ops.ssd_scan``'s
+hand-written backward), ``per_example_signals``
 (CE, entropy and margin), ``prefill`` (full sequence, builds the decode
 cache) and ``decode_step`` (one token per row against the dense or the
 paged cache).
@@ -43,10 +42,9 @@ from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec, tree_map
 
-# families each entry point runs; training the hybrid family (the shared
-# attention block's gradient through its groups) is the next slice
+# families each entry point runs
 SERVING_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
-TRAINING_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm")
+TRAINING_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 # the families built of attention blocks alone, and those whose attention
 # cache may be paged
 ATTN_FAMILIES = ("dense", "vlm", "audio", "moe")
@@ -55,12 +53,9 @@ PAGED_FAMILIES = ("dense", "vlm", "audio")
 
 def _require(cfg: ModelConfig, families: tuple[str, ...], what: str) -> None:
     if cfg.family not in families:
-        nxt = ("; training the hybrid family, the shared attention block's "
-               "gradient through its groups, is the next slice"
-               if cfg.family == "hybrid" else "")
         raise NotImplementedError(
             f"model family {cfg.family!r}: {what} is not ported to PyTorch "
-            f"yet (ported for {', '.join(families)}){nxt}"
+            f"yet (ported for {', '.join(families)})"
         )
 
 
@@ -197,6 +192,15 @@ def _ssm_layer(x, p, cfg):
                            cfg)
 
 
+def _hybrid_group(x, shared, group, cfg, positions):
+    """One group of the hybrid family: the weight-shared attention block,
+    then the group's ``hybrid_attn_every`` SSM layers."""
+    x, _, _ = _block(x, shared, cfg, positions)
+    for e in range(cfg.hybrid_attn_every):
+        x = _ssm_layer(x, layer(group, e), cfg)
+    return x
+
+
 def forward_hidden(
     params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     prefix: Optional[torch.Tensor] = None,
@@ -204,7 +208,10 @@ def forward_hidden(
     """tokens [B,S] (after a ``prefix`` [B,P,D] where given) ->
     (final-normed hidden states [B,P+S,D], MoE aux loss summed over the
     MoE layers: an f32 scalar, 0 without MoE layers; the ssm family runs
-    its Mamba2 layers).
+    its Mamba2 layers; the hybrid family, for each of its
+    ``num_layers / hybrid_attn_every`` groups, the ONE weight-shared
+    ``shared_attn`` block and then the group's SSM layers, so the shared
+    block's gradient is the sum of its uses, one a group).
 
     With ``cfg.remat`` and autograd recording, each layer runs under
     ``torch.utils.checkpoint``, as the JAX scan wraps its body in
@@ -212,8 +219,11 @@ def forward_hidden(
     the layer's aux loss comes out of the checkpoint with its output, so
     it keeps its gradient. So does the layer's routing count, which is
     added to ``moe.ROUTED`` here: the backward's recompute of the layer
-    adds nothing. The model draws no random numbers, so no RNG state is
-    stashed."""
+    adds nothing. The hybrid family checkpoints each whole group, as the
+    JAX outer scan does (its inner scan has no remat of its own): the
+    backward recomputes one group at a time, the shared block's use in it
+    included, so each SSM layer still runs its scan once a recompute. The
+    model draws no random numbers, so no RNG state is stashed."""
     _require(cfg, TRAINING_FAMILIES, "the full-sequence forward")
     x = embed_tokens(params, cfg, tokens, prefix)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -225,6 +235,15 @@ def forward_hidden(
             x = (checkpoint(_ssm_layer, x, p, cfg, use_reentrant=False,
                             preserve_rng_state=False)
                  if remat else _ssm_layer(x, p, cfg))
+        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+    if cfg.family == "hybrid":
+        shared = params["shared_attn"]
+        for g in range(_groups(cfg)):
+            group = layer(params["blocks"], g)
+            x = (checkpoint(_hybrid_group, x, shared, group, cfg, positions,
+                            use_reentrant=False, preserve_rng_state=False)
+                 if remat else _hybrid_group(x, shared, group, cfg,
+                                             positions))
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
     for key, n in _attn_stacks(cfg):
         for i in range(n):

@@ -27,6 +27,15 @@ reproduced in PyTorch; the two engines agree at temperature 0.
 Control plane (queue, admission, eviction, page accounting) is host Python
 between steps; the data plane is the fused step, which updates the engine's
 tensors in place.
+
+Telemetry (``repro_torch.obs``, the JAX engine's names): the instruments
+are bound once in ``__init__`` and updated from the metrics ``step()``
+reads back after the fused step, so nothing is added inside the guarded
+step; spans time admission, prefill, the fused step, the metrics read,
+deliveries and eviction fetches on the host clock; ``loop_health`` gives
+the loop's rates, and on a device-ledger run with telemetry on, the EMA
+drift of the device ledger against a host ``LossHistory`` fed the rows
+each step read back.
 """
 
 from __future__ import annotations
@@ -40,9 +49,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.device_ledger import mul32
 from repro_torch.core.guard import no_host_sync
-from repro_torch.core.history import LossHistory
+from repro_torch.core.history import AUX_CHANNELS, LossHistory
 from repro_torch.core.scatter import put_rows
 from repro_torch.models import model as Mdl
 from repro_torch.models.config import ModelConfig
@@ -207,6 +217,7 @@ class Engine:
         top_p: float = 1.0,
         sample_seed: int = 0,
         prompt_buckets: Optional[tuple[int, ...]] = None,
+        telemetry: Optional[obs.Telemetry] = None,
     ):
         self.cfg = cfg
         self.params = params
@@ -287,6 +298,37 @@ class Engine:
 
         self._estate = self._init_state()
         self._rstate = recorder.init_state()
+
+        # telemetry: instruments bound once here; each step updates them
+        # from the metrics it has already read back to the host
+        t = telemetry if telemetry is not None else obs.current()
+        self.telemetry = t
+        self._c_steps = t.counter("engine.steps")
+        self._c_tokens = t.counter("engine.generated_tokens")
+        self._c_records = t.counter("engine.ledger_records")
+        self._c_miss = t.counter("engine.topk_miss")
+        # the unsharded ledger takes no a2a exchange: bound for the JAX
+        # names, stays 0
+        t.counter("engine.a2a_overflow")
+        self._c_admitted = t.counter("engine.admitted")
+        self._c_evicted = t.counter("engine.evicted")
+        self._c_deferred = t.counter("engine.deferred_admissions")
+        self._c_missed = t.counter("engine.missed_outcomes")
+        self._g_occupancy = t.gauge("engine.occupancy")
+        self._g_queue = t.gauge("engine.queue_depth")
+        self._h_step_ms = t.histogram("engine.step_ms")
+        # host mirrors of the device record/miss counters, so
+        # loop_health() derives rates without a device read
+        self._records_host = 0
+        self._miss_host = 0
+        # the EMA-drift shadow: a host LossHistory fed the rows the fused
+        # step records on the device, compared in loop_health(drift=True);
+        # device-ledger runs with telemetry on only (a host ledger is its
+        # own shadow)
+        self._shadow: Optional[LossHistory] = (
+            LossHistory(recorder.cfg)
+            if t.enabled and recorder.ledger == "device" else None
+        )
 
     # -- device state --------------------------------------------------------
 
@@ -454,16 +496,21 @@ class Engine:
                     req.expect_labels = False
                     return True
             self.missed_outcomes += 1
+            self._c_missed.inc()
             return False
         limit = self._max_new_of.get(int(instance_id), self.max_gen)
         row = np.full((self.recorder.max_gen,), -1, np.int64)
         labels = np.asarray(labels, np.int64).reshape(-1)
         use = min(labels.size, limit)
         row[:use] = labels[:use]
-        self.missed_outcomes += int((labels[limit:] >= 0).sum())
-        self.recorder.deliver(
-            self._rstate, slot, torch.from_numpy(row).to(self.device)
-        )
+        cut = int((labels[limit:] >= 0).sum())
+        self.missed_outcomes += cut
+        self._c_missed.inc(cut)
+        with self.telemetry.span("engine.deliver", inst=int(instance_id),
+                                 slot=slot):
+            self.recorder.deliver(
+                self._rstate, slot, torch.from_numpy(row).to(self.device)
+            )
         self._await_labels[int(instance_id)] = False
         self._fresh_labels.add(slot)
         return True
@@ -477,6 +524,12 @@ class Engine:
         return self.max_prompt
 
     def _admit(self, req: Request) -> None:
+        with self.telemetry.span("engine.admit", inst=req.instance_id,
+                                 prompt=int(req.prompt.size)):
+            self._admit_inner(req)
+        self._c_admitted.inc()
+
+    def _admit_inner(self, req: Request) -> None:
         slot = self._free.pop()
         pt_row = None
         if self.pool is not None:
@@ -491,17 +544,21 @@ class Engine:
         p = self._bucket(req.prompt.size)
         toks = np.zeros((1, p), np.int32)
         toks[0, : req.prompt.size] = req.prompt
-        logits0, new_cache = Mdl.prefill(
-            self.params, self.cfg, torch.from_numpy(toks).to(self.device),
-            max_seq=self.max_seq,
-            last_pos=torch.full((1,), req.prompt.size - 1, device=self.device),
-        )
+        with self.telemetry.span("engine.prefill", padded_len=p):
+            logits0, new_cache = Mdl.prefill(
+                self.params, self.cfg,
+                torch.from_numpy(toks).to(self.device), max_seq=self.max_seq,
+                last_pos=torch.full((1,), req.prompt.size - 1,
+                                    device=self.device),
+            )
         row = np.full((self.recorder.max_gen,), -1, np.int64)
         if req.labels is not None:
             row[: min(req.labels.size, req.max_new)] = \
                 req.labels[: req.max_new]
             # labels past max_new have no decoded position to score against
-            self.missed_outcomes += int((req.labels[req.max_new:] >= 0).sum())
+            cut = int((req.labels[req.max_new:] >= 0).sum())
+            self.missed_outcomes += cut
+            self._c_missed.inc(cut)
         self._insert(
             new_cache, logits0, slot, req.instance_id, req.prompt.size,
             req.max_new, torch.from_numpy(row).to(self.device), pt_row,
@@ -525,7 +582,8 @@ class Engine:
         ]
         if not done:
             return
-        rows = self._estate.out_toks[[s for _, s, _ in done]].cpu().numpy()
+        with self.telemetry.span("engine.evict_fetch", n=len(done)):
+            rows = self._estate.out_toks[[s for _, s, _ in done]].cpu().numpy()
         cleared: list[int] = []
         for (inst, slot, gen), row in zip(done, rows):
             self.finished[inst] = row[:gen]
@@ -535,6 +593,7 @@ class Engine:
             self._admission_seq.pop(inst, None)
             self._free.append(slot)
             self.evicted += 1
+            self._c_evicted.inc()
             if self.pool is not None:
                 self.pool.release(
                     self._slot_pages.pop(slot), self._slot_reserve.pop(slot)
@@ -566,6 +625,7 @@ class Engine:
                 if (self.pool is not None
                         and not self.pool.fits(self._pages_needed(r)[2])):
                     self.deferred_admissions += 1
+                    self._c_deferred.inc()
                     continue
                 idx = i
                 break
@@ -578,25 +638,86 @@ class Engine:
             self._grow_pages()
         t0 = time.perf_counter()
         guard = self._warm and self.device.type == "cuda"
-        with no_host_sync(guard):
-            metrics = self._fused_step(self._estate, self._rstate)
+        with self.telemetry.span("engine.decode_step",
+                                 occupied=len(self._slot_of)):
+            with no_host_sync(guard):
+                metrics = self._fused_step(self._estate, self._rstate)
         self._warm = True
         self.guarded_steps += guard
-        metrics = self._fetch(metrics)  # waits for the step's device work
+        with self.telemetry.span("engine.fetch_metrics"):
+            metrics = self._fetch(metrics)  # waits for the step's work
         self.step_ms.append((time.perf_counter() - t0) * 1e3)
         self._fresh_labels.clear()
+        signals = np.stack([metrics["entropy"], metrics["margin"]], -1)
         if self.recorder.host_history is not None:
             self.recorder.record_host(
                 metrics["inst"], metrics["loss"], metrics["loss_valid"],
-                self.steps_run + 1,
-                signals=np.stack([metrics["entropy"], metrics["margin"]], -1),
+                self.steps_run + 1, signals=signals,
             )
+        if self._shadow is not None:
+            # the drift shadow: the rows and step number the fused step
+            # recorded on the device, from the metrics already read back
+            v = metrics["loss_valid"]
+            if v.any():
+                self._shadow.record(metrics["inst"][v], metrics["loss"][v],
+                                    self.steps_run + 1, signals=signals[v])
         self._last_metrics = metrics
         self.steps_run += 1
         self.generated_tokens += int(metrics["decoding"].sum())
         if self.pool is not None:
             self._pos_host += metrics["decoding"]
+        self._obs_on_step(metrics, (time.perf_counter() - t0) * 1e3)
         return metrics
+
+    def _obs_on_step(self, metrics: dict, dt_ms: float) -> None:
+        """Update the instruments from one step's metrics, already numpy
+        on the host: plain host arithmetic, no tensor anywhere."""
+        n_rec = int(metrics["loss_valid"].sum())
+        n_miss = int(metrics["topk_miss"].sum())
+        self._records_host += n_rec
+        self._miss_host += n_miss
+        self._c_steps.inc()
+        self._c_tokens.inc(int(metrics["decoding"].sum()))
+        self._c_records.inc(n_rec)
+        self._c_miss.inc(n_miss)
+        self._g_occupancy.set(len(self._slot_of) / self.slots)
+        self._g_queue.set(len(self._queue))
+        self._h_step_ms.observe(dt_ms)
+
+    def loop_health(self, drift: bool = False) -> dict:
+        """The loop's health as rates, the keys of the JAX engine's: the
+        body of the periodic ``--metrics-out`` snapshot and of the
+        summary's ``health``. Host arithmetic on counters the engine keeps;
+        ``drift=True`` also reads the device ledger back and compares it
+        channel by channel with the host shadow (a device read, so at the
+        snapshot cadence, never inside a step)."""
+        steps = self.steps_run
+        attempts = self.admitted + self.deferred_admissions
+        h = {
+            "steps": steps,
+            "occupancy": obs.rate_of(len(self._slot_of), self.slots),
+            "queue_depth": len(self._queue),
+            "admission_rate": obs.rate_of(self.admitted, steps),
+            "eviction_rate": obs.rate_of(self.evicted, steps),
+            "deferral_rate": obs.rate_of(self.deferred_admissions, attempts),
+            "tokens_per_step": obs.rate_of(self.generated_tokens, steps),
+            "records_per_step": obs.rate_of(self._records_host, steps),
+            "topk_miss_frac": obs.rate_of(self._miss_host,
+                                          self._records_host),
+            "a2a_overflow_rate": 0.0,  # the unsharded ledger
+            "missed_outcome_rate": obs.rate_of(
+                self.missed_outcomes,
+                self._records_host + self.missed_outcomes,
+            ),
+        }
+        if self.pool is not None:
+            h.update({f"pool_{k}": v for k, v in self.pool.stats().items()})
+        if drift and self._shadow is not None:
+            h["ledger_drift"] = obs.ledger_drift(
+                self._shadow.state_dict(), self.ledger_state_dict(),
+                AUX_CHANNELS,
+            )
+        return h
 
     def run(self, max_steps: int = 1_000_000, on_step=None) -> dict:
         """Drive until the queue is empty and every slot drained and
@@ -619,6 +740,7 @@ class Engine:
             "generated_tokens": self.generated_tokens,
             "recorded": n_rec,
             "topk_misses": n_miss,
+            "a2a_overflow": 0,  # the unsharded ledger
             "missed_outcomes": self.missed_outcomes,
             "queued": len(self._queue),
             "in_flight": len(self._slot_of),

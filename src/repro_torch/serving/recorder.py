@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import device_ledger as dledger
 from repro_torch.core.history import HistoryConfig, LossHistory
 from repro_torch.core.scatter import put_rows
@@ -291,11 +292,12 @@ class OutcomeRecorder:
         """The ledger="host" record (host side, numpy)."""
         v = np.asarray(valid, bool)
         if v.any():
-            self.host_history.record(
-                np.asarray(ids, np.int64)[v], np.asarray(losses)[v], step,
-                signals=None if signals is None
-                else np.asarray(signals, np.float32)[v],
-            )
+            with obs.span("recorder.record_host", n=int(v.sum())):
+                self.host_history.record(
+                    np.asarray(ids, np.int64)[v], np.asarray(losses)[v],
+                    step, signals=None if signals is None
+                    else np.asarray(signals, np.float32)[v],
+                )
 
     def counters(self, state: RecorderState) -> tuple[int, int]:
         """(n_recorded, n_miss) in one device read."""

@@ -607,3 +607,133 @@ def test_ssd_bwd_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ops.ssd_bwd(x, dt, a, b, c, states, torch.ones_like(x), None, 16,
                     impl="cuda")
+
+
+class _HostDraws:
+    """Selection draws made on the host from one seed and moved to
+    ``device``, so the card's and the CPU's steps select with equal
+    numbers."""
+
+    def __init__(self, device, seed):
+        self.device = device
+        self.g = torch.Generator().manual_seed(seed)
+
+    def permutation(self, n):
+        return torch.randperm(n, generator=self.g).to(self.device)
+
+    def gumbel(self, n):
+        e = torch.empty(n).exponential_(generator=self.g)
+        return (-torch.log(e)).to(self.device)
+
+    def normal(self):
+        return torch.randn((), generator=self.g).to(self.device)
+
+
+# one step's grads, card vs CPU in f32, leaf by leaf (chip_smoke.py's
+# REF_GRAD_*): |card - cpu| <= atol * max|cpu| + rtol * |cpu|
+REF_GRAD_ATOL, REF_GRAD_RTOL = 1e-4, 1e-3
+
+
+@pytest.mark.gpu
+def test_hybrid_smoke_train_step_card_matches_cpu(cuda):
+    """zamba2-2.7b's smoke config (two groups, each led by the shared
+    attention block) in f32: one OBFTF step with a selection forward and
+    AdamW on the card (xent, ssd and ssd_bwd kernels) and on the CPU
+    (plain versions), with the same weights, batch and draws: equal kept
+    rows, losses within rtol 1e-5, and the grads of the kept rows' loss
+    within REF_GRAD_* leaf by leaf, ``shared_attn``'s included."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.obftf import (OBFTFConfig, loss_and_grads,
+                                        make_train_step, model_inputs)
+    from repro_torch.core.selection import SelectionConfig
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import build_optimizer
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.params import materialize, tree_leaves, tree_map
+
+    cfg = dataclasses.replace(configs.get_smoke("zamba2-2.7b"),
+                              param_dtype="float32", compute_dtype="float32")
+    raw = SyntheticLMStream(DataConfig(16, 24, cfg.vocab_size,
+                                       seed=3)).batch(0)
+    weights = materialize(Mdl.param_specs(cfg), 0, torch.float32, "cpu")
+    runs = []
+    for device in (cuda, torch.device("cpu")):
+        ops.reset_launches()
+        opt = build_optimizer(1e-3, 2)
+        step_fn = make_train_step(Mdl.loss_fn(cfg), opt, OBFTFConfig(
+            SelectionConfig(method="obftf", ratio=0.25)))
+        params = tree_map(lambda _, x: x.to(device), weights)
+        batch = {k: torch.from_numpy(raw[k]).to(device)
+                 for k in ("tokens", "labels")}
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=device)}
+        _, m = step_fn(state, batch, _HostDraws(device, 7))
+        kept = m["selected"].cpu()
+        _, g = loss_and_grads(Mdl.loss_fn(cfg), params, model_inputs(
+            {k: v[kept.to(device)] for k, v in batch.items()}))
+        runs.append((m["per_example_loss"].cpu(), kept,
+                     tree_map(lambda _, x: x.detach().cpu(), g),
+                     dict(ops.LAUNCHES)))
+    (la, ka, ga, na), (lb, kb, gb, nb) = runs
+    assert min(na[k] for k in ("ssd", "ssd_bwd", "xent_fwd",
+                               "xent_bwd")) > 0, na
+    assert not any(nb.values()), nb
+    assert torch.equal(ka, kb)
+    torch.testing.assert_close(la, lb, rtol=1e-5, atol=0.0)
+    names = []
+
+    def paths(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                paths(v, f"{prefix}{k}/")
+            else:
+                names.append(prefix + k)
+
+    paths(ga)
+    assert "shared_attn/attn/wq" in names
+    for name, a, b in zip(names, tree_leaves(ga), tree_leaves(gb)):
+        lim = REF_GRAD_ATOL * b.abs().max() + REF_GRAD_RTOL * b.abs()
+        assert ((a - b).abs() <= lim).all(), \
+            f"{name}: err {(a - b).abs().max().item()}"
+        assert a.abs().max() > 0, name
+
+
+@pytest.mark.gpu
+def test_sync_guard_holds_on_warm_serve_steps_with_telemetry_on(cuda,
+                                                                tmp_path):
+    """The serve CLI on the smoke config with ``--metrics-out`` and
+    ``--trace-out``: every warm fused step runs under the sync guard, the
+    kernels launch, and the JSONL and the trace hold what the JAX CLI
+    writes."""
+    import json
+
+    from repro_torch import obs
+    from repro_torch.launch import serve
+
+    m, t, j = (str(tmp_path / n) for n in ("m.jsonl", "t.json", "s.json"))
+    ops.reset_launches()
+    try:
+        assert serve.main([
+            "--arch", "llama3-8b", "--smoke", "--device", "cuda",
+            "--batch", "4", "--requests", "8", "--prompt-len", "16",
+            "--gen", "8", "--page-size", "4", "--retain", "topk", "--topk",
+            "16", "--ledger", "device", "--metrics-out", m, "--trace-out",
+            t, "--metrics-every", "4", "--json-out", j]) == 0
+    finally:
+        obs.install(obs.OFF)
+    with open(j) as f:
+        s = json.load(f)
+    assert s["guarded_steps"] == s["steps"] - 1 > 0
+    assert ops.LAUNCHES["paged_decode_attn"] > 0
+    assert ops.LAUNCHES["topk_lse"] == s["steps"] + s["admitted"]
+    rows = obs.read_jsonl(m)
+    kinds = [r["kind"] for r in rows]
+    assert kinds.count("summary") == 1 and kinds[-1] == "summary"
+    health = [r for r in rows if r["kind"] == "loop_health"]
+    assert health and all(r["ledger_drift"]["ema"] < 1e-4 for r in health)
+    assert rows[-1]["metrics"]["counters"]["engine.steps"] == s["steps"]
+    assert {"engine.admit", "engine.prefill", "engine.decode_step",
+            "engine.fetch_metrics", "engine.evict_fetch"} <= \
+        {e["name"] for e in obs.load_trace(t)}

@@ -201,22 +201,18 @@ def test_prefill_and_decode_match_jax(weights, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_and_paging_still_refuse_the_family(arch):
-    """Their caches are not paged, as in the JAX package: the serve CLI's
-    ``--page-size`` refuses both families. The ssm family trains (its
-    scan's gradient is ``ops.ssd_bwd``; tests/test_torch_ssm_train.py), so
-    ``loss_fn`` builds for mamba2-370m; training the hybrid family is a
-    later slice, and the model and the train CLI refuse zamba2-2.7b."""
+    """Their caches are not paged, as in the JAX package: the model and the
+    serve CLI's ``--page-size`` refuse both families. Both train (the
+    scan's gradient is ``ops.ssd_bwd``; tests/test_torch_ssm_train.py and
+    tests/test_torch_hybrid_train.py): ``loss_fn`` builds and the train
+    CLI takes a step on the smoke config."""
     from repro_torch.launch import serve, train
 
     cfg = configs.get_smoke(arch)
-    if cfg.family == "ssm":
-        assert callable(M.loss_fn(cfg))
-    else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            M.loss_fn(cfg)
-        with pytest.raises(NotImplementedError, match="next slice"):
-            train.main(["--arch", arch, "--smoke", "--device", "cpu",
-                        "--steps", "1"])
+    assert callable(M.loss_fn(cfg))
+    assert train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--steps", "1", "--global-batch", "4", "--seq-len",
+                       "8"]) == 0
     with pytest.raises(NotImplementedError, match="family"):
         M.init_paged_cache(cfg, 4, 4, "cpu")
     with pytest.raises(NotImplementedError, match="family"):

@@ -17,7 +17,8 @@ holds the kept rows' grads), in the modes of
 exact, grads (the optimizer state) rtol 1e-4 atol 1e-6, params atol 1e-6
 (an update of lr = 0.05 times the grads), the device ledger
 through ``assert_ledger_states_close``. Then the same grads with and
-without remat, the no-grad scan that keeps nothing, and the train CLI.
+without remat, the no-grad scan that keeps nothing, and the train CLI on
+the ssm and the hybrid family.
 
 The bf16 backward kernel's plan, before any card: its arithmetic written
 out in torch with the kernel's rounding points (bf16 operands exact, each
@@ -47,6 +48,7 @@ from repro.data import DataConfig, SyntheticLMStream
 from repro.models import model as JM
 from repro.models import ssm as JS
 from repro.models.params import materialize as jmaterialize
+from repro_torch import configs
 from repro_torch import optim as O
 from repro_torch.core import device_ledger as tled
 from repro_torch.core import obftf as OB
@@ -515,11 +517,15 @@ def test_remat_gives_the_same_grads(setup):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
-def test_train_cli_runs_the_family_with_the_jax_json_names(tmp_path, capsys):
+@pytest.mark.parametrize("arch", [ARCH, "zamba2-2.7b"])
+def test_train_cli_runs_the_family_with_the_jax_json_names(arch, tmp_path,
+                                                           capsys):
+    """The train CLI on the ssm (mamba2-370m) and hybrid (zamba2-2.7b)
+    smoke configs, with the JAX trainer's summary names."""
     from test_torch_train import _jax_summary_names
 
     out = tmp_path / "run.json"
-    assert train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+    assert train.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--steps", "3", "--global-batch", "8", "--seq-len",
                        str(SEQ), "--log-every", "1", "--json-out",
                        str(out)]) == 0
@@ -527,7 +533,8 @@ def test_train_cli_runs_the_family_with_the_jax_json_names(tmp_path, capsys):
     names = _jax_summary_names()
     assert names["summary"] <= set(s)
     assert names["health"] == set(s["health"])
-    assert s["steps"] == 3 and s["layers"] == CFG.num_layers
+    assert s["steps"] == 3
+    assert s["layers"] == configs.get_smoke(arch).num_layers
     assert s["mean_step_cost"] == pytest.approx(1.75)
     assert s["moe_dropped_share"] is None
     assert np.isfinite([s["loss_first"], s["loss_last"]]).all()
