@@ -59,6 +59,15 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    device ledger's EMA drift against its host shadow under 1e-4, one
    ``summary`` whose engine counters equal the run's, and the engine's
    spans in the trace; its tok/s beside phase 4's;
+5b. routed serves (A) — phase 4's serve with ``--ledger-route`` over a data
+   axis of one rank on NCCL, once with ``--ledger-exchange gather`` and once
+   with ``a2a --capacity-factor 0.125`` (one row of 8, so 7 records a step
+   take the residual round): phase 4's gates, the sync guard on every warm
+   step with the collectives inside it, phase 4's tokens and
+   ``--ledger-out`` table field for field, the kernels launched as often,
+   the JAX summary's routing keys and an overflow count above 0 under
+   a2a; then the a2a serve profiled as in phase 5 (launches and NCCL
+   events a step beside phase 5's);
 6. reference — the same engine on the smoke config in float32, once on the
    card (kernels) and once on the CPU (plain versions): equal tokens and
    ledgers agreeing to 1e-5; then two OBFTF train steps of the smoke config
@@ -96,6 +105,16 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    (the ledger also by device span, by the wrapper's host cost and by the
    profiler's kernel time); then the ledger's device span at batches of 32
    to 32768 at both capacities, each beside its bound;
+7a. sharded ops (B) — four ranks, spawned processes sharing the one card
+   through gloo (NCCL refuses two ranks on one GPU; the tables stay on the
+   card and the collectives stage through host memory), run the five ops
+   and ``record_priority`` for 5 steps at capacity 65,536 (16,384 slots a
+   rank), 32 items a rank, on a balanced and a home-skewed stream, under
+   pinned, gather and a2a at capacity factors 4, 1.25 and 0.125: every
+   answer and table equal to the single card table fed the global batch
+   (the pinned table to four single tables, one a segment), the overflow
+   count equal to the stream's items past capacity, the ledger kernel
+   launched 5 times a rank on the pinned and gather paths; each op's span;
 8. train — ``repro_torch.launch.train.main`` at the full width of
    llama3-8b cut to 8 of 32 layers (bf16, random weights from seed 0),
    global batch 32 × 128 tokens, obftf at ratio 0.25, AdamW: (a) 4 steps
@@ -103,7 +122,10 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    --instance-pool 64``. Every warm step runs with host syncs made errors;
    every loss must be finite, each new kernel must launch in the run that
    uses it, (b) must cost 0.75 forwards a step and leave the kept rows in
-   the ledger; the steady step time and peak memory are printed;
+   the ledger; the steady step time and peak memory are printed; (C) run
+   (b) again with ``--ledger-route --ledger-exchange a2a``: on one rank the
+   single table, so the JAX summary's keys, ``exchange`` "a2a",
+   ``a2a_overflow`` 0, (b)'s launches and (b)'s losses;
 9. train profile — run (a)'s configuration again, two warm steps timed by
    the host clock and two under torch.profiler;
 10. the other dense archs — deepseek-7b (30 layers, MHA), qwen3-14b (40,
@@ -739,9 +761,10 @@ def kernel_ms(torch, fn, n: int = 10) -> dict:
     """Device time of ``fn``'s kernels by name: torch.profiler over ``n``
     calls after a warm-up -> {name: (ms per launch, launches seen)}, each
     name's time over the launches of it that the profiler saw. It may see
-    fewer than were made: in a process that ran the serve profiles first,
-    it saw 5 or 6 of the ledger kernel's 10. Every kernel this is used on
-    launches once a call, so ms per launch is ms per call."""
+    fewer than were made: once the process has run the serve profiles,
+    each profiler run loses a few launches, and a run of ten ledger calls
+    has lost some or all of its ten. Every kernel this is used on launches
+    once a call, so ms per launch is ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1316,7 +1339,9 @@ def serve_phase(torch, ops, tmp: str, argv=SERVE_ARGV,
     """``launch.serve.main(argv)`` with every launch count set to 0 just
     before and read just after: every request finishes, the warm fused
     steps run under the sync guard, each of ``kernels`` launches and the
-    ledger holds every instance id."""
+    ledger holds every instance id. The summary comes back with the
+    generated tokens of each request (``tokens``, read off the CLI's
+    engine) and the ``--ledger-out`` table (``ledger``)."""
     from repro_torch.core.history import HistoryConfig, LossHistory
     from repro_torch.launch import serve
 
@@ -1325,10 +1350,23 @@ def serve_phase(torch, ops, tmp: str, argv=SERVE_ARGV,
     ledger_path = os.path.join(tmp, "ledger.npz")
     argv = list(argv) + ["--json-out", summary_path,
                          "--ledger-out", ledger_path]
+    engines = []
+    build = serve.build_engine
+
+    def keep(*a, **k):
+        engines.append(build(*a, **k))
+        return engines[-1]
+
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    serve.main(argv)
+    serve.build_engine = keep
+    try:
+        serve.main(argv)
+    finally:
+        serve.build_engine = build
     launches = dict(ops.LAUNCHES)
+    tokens = {int(i): t.tolist() for i, t in engines[0].finished.items()}
+    del engines
     with open(summary_path) as f:
         summary = json.load(f)
     if summary["guarded_steps"] != summary["steps"] - 1:
@@ -1343,14 +1381,70 @@ def serve_phase(torch, ops, tmp: str, argv=SERVE_ARGV,
         raise AssertionError(f"a serving kernel never launched: {launches}")
     import numpy as np
 
+    ledger = dict(np.load(ledger_path))
     hist = LossHistory(HistoryConfig())
-    hist.load_state_dict(dict(np.load(ledger_path)))
+    hist.load_state_dict(ledger)
     ema, seen = hist.lookup(np.asarray(summary["instance_ids"]))
     if not seen.all() or not np.isfinite(ema).all():
         raise AssertionError("ledger misses an instance id or holds non-finite")
     summary["launches"] = launches
     summary["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    summary["tokens"] = tokens
+    summary["ledger"] = ledger
     return summary
+
+
+# phase A: phase 4's serve with the ledger routed over a data axis of one
+# rank (NCCL); at 8 slots a capacity factor of 0.125 leaves one row, so
+# every other record of a step takes the a2a residual round
+ROUTED_ARGV = {
+    "gather": ["--ledger-route", "--ledger-exchange", "gather"],
+    "a2a": ["--ledger-route", "--ledger-exchange", "a2a",
+            "--capacity-factor", "0.125"],
+}
+
+
+def routed_serve_phase(torch, ops, tmp: str, base: dict) -> tuple:
+    """Phase 4's serve (``base``) again under ``--ledger-route``, once per
+    exchange of ``ROUTED_ARGV``: phase 4's gates (the sync guard on every
+    warm step, each kernel's launches), then the same tokens, the same
+    ``--ledger-out`` table field for field, the kernels launched as often
+    as in ``base``, the JAX summary's routing keys, and an overflow count
+    above 0 under a2a -> (summaries, lines)."""
+    import numpy as np
+
+    out, lines = {}, []
+    for name, extra in ROUTED_ARGV.items():
+        t0 = time.perf_counter()
+        r = serve_phase(torch, ops, tmp, SERVE_ARGV + extra)
+        serve_gates(r, 32)
+        want = dict(routed=True, exchange=name, shards=1,
+                    capacity_factor=0.125 if name == "a2a" else 1.25)
+        if {k: r[k] for k in want} != want:
+            raise AssertionError(f"routed {name} summary: {r}")
+        if r["tokens"] != base["tokens"]:
+            raise AssertionError(f"routed {name}: tokens differ from the "
+                                 "unrouted serve's")
+        for k, v in base["ledger"].items():
+            if not np.array_equal(r["ledger"][k], v):
+                raise AssertionError(f"routed {name}: ledger {k} differs "
+                                     "from the unrouted serve's")
+        for k in SERVE_KERNELS:
+            if r["launches"][k] != base["launches"][k]:
+                raise AssertionError(f"routed {name}: {k} launched "
+                                     f"{r['launches'][k]} times, unrouted "
+                                     f"{base['launches'][k]}")
+        if (r["a2a_overflow"] > 0) != (name == "a2a"):
+            raise AssertionError(f"routed {name}: a2a_overflow "
+                                 f"{r['a2a_overflow']}")
+        out[name] = r
+        lines.append(
+            f"{serve_line(f'routed serve ({name}): llama3-8b 32 layers', r)}"
+            f"; a2a_overflow {r['a2a_overflow']} of {r['recorded']} records"
+            f"; unrouted step ms median {_median(base['step_ms']):.2f}; "
+            f"tokens and ledger equal to the unrouted serve's; "
+            f"{time.perf_counter() - t0:.1f} s")
+    return out, lines
 
 
 def telemetry_serve_phase(torch, ops, tmp: str, base: dict) -> tuple:
@@ -1482,8 +1576,31 @@ KERNEL_GROUPS = (("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("ssd", ("ssd_scan",)), ("ssd_bwd", ("ssd_bwd",)),
                  ("decode_attn", ("dense_decode",)),
                  ("paged_decode_attn", ("paged_decode",)),
-                 ("topk_lse", ("topk",)),
+                 ("topk_lse", ("topk",)), ("nccl", ("nccl",)),
                  ("elementwise", ("elementwise",)), ("reduce", ("reduce",)))
+
+
+# each wrapper of kernels.ops -> a piece of the device names of its kernels
+KERNEL_NAMES = {"topk_lse": "topk_lse_kernel",
+                "paged_decode_attn": "paged_decode",
+                "decode_attn": "dense_decode", "ssd": "ssd_scan",
+                "ssd_bwd": "ssd_bwd", "xent_fwd": "xent_fwd_kernel",
+                "xent_bwd": "xent_bwd_kernel",
+                "ledger_record_priority": "ledger_tiles"}
+
+
+def _seen(torch, prof, made: dict) -> str:
+    """How many of the hand-written kernels' launches the profiler saw,
+    beside the wrappers' calls made under it (``made``; ssd and ssd_bwd
+    launch several kernels a call, the others one)."""
+    seen = {k: 0 for k in made}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k in made:
+                if KERNEL_NAMES[k] in e.key:
+                    seen[k] += e.count
+    return ", ".join(f"{k} {seen[k]} for {n} calls"
+                     for k, n in made.items() if n)
 
 
 def _kernel_groups(torch, prof, n) -> str:
@@ -1509,7 +1626,9 @@ def profile_phase(torch, argv=SERVE_ARGV) -> str:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_elastic_mesh
     from repro_torch.models import model as Mdl
     from repro_torch.models.params import materialize
 
@@ -1518,7 +1637,9 @@ def profile_phase(torch, argv=SERVE_ARGV) -> str:
     cfg = configs.get(args.arch, layers=args.layers)
     params = materialize(Mdl.param_specs(cfg), args.seed, torch.bfloat16,
                          "cuda")
-    eng = serve.build_engine(args, cfg, params, torch.device("cuda"))
+    mesh = make_elastic_mesh() if args.ledger_route else None
+    eng = serve.build_engine(args, cfg, params, torch.device("cuda"),
+                             mesh=mesh)
     serve.submit_stream(eng, args, cfg)
     for _ in range(3):  # admit the first wave and warm up
         eng.step()
@@ -1529,19 +1650,28 @@ def profile_phase(torch, argv=SERVE_ARGV) -> str:
         eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    before = dict(ops.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             eng.step()
         torch.cuda.synchronize()
+    seen = _seen(torch, prof, {k: v - before[k]
+                               for k, v in ops.LAUNCHES.items()})
     device_ms, launches, tops = _profile_summary(torch, prof, n)
     groups = _kernel_groups(torch, prof, n)
+    # the routed ledger's collectives, host and device events alike
+    nccl = sum(e.count for e in prof.key_averages()
+               if "nccl" in e.key.lower()) / n
     del eng, params
+    if mesh is not None:
+        mesh.close()
     return (f"steady decode step {wall_ms:.2f} ms host wall (8 slots), "
             f"device busy {device_ms:.2f} ms/step "
             f"({100 * device_ms / wall_ms:.1f}%), {launches:.0f} kernel "
-            f"launches/step; device ms/step by kind: {groups}; top device "
-            f"ms/step: {tops}")
+            f"launches/step, {nccl:.0f} NCCL events/step; device ms/step "
+            f"by kind: {groups}; top device ms/step: {tops}; kernel launches "
+            f"the profiler saw: {seen}")
 
 
 def prefill_phase(torch, arch="zamba2-2.7b", layers=0, length=300,
@@ -2039,6 +2169,7 @@ def ledger_batch(torch, cap, b, seed):
 LEDGER_CAPS = (65536, 1 << 18)
 LEDGER_CHECKS = ((65536, 32), (65536, 512), (1 << 18, 32), (1 << 18, 32768))
 LEDGER_SWEEP = (32, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
+LEDGER_PROFILED = 100  # calls the profiler records at B = 32
 
 
 def ledger_span_ms(torch, fn, n: int = 20) -> float:
@@ -2149,19 +2280,27 @@ def ledger_phase(torch, ops, ref) -> tuple[dict, str]:
                 at32[cap] = dict(
                     ms=time_ms(call), host_ms=ledger_host_ms(torch, call),
                     plain_ms=time_ms(lambda call=call: call("ref")),
-                    dev=next(v for k, v in kernel_ms(torch, call).items()
-                             if "ledger" in k))
+                    # (ms, launches seen of LEDGER_PROFILED): a long run,
+                    # so the few launches a profiler run loses leave most
+                    dev=next((v for k, v in kernel_ms(
+                        torch, call, LEDGER_PROFILED).items()
+                        if "ledger" in k), (None, 0)))
+                if at32[cap]["dev"][1] == 0:
+                    raise AssertionError(
+                        f"the profiler saw none of the ledger kernel's "
+                        f"launches at capacity {cap}")
     lines = []
     for cap in LEDGER_CAPS:
         pts = [f"B={b} {sweep[cap, b]:.4f} (bound "
                f"{ledger_bound(cap, b)[0]:.5f}, tiles "
                f"{tile_plan(cap, b)[0]})" for b in LEDGER_SWEEP]
         a = at32[cap]
+        dev = f"{a['dev'][0]:.4f} ms"
         lines.append(
             f"ledger at capacity {cap}: device span per call in ms: "
             + "; ".join(pts) + f"; at B=32 eager {a['ms']:.4f} ms, host "
-            f"{a['host_ms']:.4f} ms, kernel (profiler) {a['dev'][0]:.4f} ms "
-            f"({a['dev'][1]} of 10 launches seen), plain "
+            f"{a['host_ms']:.4f} ms, kernel (profiler) {dev} "
+            f"({a['dev'][1]} of {LEDGER_PROFILED} launches seen), plain "
             f"{a['plain_ms']:.4f} ms")
     cap, b = cfg.capacity, 32
     a = at32[cap]
@@ -2178,6 +2317,329 @@ def ledger_phase(torch, ops, ref) -> tuple[dict, str]:
                f"(capacity, B) in {list(LEDGER_CHECKS)}, both variant "
                f"names; no single PyTorch call does this transaction"),
     ), "\n".join(lines)
+
+
+# phase B: the sharded ledger's ops on four ranks that share the one card
+# through gloo (NCCL refuses two ranks on one GPU); the tables live on the
+# card, and the collectives stage through host memory
+SHARD_WORLD, SHARD_CAP, SHARD_B, SHARD_STEPS = 4, 65536, 32, 5
+SHARD_PLACEMENTS = {  # name -> (route, exchange, capacity_factor)
+    "pinned": (False, "gather", 1.25),
+    "gather": (True, "gather", 1.25),
+    "a2a-4": (True, "a2a", 4.0),  # cap = B: no residual round to run
+    "a2a-1.25": (True, "a2a", 1.25),
+    "a2a-0.125": (True, "a2a", 0.125),
+}
+SHARD_STREAMS = ("balanced", "skewed")
+SHARD_OPS = ("record", "lookup", "lookup_signals", "priority",
+             "record_priority")
+SHARD_FIELDS = ("rec_ids", "rec_loss", "rec_valid", "rec_sig", "read_ids",
+                "rp_ids", "rp_loss", "rp_valid", "rp_sig")
+
+
+def shard_home(ids):
+    from repro_torch.core.history import slot_for
+
+    return slot_for(ids, SHARD_CAP) // (SHARD_CAP // SHARD_WORLD)
+
+
+def shard_stream(stream: str) -> list[dict]:
+    """SHARD_STEPS global batches of SHARD_WORLD * SHARD_B items (rank r's
+    segment at [r*B, (r+1)*B)): ``balanced`` gives every segment B/4 ids
+    of each home rank, ``skewed`` homes every id to rank 1; ids come from a
+    hot pool of 24 a home (repeats across steps) and a wide one (slot
+    collisions), and each step repeats an id across ranks 0 and 1 and one
+    inside rank 0."""
+    import numpy as np
+
+    w, b = SHARD_WORLD, SHARD_B
+    ids = np.arange(1, 8 * SHARD_CAP, dtype=np.int64)
+    home = shard_home(ids)
+    rs = np.random.default_rng(11)
+    hot, wide = [], []
+    for h in range(w):
+        mine = rs.permutation(ids[home == h])
+        hot.append(mine[:24])
+        wide.append(mine[24:24 + 3 * SHARD_CAP // w])
+    rs = np.random.default_rng(12 + (stream == "skewed"))
+
+    def ids_for(homes):
+        pick = rs.random(homes.size) < 0.6
+        return np.asarray([rs.choice(hot[h]) if p else rs.choice(wide[h])
+                           for h, p in zip(homes, pick)], np.int64)
+
+    def batch():
+        homes = (np.concatenate([rs.permutation(np.repeat(np.arange(w),
+                                                          b // w))
+                                 for _ in range(w)])
+                 if stream == "balanced" else np.ones(w * b, np.int64))
+        out = ids_for(homes)
+        out[b], out[5] = out[0], out[2]
+        return out
+
+    steps = []
+    n = w * b
+    for _ in range(SHARD_STEPS):
+        rec = batch()
+        read = rec.copy()
+        fresh = rs.random(n) < 0.25
+        read[fresh] = ids_for(rs.integers(0, w, int(fresh.sum())))
+        steps.append(dict(
+            rec_ids=rec, rec_loss=(rs.random(n) * 5).astype(np.float32),
+            rec_valid=rs.random(n) < 0.75,
+            rec_sig=rs.standard_normal((n, 2)).astype(np.float32),
+            read_ids=rs.permutation(read), rp_ids=batch(),
+            rp_loss=(rs.random(n) * 5).astype(np.float32),
+            rp_valid=rs.random(n) < 0.75,
+            rp_sig=rs.standard_normal((n, 2)).astype(np.float32)))
+    return steps
+
+
+def shard_overflow(ids, active, cap: int) -> int:
+    """Items past ``cap`` rows a (sending rank, home), over the group."""
+    import numpy as np
+
+    n = 0
+    for r in range(SHARD_WORLD):
+        seg = slice(r * SHARD_B, (r + 1) * SHARD_B)
+        counts = np.bincount(shard_home(ids[seg])[active[seg]],
+                             minlength=SHARD_WORLD)
+        n += int(np.maximum(counts - cap, 0).sum())
+    return n
+
+
+def _ledger_rank(rank: int, store: str, out_dir: str, src: str) -> None:
+    """One rank of phase B: joins the gloo group, runs every op of every
+    placement on both streams with its table slice on the card, and saves
+    its answers, overflow counts, ledger kernel launches and op spans."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, src)
+    from repro_torch.core.history import HistoryConfig
+    from repro_torch.distributed.ledger import sharded_ledger_ops
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_elastic_mesh
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, SHARD_WORLD), rank=rank,
+        world_size=SHARD_WORLD, timeout=datetime.timedelta(seconds=120))
+    mesh = make_elastic_mesh(device="cuda:0")
+    seg = slice(rank * SHARD_B, (rank + 1) * SHARD_B)
+    out = {}
+    for stream in SHARD_STREAMS:
+        steps = shard_stream(stream)
+        for name, (route, exchange, cf) in SHARD_PLACEMENTS.items():
+            led = sharded_ledger_ops(mesh, HistoryConfig(capacity=SHARD_CAP),
+                                     route=route, exchange=exchange,
+                                     capacity_factor=cf)
+            st = led.init()
+            key = f"{stream}/{name}"
+            spans = {op: [] for op in SHARD_OPS}
+            ops.reset_launches()
+            for t, g in enumerate(steps, start=1):
+                x = {k: torch.from_numpy(np.ascontiguousarray(
+                    g[k][seg])).cuda() for k in SHARD_FIELDS}
+                step = torch.full((), t, dtype=torch.int32, device="cuda")
+
+                def timed(op, *a, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = getattr(led, op)(*a, **k)
+                    torch.cuda.synchronize()
+                    spans[op].append((time.perf_counter() - t0) * 1e3)
+                    return res
+
+                st, s1 = timed("record", st, x["rec_ids"], x["rec_loss"],
+                               step, x["rec_valid"], signals=x["rec_sig"],
+                               return_stats=True)
+                ema, seen = timed("lookup", st, x["read_ids"])
+                e2, sig, seen2 = timed("lookup_signals", st, x["read_ids"])
+                pri = timed("priority", st, x["read_ids"], step)
+                st, pri2, s2 = timed(
+                    "record_priority", st, x["rp_ids"], x["rp_loss"], step,
+                    x["rp_valid"], signals=x["rp_sig"], return_stats=True)
+                for k, v in dict(ema=ema, seen=seen, ema2=e2, sig=sig,
+                                 seen2=seen2, pri=pri, pri2=pri2,
+                                 ovf_rec=s1["a2a_overflow"],
+                                 ovf_rp=s2["a2a_overflow"]).items():
+                    out[f"{key}/{t}/{k}"] = v.cpu().numpy()
+            out[f"{key}/launches"] = np.int64(
+                ops.LAUNCHES["ledger_record_priority"])
+            for op, ms in spans.items():
+                out[f"{key}/span/{op}"] = np.asarray(ms)
+            for k, v in led.state_dict(st).items():
+                out[f"{key}/sd/{k}"] = np.asarray(v)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+def _shard_reference(torch, stream: str, route: bool, plain: bool):
+    """The single tables on the card that phase B's tables must equal: the
+    global table fed the global batch (``route``) or one table of C/4 slots
+    a rank fed its segment. ``plain`` records ``record_priority`` as record
+    then priority (the a2a path's write), else through the ledger kernel
+    -> (per step the answers over the global batch, the export table)."""
+    import numpy as np
+
+    from repro_torch.core import device_ledger as dl
+    from repro_torch.core.history import HistoryConfig
+
+    w, b = SHARD_WORLD, SHARD_B
+    parts = ([(HistoryConfig(capacity=SHARD_CAP), slice(0, w * b))] if route
+             else [(HistoryConfig(capacity=SHARD_CAP // w),
+                    slice(r * b, (r + 1) * b)) for r in range(w)])
+    states = [dl.init_state(cfg, "cuda") for cfg, _ in parts]
+    answers = []
+    for t, g in enumerate(shard_stream(stream), start=1):
+        per = []
+        for j, (cfg, seg) in enumerate(parts):
+            x = {k: torch.from_numpy(np.ascontiguousarray(g[k][seg])).cuda()
+                 for k in SHARD_FIELDS}
+            st = dl.record(cfg, states[j], x["rec_ids"], x["rec_loss"], t,
+                           valid=x["rec_valid"], signals=x["rec_sig"])
+            ema, seen = dl.lookup(st, x["read_ids"])
+            e2, sig, seen2 = dl.lookup_signals(st, x["read_ids"])
+            pri = dl.priority(cfg, st, x["read_ids"], t)
+            if plain:
+                st = dl.record(cfg, st, x["rp_ids"], x["rp_loss"], t,
+                               valid=x["rp_valid"], signals=x["rp_sig"])
+                pri2 = dl.priority(cfg, st, x["rp_ids"], t)
+            else:
+                st, pri2 = dl.record_priority(
+                    cfg, st, x["rp_ids"], x["rp_loss"], t,
+                    valid=x["rp_valid"], signals=x["rp_sig"])
+            states[j] = st
+            per.append({k: v.cpu().numpy() for k, v in dict(
+                ema=ema, seen=seen, ema2=e2, sig=sig, seen2=seen2, pri=pri,
+                pri2=pri2).items()})
+        answers.append({k: np.concatenate([a[k] for a in per])
+                        for k in per[0]})
+    sds = [dl.state_dict_of(st) for st in states]
+    return answers, {k: np.concatenate([sd[k] for sd in sds])
+                     for k in sds[0]}
+
+
+def sharded_ops_phase(torch, ops) -> tuple[dict, str]:
+    """Phase B: four ranks on the card through gloo (``_ledger_rank``, one
+    spawned process each, the kernels built once in this process before
+    they start) run the five ops and ``record_priority`` for SHARD_STEPS
+    steps under each of SHARD_PLACEMENTS on a balanced and a skewed stream.
+    Gates: each routed table and every answer equal to the single card
+    table fed the global batch (gather: through the ledger kernel, as the
+    gather path's ``record_priority``; a2a: record then priority, as its
+    write), the pinned table to four single tables, one a segment; the
+    overflow count equal to the stream's items past capacity (above 0
+    exactly where it is), the ledger kernel launched once a step on every
+    rank on the pinned and gather paths and never under a2a -> (launches
+    by path, lines)."""
+    import multiprocessing as mp
+
+    import numpy as np
+
+    from repro_torch.distributed.ledger import (a2a_capacity,
+                                                exchange_bytes_per_op)
+
+    _free(torch)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_ledger_rank, args=(
+            r, os.path.join(tmp, "store"), tmp, os.path.join(ROOT, "src")))
+            for r in range(SHARD_WORLD)]
+        for p in procs:
+            p.start()
+        refs = {(stream, route, plain): _shard_reference(torch, stream,
+                                                         route, plain)
+                for stream in SHARD_STREAMS
+                for route, plain in ((False, False), (True, False),
+                                     (True, True))}
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"phase B ranks exited with {codes}")
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                 for r in range(SHARD_WORLD)]
+    lines, launches = [], {}
+    for stream in SHARD_STREAMS:
+        steps = shard_stream(stream)
+        for name, (route, exchange, cf) in SHARD_PLACEMENTS.items():
+            key = f"{stream}/{name}"
+            a2a = route and exchange == "a2a"
+            answers, sd = refs[stream, route, a2a]
+            cap = a2a_capacity(SHARD_B, SHARD_WORLD, cf)
+            ovf = []
+            for t, g in enumerate(steps, start=1):
+                for k, want in answers[t - 1].items():
+                    got = np.concatenate([r[f"{key}/{t}/{k}"] for r in ranks])
+                    if not np.array_equal(got, want):
+                        raise AssertionError(f"phase B {key} step {t}: {k} "
+                                             "differs from the single table")
+                want = (shard_overflow(g["rec_ids"], g["rec_valid"], cap),
+                        shard_overflow(g["rp_ids"],
+                                       np.ones(g["rp_ids"].size, bool), cap)
+                        ) if a2a else (0, 0)
+                for r in ranks:
+                    got = (int(r[f"{key}/{t}/ovf_rec"]),
+                           int(r[f"{key}/{t}/ovf_rp"]))
+                    if got != want:
+                        raise AssertionError(f"phase B {key} step {t}: "
+                                             f"overflow {got}, not {want}")
+                ovf.append(sum(want))
+            # balanced: 8 ids a (rank, home), past cap at cf < 1; skewed:
+            # 32 to one home, past cap below cf = 4 (cap = B)
+            past = a2a and cf < SHARD_WORLD and (cf < 1 or stream == "skewed")
+            if (min(ovf) > 0) != past or (max(ovf) > 0) != past:
+                raise AssertionError(f"phase B {key}: overflow {ovf}")
+            for r in ranks:
+                for k, v in sd.items():
+                    if not np.array_equal(r[f"{key}/sd/{k}"], v):
+                        raise AssertionError(f"phase B {key}: table {k} "
+                                             "differs from the single one")
+                if (f"{key}/sd/pinned_shards" in r) == route:
+                    raise AssertionError(f"phase B {key}: pinned marker")
+            n = [int(r[f"{key}/launches"]) for r in ranks]
+            if n != [0 if a2a else SHARD_STEPS] * SHARD_WORLD:
+                raise AssertionError(f"phase B {key}: ledger kernel "
+                                     f"launches {n} a rank")
+            launches[key] = sum(n)
+            spans = "; ".join(
+                f"{op} {_median(list(ranks[0][f'{key}/span/{op}'])):.3f}"
+                for op in SHARD_OPS)
+            # the port's exchange payload of one op on one rank, by the
+            # analytic count (the residual round included wherever it runs)
+            moved = (exchange_bytes_per_op(exchange, SHARD_WORLD, SHARD_B,
+                                           cf) if route else 0)
+            lines.append(f"sharded ops ({key}, 4 ranks, gloo on one card, "
+                         f"capacity {SHARD_CAP}, B={SHARD_B} a rank): "
+                         f"overflow a step {ovf}, ledger kernel launches a "
+                         f"rank {n[0]}, exchange bytes an op a rank {moved}, "
+                         f"op span ms (median of {SHARD_STEPS}, rank 0): "
+                         f"{spans}")
+    # the a2a table is the plain write's, the gather table the kernel's:
+    # the integers agree exactly, the EMA to the kernel's tolerance
+    for stream in SHARD_STREAMS:
+        g, a = refs[stream, True, False][1], refs[stream, True, True][1]
+        for k in ("count", "last_seen", "owner"):
+            if not np.array_equal(g[k], a[k]):
+                raise AssertionError(f"phase B {stream}: a2a {k} differs "
+                                     "from gather's")
+        rel = np.abs(g["ema"] - a["ema"]) / np.maximum(np.abs(a["ema"]),
+                                                       1e-30)
+        if rel.max() > LEDGER_RTOL:
+            raise AssertionError(f"phase B {stream}: a2a EMA {rel.max()}")
+    lines.append(f"sharded ops: {len(lines)} runs passed in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    return launches, "\n".join(lines)
 
 
 TRAIN_ARGV = [
@@ -2252,6 +2714,35 @@ def train_phase(torch, ops, tmp: str) -> tuple[dict, dict]:
     return a, b
 
 
+def routed_train_phase(torch, ops, tmp: str, b: dict) -> dict:
+    """Phase C: run (b) again with ``--ledger-route --ledger-exchange a2a``.
+    On one rank the trainer keeps the single table, as the JAX trainer does
+    on one device: the summary's keys are run (b)'s, ``exchange`` is "a2a"
+    with the default capacity factor and ``a2a_overflow`` 0, the kernels
+    launch as in (b), and the losses are (b)'s (within the card-against-CPU
+    tolerance: two runs of one train step need not give the same bits)."""
+    c = train_run(torch, ops, TRAIN_ARGV + [
+        "--steps", "6", "--recycle", "--ledger", "device",
+        "--instance-pool", "64", "--ledger-route", "--ledger-exchange",
+        "a2a"], os.path.join(tmp, "train_c.json"))
+    want = dict(exchange="a2a", capacity_factor=1.25, a2a_overflow=0)
+    if set(c) != set(b) or {k: c[k] for k in want} != want:
+        raise AssertionError(f"routed train summary: {c}")
+    if c["launches"] != b["launches"]:
+        raise AssertionError(f"routed train launches {c['launches']}, run "
+                             f"(b) {b['launches']}")
+    for k in ("mean_step_cost", "ledger_hits_first", "ledger_hits_mean"):
+        if c[k] != b[k]:
+            raise AssertionError(f"routed train {k} {c[k]}, run (b) {b[k]}")
+    c["loss_rel"] = max(abs(c[k] - b[k]) / abs(b[k])
+                        for k in ("loss_first", "loss_last"))
+    if c["loss_rel"] > REF_TRAIN_RTOL:
+        raise AssertionError(f"routed train losses {c['loss_first']}, "
+                             f"{c['loss_last']}; run (b) {b['loss_first']}, "
+                             f"{b['loss_last']}")
+    return c
+
+
 def train_profile_phase(torch, arch="llama3-8b", layers=TRAIN_LAYERS,
                         seq=128) -> str:
     """Where a steady train step of run (a)'s configuration goes (32 rows
@@ -2264,6 +2755,7 @@ def train_profile_phase(torch, arch="llama3-8b", layers=TRAIN_LAYERS,
     from repro_torch.core.obftf import OBFTFConfig, make_train_step
     from repro_torch.core.selection import GeneratorNoise, SelectionConfig
     from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.kernels import ops
     from repro_torch.launch.train import build_optimizer
     from repro_torch.models import model as Mdl
     from repro_torch.models.params import materialize
@@ -2296,11 +2788,14 @@ def train_profile_phase(torch, arch="llama3-8b", layers=TRAIN_LAYERS,
         step(2 + i)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    before = dict(ops.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(n):
             step(4 + i)
         torch.cuda.synchronize()
+    seen = _seen(torch, prof, {k: v - before[k]
+                               for k, v in ops.LAUNCHES.items()})
     device_ms, launches, tops = _profile_summary(torch, prof, n)
     groups = _kernel_groups(torch, prof, n)
     stacks = _op_device_ms(prof, n, ("SelectBackward0", "AccumulateGrad"))
@@ -2311,7 +2806,7 @@ def train_profile_phase(torch, arch="llama3-8b", layers=TRAIN_LAYERS,
             f", {launches:.0f} kernel launches/step; device ms/step by kind: "
             f"{groups}; device ms/step under the stacks' layer-index "
             f"backward and the grads' accumulation: {stacks}; top device "
-            f"ms/step: {tops}")
+            f"ms/step: {tops}; kernel launches the profiler saw: {seen}")
 
 
 def _op_device_ms(prof, n, ops_: tuple) -> str:
@@ -2896,6 +3391,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         st, line = telemetry_serve_phase(torch, ops, tmp, s)
     print(line, flush=True)
+    t_a = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        routed, lines = routed_serve_phase(torch, ops, tmp, s)
+    for line in lines:
+        print(line, flush=True)
+    print(f"routed profile (a2a): "
+          f"{profile_phase(torch, SERVE_ARGV + ROUTED_ARGV['a2a'])}",
+          flush=True)
+    print(f"phase A: {time.perf_counter() - t_a:.1f} s", flush=True)
     print(f"reference: {reference_phase(torch)}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         sl = slice_serve_phases(torch, ops, tmp)
@@ -2924,8 +3428,12 @@ def main() -> int:
     row, spans = ledger_phase(torch, ops, ref)
     show(row)
     print(spans, flush=True)
+    shard_launches, lines = sharded_ops_phase(torch, ops)
+    print(lines, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         a, b = train_phase(torch, ops, tmp)
+        t_c = time.perf_counter()
+        c = routed_train_phase(torch, ops, tmp, b)
     for name, r in (("a", a), ("b", b)):
         print(f"train ({name}): llama3-8b {r['layers']} layers bf16, "
               f"{r['steps']} steps, recycle={r['recycle']} "
@@ -2936,6 +3444,13 @@ def main() -> int:
               f"first {r['step_ms'][0]:.1f}, steady (median of warm) "
               f"{r['steady_ms']:.1f}, peak {r['peak_gib']:.1f} GiB, sync "
               f"guard on {r['guarded_steps']} warm steps", flush=True)
+    print(f"routed train (b, --ledger-route --ledger-exchange a2a): loss "
+          f"{c['loss_first']:.4f} -> {c['loss_last']:.4f} (run (b) "
+          f"{b['loss_first']:.4f} -> {b['loss_last']:.4f}, largest relative "
+          f"difference {c['loss_rel']:.3g}), exchange {c['exchange']}, "
+          f"a2a_overflow {c['a2a_overflow']}, launches {c['launches']}, step "
+          f"ms steady {c['steady_ms']:.1f}; phase C: "
+          f"{time.perf_counter() - t_c:.1f} s", flush=True)
     for k in ("xent_fwd", "xent_bwd", "ledger_record_priority"):
         launches[k] = a["launches"][k] + b["launches"][k]
     print(f"train profile: {train_profile_phase(torch)}", flush=True)
@@ -2944,7 +3459,14 @@ def main() -> int:
                "serve zamba2-2.7b": sl["hybrid"]["launches"],
                "serve mamba2-370m": sl["mamba2"]["launches"],
                "serve llama3-8b dense": sl["dense"]["launches"],
-               "train a": a["launches"], "train b": b["launches"]}
+               "serve llama3-8b paged, routed gather":
+                   routed["gather"]["launches"],
+               "serve llama3-8b paged, routed a2a": routed["a2a"]["launches"],
+               "train a": a["launches"], "train b": b["launches"],
+               "train b, routed a2a": c["launches"]}
+    for key, n in shard_launches.items():
+        by_path[f"sharded ops {key} (4 ranks)"] = dict(
+            {k: 0 for k in ops.LAUNCHES}, ledger_record_priority=n)
     with tempfile.TemporaryDirectory() as tmp:
         serves = arch_serve_phases(torch, ops, tmp)
         mixtral = mixtral_phases(torch, ops, tmp)

@@ -12,6 +12,10 @@ JAX package's ledgers. Collision semantics match exactly, including the
 deterministic last-write-wins on intra-batch slot collisions (numpy
 fancy-assignment order), which a plain ``index_put_`` with duplicate
 indices does not promise on CUDA.
+
+Sharding: ``repro_torch.distributed.ledger`` runs these functions on each
+rank's slice of the table, so capacity grows with the data-parallel
+degree.
 """
 
 from __future__ import annotations
@@ -94,12 +98,23 @@ def _as_i32_ids(ids: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(I32)
 
 
-def _winner_mask(slots: torch.Tensor, capacity: int) -> torch.Tensor:
+def _winner_mask(
+    slots: torch.Tensor, capacity: int, order: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """True for the last batch item targeting each slot (numpy fancy-index
     semantics). Items whose slot is ``capacity`` (masked-out writes) never
     win. A max-reduction of the batch order per slot is order-independent,
-    so the result is deterministic on every device."""
-    order = torch.arange(slots.shape[0], device=slots.device, dtype=I64)
+    so the result is deterministic on every device.
+
+    ``order`` ([B] int, optional) replaces the in-batch position as the
+    winner key: the item with the largest ``order`` wins its slot. The
+    routed all-to-all exchange records a batch that arrives re-binned
+    under its global batch order this way. Keys must be unique among the
+    items that can share a slot."""
+    if order is None:
+        order = torch.arange(slots.shape[0], device=slots.device, dtype=I64)
+    else:
+        order = order.to(I64)
     last = torch.full((capacity + 1,), -1, dtype=I64, device=slots.device)
     last = last.scatter_reduce(0, slots, order, reduce="amax")
     return (slots < capacity) & (last[slots] == order)
@@ -113,12 +128,16 @@ def record(
     step,
     valid: Optional[torch.Tensor] = None,
     signals: Optional[torch.Tensor] = None,
+    order: Optional[torch.Tensor] = None,
 ) -> LedgerState:
     """Scatter-EMA write returning a new state; semantics identical to
     ``LossHistory.record``. ``valid`` (bool [B]) drops masked-out items
     entirely: they neither write nor take part in last-write-wins.
     ``signals`` ([B, N_AUX] f32) EMAs the auxiliary channels; without it a
-    same-owner record keeps them and an evicting record zeroes them."""
+    same-owner record keeps them and an evicting record zeroes them.
+    ``order`` ([B] int) is the last-write-wins key in place of the batch
+    position (``_winner_mask``); every item reads the table as it was
+    before the batch, so only the winner choice depends on it."""
     ids = _as_i32_ids(ids)
     losses = losses.to(F32)
     slots = slot_for_torch(ids, state.capacity)
@@ -135,7 +154,7 @@ def record(
         new_sig = d * prev_sig + (1.0 - d) * signals
     if valid is not None:
         slots = torch.where(valid.to(torch.bool), slots, state.capacity)
-    keep = _winner_mask(slots, state.capacity)
+    keep = _winner_mask(slots, state.capacity, order)
     step32 = torch.as_tensor(step, device=ids.device).to(I32)
     out = LedgerState(
         ema=state.ema.clone(),
@@ -152,14 +171,31 @@ def record(
     return out
 
 
+LOOKUP_VARIANTS = ("gather", "onehot")
+
+
 def lookup(
-    state: LedgerState, ids: torch.Tensor
+    state: LedgerState, ids: torch.Tensor, variant: str = "gather"
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Hash-probe read -> (ema_loss f32, seen_mask bool); unseen rows 0."""
+    """Hash-probe read -> (ema_loss f32, seen_mask bool); unseen rows 0.
+
+    ``variant`` is how the EMA column is read: ``"gather"``, ``ema[slots]``,
+    or ``"onehot"``, ``one_hot(slots, C) @ ema`` as one [B, C] x [C]
+    product (the JAX package's form for the TPU's matrix unit). Both give
+    the same bits: each one-hot row has a single 1.0, so every other term
+    is an exact 0.0. The owner probe stays a gather."""
+    if variant not in LOOKUP_VARIANTS:
+        raise ValueError(f"lookup variant {variant!r} not in "
+                         f"{LOOKUP_VARIANTS}")
     ids = _as_i32_ids(ids)
     slots = slot_for_torch(ids, state.capacity)
     seen = state.owner[slots] == ids
-    return torch.where(seen, state.ema[slots], 0.0), seen
+    if variant == "onehot":
+        cols = torch.arange(state.capacity, device=slots.device)
+        ema = (slots[:, None] == cols[None, :]).to(F32) @ state.ema
+    else:
+        ema = state.ema[slots]
+    return torch.where(seen, ema, 0.0), seen
 
 
 def lookup_signals(
@@ -292,3 +328,73 @@ def load_state_dict(
     if foreign or np.asarray(sd["ema"]).shape[0] != cfg.capacity:
         sd = rehash_state_dict(sd, cfg.capacity)
     return state_from_dict(sd, device)
+
+
+class DeviceLedger:
+    """Object wrapper with the ``LossHistory`` API over a table held as
+    tensors on ``device`` (the JAX package's ``DeviceLedger``). The state
+    leaves the device only through ``state_dict()``; the functions above
+    are what a step that keeps everything on the device calls."""
+
+    def __init__(
+        self, cfg: HistoryConfig = HistoryConfig(),
+        device: torch.device | str = "cuda",
+    ):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.state = init_state(cfg, self.device)
+
+    def _t(self, x, dtype) -> torch.Tensor:
+        """Host arrays or tensors -> ``dtype`` on the ledger's device."""
+        return torch.as_tensor(x).to(self.device, dtype)
+
+    # -- LossHistory-compatible surface ------------------------------------
+
+    def record(self, ids, losses, step, valid=None, signals=None) -> None:
+        self.state = record(
+            self.cfg, self.state, self._t(ids, I64), self._t(losses, F32),
+            step, valid=None if valid is None else self._t(valid, torch.bool),
+            signals=None if signals is None else self._t(signals, F32),
+        )
+
+    def lookup(self, ids, variant: str = "gather"):
+        return lookup(self.state, self._t(ids, I64), variant=variant)
+
+    def lookup_signals(self, ids):
+        return lookup_signals(self.state, self._t(ids, I64))
+
+    def priority(self, ids, step) -> torch.Tensor:
+        return priority(self.cfg, self.state, self._t(ids, I64), step)
+
+    def record_priority(self, ids, losses, step, valid=None,
+                        signals=None) -> torch.Tensor:
+        self.state, pri = record_priority(
+            self.cfg, self.state, self._t(ids, I64), self._t(losses, F32),
+            step, valid=None if valid is None else self._t(valid, torch.bool),
+            signals=None if signals is None else self._t(signals, F32),
+        )
+        return pri
+
+    # -- host interchange ---------------------------------------------------
+
+    def state_dict(self) -> dict[str, np.ndarray]:
+        """Export in the ``LossHistory`` checkpoint format (int64 host
+        dtypes)."""
+        return state_dict_of(self.state)
+
+    def load_state_dict(self, sd: dict[str, np.ndarray]) -> None:
+        """Load any layout: another capacity, or a pinned sharded export
+        (its ``pinned_shards`` marker), is re-hashed into this table."""
+        self.state = load_state_dict(self.cfg, sd, self.device)
+
+    @classmethod
+    def from_host(cls, history: LossHistory,
+                  device: torch.device | str = "cuda") -> "DeviceLedger":
+        led = cls(history.cfg, device)
+        led.load_state_dict(history.state_dict())
+        return led
+
+    def to_host(self) -> LossHistory:
+        h = LossHistory(self.cfg)
+        h.load_state_dict(self.state_dict())
+        return h

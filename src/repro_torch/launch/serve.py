@@ -22,12 +22,22 @@ write the JAX CLI's telemetry: a ``loop_health`` event every
 against its host shadow) and a final ``summary`` event holding the
 ``--json-out`` summary with the instruments' snapshot under ``metrics``;
 the engine's spans go to a Chrome trace. The summary has the JAX CLI's
-keys (``routed`` false, ``exchange`` "none", ``shards`` 1 on one device)
-and the port's own: ``seconds``, ``device``, ``layers``,
+keys and the port's own: ``seconds``, ``device``, ``layers``,
 ``guarded_steps``, ``step_ms`` and ``instance_ids``.
 
-Not ported yet: ``--ledger-route``, ``--ledger-exchange`` and
-``--capacity-factor`` (they need the sharded ledger).
+``--ledger-route`` shards the device ledger over the ranks of the data
+axis (``launch.mesh``: one rank a device, from the ``torchrun``
+environment, else a group of one in-process; NCCL on the card, gloo on the
+CPU) and routes each record to the rank owning its global slot, through
+``--ledger-exchange`` (``gather`` or ``a2a``, sized by
+``--capacity-factor``). Each rank runs the same engine on the same
+requests with the same seed, the multi-controller form of the JAX
+engine's mesh-replicated state; only rank 0 prints and writes the output
+files. On a box with N GPUs:
+
+    torchrun --nproc-per-node N -m repro_torch.launch.serve \
+        --arch llama3-8b --page-size 16 --retain topk --ledger device \
+        --ledger-route --ledger-exchange a2a
 """
 
 from __future__ import annotations
@@ -43,18 +53,24 @@ import torch
 from repro_torch import configs, obs
 from repro_torch.core.history import HistoryConfig
 from repro_torch.data import DataConfig, SyntheticLMStream
+from repro_torch.launch.mesh import make_elastic_mesh
 from repro_torch.models import model as Mdl
 from repro_torch.models.params import materialize
 from repro_torch.serving import Engine, OutcomeRecorder, delayed_outcomes, pad_safe
 
 
-def build_engine(args, cfg, params, device, telemetry=None) -> Engine:
+def build_engine(args, cfg, params, device, telemetry=None,
+                 mesh=None) -> Engine:
     recorder = OutcomeRecorder(
         args.batch,
         args.gen,
         cfg.vocab_size,
         HistoryConfig(),
         ledger=args.ledger,
+        mesh=mesh,
+        route=args.ledger_route,
+        exchange=args.ledger_exchange,
+        capacity_factor=args.capacity_factor,
         retention=args.retain,
         topk=args.topk,
         device=device,
@@ -155,6 +171,25 @@ def parse_args(argv=None):
     ap.add_argument("--ledger", default="host", choices=("host", "device"),
                     help="record outcomes into the host numpy ledger or the "
                          "device-resident one")
+    ap.add_argument("--ledger-route", action="store_true",
+                    help="shard the device ledger over the ranks and route "
+                         "each record to the rank owning its global slot "
+                         "(sharded_ledger_ops(route=True) inside the step)")
+    ap.add_argument("--ledger-exchange", default="gather",
+                    choices=("gather", "a2a"),
+                    help="routed exchange realization: all_gather+home-mask "
+                         "(2*shards*batch items an op) or capacity-factor "
+                         "all_to_all (2*shards*cap items) plus, whenever "
+                         "cap < batch, the exact residual gather round on "
+                         "every op (this port has no host-synced skip of "
+                         "it), so a2a never moves fewer bytes than gather "
+                         "here; results are bit-identical")
+    ap.add_argument("--capacity-factor", type=float, default=1.25,
+                    help="a2a send-buffer slack: per-destination capacity = "
+                         "ceil(batch*cf/shards); items past it are resolved "
+                         "by the residual gather round (counted in "
+                         "a2a_overflow), which runs on every op while "
+                         "cap < batch")
     ap.add_argument("--ledger-out", default="",
                     help="save the ledger state_dict as .npz (the "
                          "interchange format of both packages)")
@@ -171,25 +206,46 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    device = torch.device(args.device)
+    if args.ledger_route and args.ledger != "device":
+        raise SystemExit("--ledger-route requires --ledger device")
+    mesh = make_elastic_mesh(device=args.device) if args.ledger_route \
+        else None
+    try:
+        return _serve(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _serve(args, mesh) -> int:
+    device = torch.device(args.device) if mesh is None else mesh.device
+    # every rank records, reads the ledger back and snapshots the loop at
+    # the same points (the ledger's state_dict is a collective); rank 0
+    # alone prints and writes the output files
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = configs.get(args.arch, args.smoke, args.layers)
-    telem = obs.from_args(args)
+    telem = obs.from_args(args) if lead else obs.install(obs.Telemetry(
+        enabled=bool(args.metrics_out or args.trace_out)))
     params = materialize(
         Mdl.param_specs(cfg), args.seed, Mdl.dtype_of(cfg.param_dtype), device
     )
-    engine = build_engine(args, cfg, params, device, telemetry=telem)
+    engine = build_engine(args, cfg, params, device, telemetry=telem,
+                          mesh=mesh)
 
     if args.ledger_in:
         engine.load_ledger_state_dict(dict(np.load(args.ledger_in)))
         live = int((np.asarray(engine.ledger_state_dict()["owner"]) >= 0).sum())
-        print(f"ledger warm-start from {args.ledger_in} ({live} live slots)")
+        say(f"ledger warm-start from {args.ledger_in} ({live} live slots)")
 
     waves, submitted = submit_stream(engine, args, cfg)
+    shards = engine.recorder.ops.shards if engine.recorder.ops else 1
     bps = engine.recorder.retained_bytes_per_slot()
-    print(
+    say(
         f"arch={cfg.name} layers={cfg.num_layers} slots={args.batch} "
         f"requests={args.requests} "
         f"({waves} waves) gen<= {args.gen} ledger={args.ledger}"
+        + (f"[routed x{shards}]" if args.ledger_route else "")
         + f" retain={args.retain}"
         + (f"[k={args.topk}]" if args.retain == "topk" else "")
         + f" ({bps / 1e6:.3f} MB retained/slot)"
@@ -203,10 +259,9 @@ def main(argv=None) -> int:
     def on_step(eng, metrics):
         if deliver is not None:
             deliver(eng, metrics)
-        if telem.events is not None and \
-                eng.steps_run % args.metrics_every == 0:
+        if args.metrics_out and eng.steps_run % args.metrics_every == 0:
             # drift=True reads the device ledger back: the snapshot
-            # cadence, never inside a step
+            # cadence, never inside a step (on every rank: a collective)
             telem.event("loop_health", **eng.loop_health(drift=True))
 
     def sync():
@@ -219,7 +274,7 @@ def main(argv=None) -> int:
     sync()
     dt = time.time() - t0
     tok_s = stats["generated_tokens"] / max(dt, 1e-9)
-    print(
+    say(
         f"served {stats['evicted']} requests, "
         f"{stats['generated_tokens']} decode tokens in {dt:.2f}s "
         f"({tok_s:.1f} tok/s, {stats['steps']} engine steps)"
@@ -228,22 +283,24 @@ def main(argv=None) -> int:
     ids = np.asarray([iid for iid, _ in submitted], np.int64)
     ema, seen = engine.ledger.lookup(ids)
     ema, seen = np.asarray(ema), np.asarray(seen)
-    print(
+    say(
         f"recorded serving losses: {stats['recorded']} positions, "
         f"mean ema={float(ema[seen].mean() if seen.any() else 0):.3f}; "
         f"ledger hit rate={float(seen.mean()):.2f}"
     )
     if args.retain == "topk":
-        print(
+        say(
             f"top-k tail-floor records: {stats['topk_misses']} of "
             f"{stats['recorded']} (rest scored exactly)"
         )
     if args.ledger_out:
-        np.savez(args.ledger_out, **engine.ledger_state_dict())
-        print(f"ledger saved to {args.ledger_out} ({args.ledger} layout)")
-    print("sample generations (token ids):")
+        sd = engine.ledger_state_dict()
+        if lead:
+            np.savez(args.ledger_out, **sd)
+        say(f"ledger saved to {args.ledger_out} ({args.ledger} layout)")
+    say("sample generations (token ids):")
     for iid in list(engine.finished)[:2]:
-        print("  ", engine.finished[iid][:12].tolist())
+        say("  ", engine.finished[iid][:12].tolist())
     # one summary for --json-out and the final "summary" event of
     # --metrics-out
     summary = dict(
@@ -251,10 +308,10 @@ def main(argv=None) -> int:
         tok_per_s=tok_s,
         waves=waves,
         ledger=args.ledger,
-        routed=False,  # no routed exchange on one device
-        exchange="none",
-        capacity_factor=None,
-        shards=1,
+        routed=bool(args.ledger_route),
+        exchange=args.ledger_exchange if args.ledger_route else "none",
+        capacity_factor=args.capacity_factor,
+        shards=shards,
         hit_rate=float(seen.mean()),
         outcome_delay=args.outcome_delay,
         retention=args.retain,
@@ -270,7 +327,7 @@ def main(argv=None) -> int:
     )
     if telem.registry is not None:
         summary["metrics"] = telem.snapshot()
-    if args.json_out:
+    if args.json_out and lead:
         with open(args.json_out, "w") as f:
             json.dump(summary, f)
     telem.close(summary=summary)

@@ -37,8 +37,14 @@ card every step after the first runs with host syncs made errors, and the
 summary counts those steps in ``guarded_steps``; the metrics are fetched
 once, after the step. The summary's ``moe_dropped_share`` is the share of
 routing choices that expert capacity dropped over the run (null where no
-MoE layer routed any). Not ported: ``--ledger-route``, ``--ledger-exchange``,
-``--capacity-factor`` and ``--model-parallel`` (they need a mesh).
+MoE layer routed any). ``--ledger-route``, ``--ledger-exchange`` and
+``--capacity-factor`` are taken as the JAX trainer takes them on one
+device: the table stays single, and the summary reports the exchange and
+the capacity factor, with ``a2a_overflow`` 0. Not ported: ``--model-parallel``
+and training on more than one rank, which refuses to start (the
+data-parallel OBFTF step, ``make_train_step(mesh=, dp_axes=)``, is the
+only way the JAX trainer reaches the sharded ledger: ROADMAP Queue 1
+item 2).
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from repro_torch.core.selection import (
     policy_score,
 )
 from repro_torch.data import DataConfig, RecycleFeed, SyntheticLMStream
+from repro_torch.launch.mesh import world_size
 from repro_torch.models import model as Mdl
 from repro_torch.models import moe
 from repro_torch.models.params import materialize
@@ -137,6 +144,26 @@ def parse_args(argv=None):
                     help="warm-start the ledger from an .npz state_dict")
     ap.add_argument("--ledger-out", default="",
                     help="save the final ledger state_dict as .npz")
+    ap.add_argument("--ledger-route", action="store_true",
+                    help="cross-shard id routing for the sharded device "
+                         "ledger: exchange each id to the shard owning its "
+                         "global slot before record/lookup, for feeds that "
+                         "do not pin instances to a data shard")
+    ap.add_argument("--ledger-exchange", default="gather",
+                    choices=("gather", "a2a"),
+                    help="routed exchange realization: all_gather+home-mask "
+                         "(2*shards*batch items an op) or capacity-factor "
+                         "all_to_all (2*shards*cap items) plus, whenever "
+                         "cap < batch, the exact residual gather round on "
+                         "every op (this port has no host-synced skip of "
+                         "it), so a2a never moves fewer bytes than gather "
+                         "here; results are bit-identical")
+    ap.add_argument("--capacity-factor", type=float, default=1.25,
+                    help="a2a send-buffer slack: per-destination capacity = "
+                         "ceil(batch*cf/shards); items past it are resolved "
+                         "by the residual gather round (counted in "
+                         "a2a_overflow), which runs on every op while "
+                         "cap < batch")
     ap.add_argument("--json-out", default="",
                     help="write a run summary (losses, step cost) as JSON")
     ap.add_argument("--instance-pool", type=int, default=0,
@@ -164,6 +191,13 @@ def _fetch(metrics: dict) -> dict:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if world_size() > 1:
+        raise SystemExit(
+            f"training on {world_size()} ranks is not ported: the "
+            "data-parallel OBFTF step (make_train_step(mesh=, dp_axes=)), "
+            "through which the JAX trainer reaches the sharded ledger, is "
+            "ROADMAP Queue 1 item 2; train on one rank"
+        )
     device = torch.device(args.device)
     cfg = configs.get(args.arch, args.smoke, args.layers)
     telem = obs.from_args(args)
@@ -289,7 +323,8 @@ def main(argv=None) -> int:
     # trainer
     c_steps = telem.counter("trainer.steps")
     c_straggler = telem.counter("trainer.stragglers")
-    # no routed exchange on one device: bound for the JAX names, stays 0
+    # one rank holds the single table and takes no exchange: bound for the
+    # JAX names, stays 0
     telem.counter("trainer.a2a_overflow")
     g_loss = telem.gauge("trainer.loss")
     g_cost = telem.gauge("trainer.step_cost")
@@ -405,8 +440,9 @@ def main(argv=None) -> int:
         "recycle": bool(args.recycle),
         "policy": args.policy,
         "ledger": args.ledger,
-        "exchange": "none",  # no routed exchange on one device
-        "capacity_factor": None,
+        "exchange": (args.ledger_exchange if args.ledger_route
+                     else "none"),
+        "capacity_factor": args.capacity_factor,
         # of every MoE forward in the run, selection forwards included;
         # None where nothing was routed (no MoE layer)
         "moe_dropped_share": moe.dropped_share(),

@@ -193,7 +193,10 @@ class Engine:
     """Continuous batching over a request queue (see module doc).
 
     The device is the one ``params`` live on; ``recorder`` must use the
-    same one. On pad-safe families prompts pad with token 0 up to the
+    same one (a sharded recorder places ``params`` on its mesh's device
+    first, ``recorder.replicate``). ``stats()["a2a_overflow"]`` counts the
+    records that took the a2a residual round of a routed recorder. On
+    pad-safe families prompts pad with token 0 up to the
     nearest length bucket (``prompt_buckets``, by default powers of two from
     8, then ``max_prompt``); recurrent and MoE families (a pad would take
     expert capacity from real tokens) and sliding windows prefill at the
@@ -220,9 +223,11 @@ class Engine:
         telemetry: Optional[obs.Telemetry] = None,
     ):
         self.cfg = cfg
-        self.params = params
         self.recorder = recorder
-        self.device = params["embed"].device
+        # a sharded recorder: params, state and every host-made row meet
+        # the guarded step on this rank's device (recorder.replicate)
+        self.params = recorder.replicate(params)
+        self.device = self.params["embed"].device
         if recorder.device != self.device:
             raise ValueError(f"recorder on {recorder.device}, params on "
                              f"{self.device}")
@@ -293,10 +298,13 @@ class Engine:
         self.steps_run = 0
         self.guarded_steps = 0  # fused steps run with host syncs as errors
         self.missed_outcomes = 0
+        # records that missed the a2a send capacity and took the exact
+        # residual round (0 unless the recorder routes exchange="a2a")
+        self.a2a_overflow = 0
         # host wall time of each fused step, metrics read included
         self.step_ms: list[float] = []
 
-        self._estate = self._init_state()
+        self._estate = recorder.replicate(self._init_state())
         self._rstate = recorder.init_state()
 
         # telemetry: instruments bound once here; each step updates them
@@ -307,9 +315,7 @@ class Engine:
         self._c_tokens = t.counter("engine.generated_tokens")
         self._c_records = t.counter("engine.ledger_records")
         self._c_miss = t.counter("engine.topk_miss")
-        # the unsharded ledger takes no a2a exchange: bound for the JAX
-        # names, stays 0
-        t.counter("engine.a2a_overflow")
+        self._c_overflow = t.counter("engine.a2a_overflow")
         self._c_admitted = t.counter("engine.admitted")
         self._c_evicted = t.counter("engine.evicted")
         self._c_deferred = t.counter("engine.deferred_admissions")
@@ -406,6 +412,7 @@ class Engine:
             "loss": info["loss"],
             "entropy": info["entropy"],
             "margin": info["margin"],
+            "a2a_overflow": info["a2a_overflow"],
         }
 
     _INT_METRICS = ("inst", "occupied", "decoding", "gen_idx", "finished",
@@ -413,14 +420,17 @@ class Engine:
     _FLOAT_METRICS = ("loss", "entropy", "margin")
 
     def _fetch(self, metrics: dict) -> dict:
-        """Two device reads for the whole metrics dict."""
+        """Two device reads for the whole metrics dict (the step's
+        ``a2a_overflow`` count rides the integer read as one more row)."""
         ints = torch.stack(
             [metrics[k].to(torch.int64) for k in self._INT_METRICS]
+            + [metrics["a2a_overflow"].to(torch.int64).expand(self.slots)]
         ).cpu().numpy()
         floats = torch.stack(
             [metrics[k].to(torch.float32) for k in self._FLOAT_METRICS]
         ).cpu().numpy()
         out = {k: ints[i] for i, k in enumerate(self._INT_METRICS)}
+        out["a2a_overflow"] = int(ints[-1, 0])
         for k in ("occupied", "decoding", "finished", "pending",
                   "loss_valid", "topk_miss"):
             out[k] = out[k].astype(bool)
@@ -509,7 +519,9 @@ class Engine:
         with self.telemetry.span("engine.deliver", inst=int(instance_id),
                                  slot=slot):
             self.recorder.deliver(
-                self._rstate, slot, torch.from_numpy(row).to(self.device)
+                self._rstate, slot,
+                self.recorder.replicate(
+                    torch.from_numpy(row).to(self.device)),
             )
         self._await_labels[int(instance_id)] = False
         self._fresh_labels.add(slot)
@@ -537,7 +549,8 @@ class Engine:
             pages = self.pool.admit(n_now, n_later)
             row = np.full((self.pages_per_slot,), -1, np.int32)
             row[: len(pages)] = pages
-            pt_row = torch.from_numpy(row).to(self.device)
+            pt_row = self.recorder.replicate(
+                torch.from_numpy(row).to(self.device))
             self._slot_pages[slot] = list(pages)
             self._slot_reserve[slot] = n_later
             self._pos_host[slot] = req.prompt.size
@@ -561,7 +574,9 @@ class Engine:
             self._c_missed.inc(cut)
         self._insert(
             new_cache, logits0, slot, req.instance_id, req.prompt.size,
-            req.max_new, torch.from_numpy(row).to(self.device), pt_row,
+            req.max_new,
+            self.recorder.replicate(torch.from_numpy(row).to(self.device)),
+            pt_row,
         )
         self._slot_of[req.instance_id] = slot
         self._max_new_of[req.instance_id] = req.max_new
@@ -603,7 +618,8 @@ class Engine:
         if cleared:
             # a freed row's table goes back to -1, so the slot's frozen K/V
             # writes can never land in pages that moved on to another owner
-            self._estate.page_table[cleared] = -1
+            self._estate.page_table[self.recorder.replicate(
+                torch.tensor(cleared, device=self.device))] = -1
 
     def in_flight_admissions(self) -> tuple[tuple[int, int], ...]:
         """(instance id, admission sequence number) per resident slot."""
@@ -664,6 +680,7 @@ class Engine:
         self._last_metrics = metrics
         self.steps_run += 1
         self.generated_tokens += int(metrics["decoding"].sum())
+        self.a2a_overflow += metrics["a2a_overflow"]
         if self.pool is not None:
             self._pos_host += metrics["decoding"]
         self._obs_on_step(metrics, (time.perf_counter() - t0) * 1e3)
@@ -680,6 +697,7 @@ class Engine:
         self._c_tokens.inc(int(metrics["decoding"].sum()))
         self._c_records.inc(n_rec)
         self._c_miss.inc(n_miss)
+        self._c_overflow.inc(metrics["a2a_overflow"])
         self._g_occupancy.set(len(self._slot_of) / self.slots)
         self._g_queue.set(len(self._queue))
         self._h_step_ms.observe(dt_ms)
@@ -704,7 +722,8 @@ class Engine:
             "records_per_step": obs.rate_of(self._records_host, steps),
             "topk_miss_frac": obs.rate_of(self._miss_host,
                                           self._records_host),
-            "a2a_overflow_rate": 0.0,  # the unsharded ledger
+            "a2a_overflow_rate": obs.rate_of(self.a2a_overflow,
+                                             self._records_host),
             "missed_outcome_rate": obs.rate_of(
                 self.missed_outcomes,
                 self._records_host + self.missed_outcomes,
@@ -740,7 +759,7 @@ class Engine:
             "generated_tokens": self.generated_tokens,
             "recorded": n_rec,
             "topk_misses": n_miss,
-            "a2a_overflow": 0,  # the unsharded ledger
+            "a2a_overflow": self.a2a_overflow,
             "missed_outcomes": self.missed_outcomes,
             "queued": len(self._queue),
             "in_flight": len(self._slot_of),

@@ -1,8 +1,8 @@
 """Outcome recording for the serving engine: late labels -> ledger records.
 
 The PyTorch counterpart of ``repro.serving.recorder`` (see its module doc
-for the retention modes and their guarantees), without a mesh. Per slot and
-generated position the recorder retains either
+for the retention modes and their guarantees). Per slot and generated
+position the recorder retains either
 
 * ``retention="topk"`` — ``(top-k values, top-k indices, exact lse)``,
   computed inside the fused decode step by ``kernels.ops.topk_lse`` (the
@@ -15,7 +15,10 @@ plus the labels (-1 = unknown) and which positions were scored. Each fused
 step scores at most one position per slot, the oldest labeled-but-unscored
 one, and records it into the device ledger (``ledger="device"``, inside the
 step, nothing read back to the host) or hands it to a host ``LossHistory``
-(``ledger="host"``).
+(``ledger="host"``). With a ``mesh`` (``launch.mesh``: one rank a device,
+each rank running the same engine) the device table is sharded over the
+ranks (``distributed.ledger``) and each rank records its segment of the
+slots, as each JAX shard records its segment.
 
 State tensors are updated in place (the JAX version returns new arrays and
 donates the old ones); the ledger table is replaced by each record.
@@ -24,7 +27,7 @@ donates the old ones); the ledger table is replaced by each record.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,7 +36,9 @@ from repro_torch import obs
 from repro_torch.core import device_ledger as dledger
 from repro_torch.core.history import HistoryConfig, LossHistory
 from repro_torch.core.scatter import put_rows
+from repro_torch.distributed.ledger import ShardedLedgerOps, sharded_ledger_ops
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import Mesh
 
 I32 = torch.int32
 F32 = torch.float32
@@ -113,9 +118,11 @@ class OutcomeRecorder:
     """Owns the ledger placement and the scoring/record functions.
 
     ``ledger="device"`` keeps the table as tensors on ``device`` and
-    records inside the fused step; ``ledger="host"`` keeps a numpy
-    ``LossHistory`` the engine records the step's rows into.
-    ``retention`` picks the retained layout.
+    records inside the fused step; with a ``mesh`` the table is sharded
+    over its ranks (``route=True`` adds the cross-rank exchange, realized
+    by ``exchange`` with ``capacity_factor``) and the mesh's device is the
+    recorder's. ``ledger="host"`` keeps a numpy ``LossHistory`` the engine
+    records the step's rows into. ``retention`` picks the retained layout.
     """
 
     def __init__(
@@ -126,6 +133,11 @@ class OutcomeRecorder:
         cfg: HistoryConfig = HistoryConfig(),
         *,
         ledger: str = "device",
+        mesh: Optional[Mesh] = None,
+        dp_axes: Sequence[str] = ("data",),
+        route: bool = False,
+        exchange: str = "gather",
+        capacity_factor: float = 1.25,
         retention: str = "full",
         topk: int = 64,
         device: torch.device | str = "cuda",
@@ -143,12 +155,27 @@ class OutcomeRecorder:
         self.topk = min(int(topk), vocab)
         if self.topk <= 0:
             raise ValueError(f"topk must be positive, got {topk}")
-        self.device = torch.device(device)
+        self.device = torch.device(device) if mesh is None else mesh.device
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self.ops: Optional[ShardedLedgerOps] = None
+        if ledger == "device" and mesh is not None:
+            self.ops = sharded_ledger_ops(
+                mesh, cfg, dp_axes, route=route, exchange=exchange,
+                capacity_factor=capacity_factor,
+            )
+            if slots % self.ops.shards:
+                raise ValueError(
+                    f"engine slots {slots} not divisible by "
+                    f"{self.ops.shards} ledger shards"
+                )
         self.host_history: Optional[LossHistory] = (
             LossHistory(cfg) if ledger == "host" else None
         )
+
+    @property
+    def route(self) -> bool:
+        return self.ops is not None and self.ops.route
 
     def retained_bytes_per_slot(self) -> int:
         """Device bytes of one slot's retained outcomes (labels/scored
@@ -165,13 +192,40 @@ class OutcomeRecorder:
 
     # -- state ---------------------------------------------------------------
 
+    def replicate(self, tree):
+        """Place every tensor of ``tree`` (tensors in dicts, lists, tuples
+        and dataclasses) on the mesh's device (sharded recorders only; an
+        unsharded recorder returns the tree as it is, as the JAX recorder
+        does). Under one rank a device this is what the JAX recorder's
+        mesh-replicated placement comes to: the engine routes its params,
+        its state and each host-made row through here before they meet the
+        guarded step."""
+        if self.ops is None:
+            return tree
+        if isinstance(tree, torch.Tensor):
+            return tree.to(self.device)
+        if isinstance(tree, dict):
+            return {k: self.replicate(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.replicate(v) for v in tree)
+        if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+            return dataclasses.replace(tree, **{
+                f.name: self.replicate(getattr(tree, f.name))
+                for f in dataclasses.fields(tree)})
+        return tree
+
     def init_state(self) -> RecorderState:
         s, g, v, k = self.slots, self.max_gen, self.vocab, self.topk
         dev = self.device
         full = self.retention == "full"
+        if self.ledger == "host":
+            led = None
+        elif self.ops is not None:
+            led = self.ops.init()
+        else:
+            led = dledger.init_state(self.cfg, dev)
         return RecorderState(
-            ledger=None if self.ledger == "host"
-            else dledger.init_state(self.cfg, dev),
+            ledger=led,
             logits=torch.zeros((s, g, v), dtype=F32, device=dev)
             if full else None,
             topk_vals=None if full
@@ -242,7 +296,10 @@ class OutcomeRecorder:
     ) -> tuple[RecorderState, dict[str, torch.Tensor]]:
         """Score the oldest labeled-but-unscored position of every slot and
         record it. Returns the state and {loss, entropy, margin, valid,
-        pending, miss} per slot (see ``repro.serving.recorder``)."""
+        pending, miss} per slot and ``a2a_overflow``, the group's count of
+        records that took the a2a residual round (see
+        ``repro.serving.recorder``). A sharded recorder records this rank's
+        segment of the slots."""
         s, g = self.slots, self.max_gen
         dev = inst.device
         bidx = torch.arange(s, device=dev)
@@ -271,7 +328,16 @@ class OutcomeRecorder:
         miss = valid & ~hit
         put_rows(state.scored.view(-1), bidx * g + pos,
                  torch.ones_like(valid), valid)
-        if state.ledger is not None:
+        a2a_overflow = torch.zeros((), dtype=I32, device=dev)
+        if self.ops is not None:
+            n = s // self.ops.shards
+            seg = slice(self.ops.rank * n, (self.ops.rank + 1) * n)
+            state.ledger, lstats = self.ops.record(
+                state.ledger, inst[seg], loss[seg], step, valid[seg],
+                signals=signals[seg], return_stats=True,
+            )
+            a2a_overflow = lstats["a2a_overflow"]
+        elif state.ledger is not None:
             state.ledger = dledger.record(
                 self.cfg, state.ledger, inst, loss, step, valid=valid,
                 signals=signals,
@@ -284,6 +350,7 @@ class OutcomeRecorder:
         return state, {
             "loss": loss, "entropy": entropy, "margin": margin,
             "valid": valid, "pending": pending, "miss": miss,
+            "a2a_overflow": a2a_overflow,
         }
 
     # -- host interchange ----------------------------------------------------
@@ -305,8 +372,12 @@ class OutcomeRecorder:
         return int(n_rec), int(n_miss)
 
     def state_dict(self, state: RecorderState) -> dict[str, np.ndarray]:
+        """The ledger's interchange dict; collective on a sharded recorder
+        (every rank calls it and gets the global layout)."""
         if self.ledger == "host":
             return self.host_history.state_dict()
+        if self.ops is not None:
+            return self.ops.state_dict(state.ledger)
         return dledger.state_dict_of(state.ledger)
 
     def load_state_dict(
@@ -314,6 +385,8 @@ class OutcomeRecorder:
     ) -> RecorderState:
         if self.ledger == "host":
             self.host_history.load_state_dict(sd)
+        elif self.ops is not None:
+            state.ledger = self.ops.load_state_dict(sd)
         else:
             state.ledger = dledger.load_state_dict(self.cfg, sd, self.device)
         return state

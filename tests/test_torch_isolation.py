@@ -47,3 +47,14 @@ def test_every_kernel_source_has_its_note():
         assert "Replaces the Pallas TPU kernel" in text, src.name
         assert "Bound on the H100" in text, src.name
         assert "Design:" in text, src.name
+
+
+@pytest.mark.parametrize("rel", ["distributed/compat.py",
+                                 "distributed/ledger.py", "launch/mesh.py"])
+def test_the_mesh_side_has_no_fallback(rel):
+    """No ``try`` around a collective, the ledger kernel's call or the
+    choice of a backend: the group's backend decides, never a caught
+    error."""
+    tree = ast.parse((PORT / rel).read_text())
+    tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    assert not tries, f"try blocks in {rel} at lines {tries}"
