@@ -50,7 +50,7 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    times a step and ``topk_lse`` once a step and once an admission, every
    request must finish and the ledger must hold every instance id;
 5. profile — the same configuration again, five warm decode steps timed
-   by the host clock and five under torch.profiler: device time per step,
+   by the host clock and two under torch.profiler: device time per step,
    kernel launches per step and the kernels that take the most time;
 5a. telemetry — phase 4's serve again with ``--metrics-out``,
    ``--trace-out`` and ``--metrics-every 8`` (``repro_torch.obs``): phase
@@ -126,8 +126,31 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    (b) again with ``--ledger-route --ledger-exchange a2a``: on one rank the
    single table, so the JAX summary's keys, ``exchange`` "a2a",
    ``a2a_overflow`` 0, (b)'s launches and (b)'s losses;
+8a. data-parallel step (D) — ``make_train_step(mesh=)`` called directly
+   over an NCCL group of one (the CLI passes no mesh on one rank), run
+   (a)'s configuration, 3 steps, each step's losses then written through
+   the sharded ledger's ``record_priority`` (pinned): kept rows, losses,
+   ``grad_norm`` and the table equal to the mesh-less step's on the same
+   weights, batches and draws (within ``REF_TRAIN_RTOL``), the warm steps
+   under the sync guard, the kernels launched, and a profiled step showing
+   NCCL events and the xent and ledger kernels;
+8b. data-parallel ranks (E) — four spawned ranks sharing the card through
+   gloo, each calling the train CLI with ``--model-parallel 1`` on
+   mamba2-370m at full width and depth (48 layers), rows of 512, 8 rows a
+   rank: (a) obftf at 0.25 (2 steps), (b) recycled on the device ledger
+   routed through gather (3 steps), (c) ``--method full`` in bf16 and
+   (c-f32) in f32 (2 steps each). Gates: every rank's final params the
+   same bits, kept rows and step cost (1.75 / 0.75 / 3.0), finite losses,
+   xent, ssd and ssd_bwd (and the ledger kernel in (b)) launched on every
+   rank,
+   (b)'s table equal to the single table of the ranks' writes, the losses
+   of (c) within ``DP_BF16_RTOL`` and of (c-f32) within ``REF_TRAIN_RTOL``
+   of one rank's run in the same dtype (bf16 grads summed over four ranks
+   round otherwise than one rank's); each run's steady step, its host
+   time in gloo's collectives and the peak memory a rank beside one
+   rank's;
 9. train profile — run (a)'s configuration again, two warm steps timed by
-   the host clock and two under torch.profiler;
+   the host clock and one under torch.profiler;
 10. the other dense archs — deepseek-7b (30 layers, MHA), qwen3-14b (40,
    qk-norm, G = 5) and granite-34b (88, MQA with G = 48, the GELU MLP) —
    and the prefix-embedding families without a prefix, as their CLIs
@@ -192,13 +215,17 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    gated, whether obftf beats uniform at each ratio and the policy arms'
    order (the paper's claims, noisy at these sizes).
 
-It then prints its wall time, the kernels as one JSON line (``launches``
-over each kernel's first main path, ``launches_by_path`` over every path
-that ran it), the card again, and last ``{"ok": true, "device": {...}}``.
+It then prints the seconds each group of phases took (a run must end
+within 1,200 s), its wall time, the kernels as one JSON line
+(``launches`` over each kernel's first main path, ``launches_by_path``
+over every path that ran it), the card again, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -1549,9 +1576,18 @@ def slice_serve_phases(torch, ops, tmp: str) -> dict:
     return out
 
 
+def _averages(prof):
+    """``prof.key_averages()``, grouped once a profile: each call walks
+    every event again, and a train step's profile holds tens of
+    thousands."""
+    if not hasattr(prof, "_grouped"):
+        prof._grouped = prof.key_averages()
+    return prof._grouped
+
+
 def _profile_summary(torch, prof, n) -> tuple[float, float, str]:
     """(device ms per step, kernel launches per step, top five kernels)."""
-    events = prof.key_averages()
+    events = _averages(prof)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
@@ -1594,7 +1630,7 @@ def _seen(torch, prof, made: dict) -> str:
     beside the wrappers' calls made under it (``made``; ssd and ssd_bwd
     launch several kernels a call, the others one)."""
     seen = {k: 0 for k in made}
-    for e in prof.key_averages():
+    for e in _averages(prof):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             for k in made:
                 if KERNEL_NAMES[k] in e.key:
@@ -1606,7 +1642,7 @@ def _seen(torch, prof, made: dict) -> str:
 def _kernel_groups(torch, prof, n) -> str:
     """Device ms per step by kind of kernel, from the kernels' names."""
     sums: dict[str, float] = {}
-    for e in prof.key_averages():
+    for e in _averages(prof):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(
@@ -1651,6 +1687,9 @@ def profile_phase(torch, argv=SERVE_ARGV) -> str:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     before = dict(ops.LAUNCHES)
+    # two steps profiled: the profiler's handling of a step's thousands of
+    # events costs more than the step
+    n = 2
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -1661,7 +1700,7 @@ def profile_phase(torch, argv=SERVE_ARGV) -> str:
     device_ms, launches, tops = _profile_summary(torch, prof, n)
     groups = _kernel_groups(torch, prof, n)
     # the routed ledger's collectives, host and device events alike
-    nccl = sum(e.count for e in prof.key_averages()
+    nccl = sum(e.count for e in _averages(prof)
                if "nccl" in e.key.lower()) / n
     del eng, params
     if mesh is not None:
@@ -2743,6 +2782,467 @@ def routed_train_phase(torch, ops, tmp: str, b: dict) -> dict:
     return c
 
 
+# phase D: the data-parallel step over a mesh of one NCCL rank, called
+# directly (the train CLI passes no mesh on one rank, as the JAX one does),
+# against the mesh-less step on the same inputs and draws
+DP_D_STEPS = 3
+
+
+def _dp_d_run(torch, mesh, profiled: bool = False) -> dict:
+    """DP_D_STEPS steps of run (a)'s configuration (llama3-8b at full width,
+    TRAIN_LAYERS deep, 32 rows of 128 tokens, obftf at 0.25, AdamW) through
+    ``make_train_step(mesh=mesh)`` (None: the mesh-less step; over a mesh
+    the moments take the ZeRO-1 layout, whole on one rank), each step's
+    per-example losses then written through ``record_priority`` (over the
+    mesh: the sharded ops, pinned); the warm steps under the sync guard ->
+    each step's metrics and ms, the launches, the table, the peak memory,
+    and with ``profiled`` one more step under torch.profiler."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.core import device_ledger as dledger
+    from repro_torch.core.guard import no_host_sync
+    from repro_torch.core.history import HistoryConfig
+    from repro_torch.core.obftf import OBFTFConfig, make_train_step
+    from repro_torch.core.selection import GeneratorNoise, SelectionConfig
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.distributed.ledger import sharded_ledger_ops
+    from repro_torch.distributed.zero import zero1_layout
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_optimizer
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.params import materialize
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get("llama3-8b", layers=TRAIN_LAYERS)
+    specs = Mdl.param_specs(cfg)
+    layout = None if mesh is None else zero1_layout(specs, mesh, mesh.rank)
+    opt = build_optimizer(1e-3, 100, layout)
+    step_fn = make_train_step(Mdl.loss_fn(cfg), opt, OBFTFConfig(
+        SelectionConfig(method="obftf", ratio=0.25)), mesh=mesh)
+    params = materialize(specs, 0, torch.bfloat16, "cuda")
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    del params
+    lcfg = HistoryConfig()
+    led = None if mesh is None else sharded_ledger_ops(mesh, lcfg)
+    lst = dledger.init_state(lcfg, "cuda") if led is None else led.init()
+    stream = SyntheticLMStream(DataConfig(32, 128, cfg.vocab_size))
+    noise = GeneratorNoise(torch.Generator("cuda").manual_seed(0))
+
+    def step(i):
+        nonlocal state, lst
+        raw = stream.batch(i)
+        batch = {k: torch.from_numpy(raw[k]).cuda() for k in ("tokens",
+                                                              "labels")}
+        ids = torch.from_numpy(raw["instance_id"].astype(np.int32)).cuda()
+        with no_host_sync(i > 0):
+            state, m = step_fn(state, batch, noise)
+            fresh = m["per_example_fresh"]
+            if led is None:
+                lst, _ = dledger.record_priority(
+                    lcfg, lst, ids, m["per_example_loss"], state["step"],
+                    valid=fresh)
+            else:
+                lst, _ = led.record_priority(lst, ids, m["per_example_loss"],
+                                             state["step"], fresh)
+        return m
+
+    ops.reset_launches()
+    out = {"metrics": [], "step_ms": []}
+    for i in range(DP_D_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(i)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["metrics"].append({k: v.cpu().numpy() for k, v in m.items()})
+    out["launches"] = dict(ops.LAUNCHES)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["sd"] = (dledger.state_dict_of(lst) if led is None
+                 else led.state_dict(lst))
+    if profiled:  # one step more, past the compared ones
+        before = dict(ops.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(DP_D_STEPS)
+            torch.cuda.synchronize()
+        events = _averages(prof)
+        out["nccl_events"] = sum(e.count for e in events
+                                 if "nccl" in e.key.lower())
+        out["nccl_kernels"] = sum(
+            e.count for e in events if "nccl" in e.key.lower()
+            and e.device_type == torch.autograd.DeviceType.CUDA)
+        out["seen"] = _seen(torch, prof, {k: v - before[k]
+                                          for k, v in ops.LAUNCHES.items()})
+        out["profile"] = _profile_summary(torch, prof, 1)
+        out["groups"] = _kernel_groups(torch, prof, 1)
+    del state, lst
+    _free(torch)
+    return out
+
+
+def dp_step_phase(torch, ops) -> tuple[dict, str]:
+    """Phase D: ``make_train_step(mesh=)`` over an NCCL group of one against
+    the mesh-less step, from the same weights, batches and draws. Gates: on
+    every step the kept rows, ``kept`` and the step cost equal, the
+    per-example losses, the loss and ``grad_norm`` within REF_TRAIN_RTOL;
+    the ledger tables' integers equal and their EMAs within REF_TRAIN_RTOL;
+    the xent and ledger kernels launched on both; the warm steps under the
+    sync guard (a host sync raises); a profiled step shows NCCL events and
+    the xent and ledger kernels -> (the mesh run's launches, the line)."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import make_elastic_mesh
+
+    t0 = time.perf_counter()
+    plain = _dp_d_run(torch, None)
+    mesh = make_elastic_mesh(device="cuda")
+    if (mesh.backend, mesh.size) != ("nccl", 1):
+        raise AssertionError(f"phase D mesh {mesh.backend} x {mesh.size}")
+    dp = _dp_d_run(torch, mesh, profiled=True)
+    mesh.close()
+    for i, (a, b) in enumerate(zip(dp["metrics"], plain["metrics"])):
+        for k in ("selected", "kept", "step_cost", "per_example_fresh"):
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"phase D step {i}: {k} {a[k]} differs "
+                                     f"from the mesh-less step's {b[k]}")
+        for k in ("per_example_loss", "loss", "grad_norm"):
+            rel = np.max(np.abs(a[k] - b[k]) / np.abs(b[k]))
+            if not rel <= REF_TRAIN_RTOL:
+                raise AssertionError(f"phase D step {i}: {k} {a[k]} against "
+                                     f"{b[k]} (relative {rel})")
+    for k, v in plain["sd"].items():
+        got = dp["sd"][k]
+        same = (np.array_equal(got, v) if k != "ema" else np.allclose(
+            got, v, rtol=REF_TRAIN_RTOL, atol=0))
+        if not same:
+            raise AssertionError(f"phase D: ledger {k} differs")
+    for run in (plain, dp):
+        if min(run["launches"][k] for k in ("xent_fwd", "xent_bwd",
+                                            "ledger_record_priority")) <= 0:
+            raise AssertionError(f"phase D missed a kernel: {run['launches']}")
+    if dp["nccl_events"] <= 0:
+        raise AssertionError("phase D: the profile shows no NCCL event")
+    seen = dp["seen"]
+    for k in ("xent_fwd", "xent_bwd", "ledger_record_priority"):
+        if f"{k} 0 for" in seen:
+            raise AssertionError(f"phase D: the profile missed {k}: {seen}")
+    device_ms, launches, tops = dp["profile"]
+    warm = lambda r: sorted(r["step_ms"][1:])[len(r["step_ms"][1:]) // 2]
+    m0 = dp["metrics"]
+    line = (f"dp step (D): llama3-8b {TRAIN_LAYERS} layers bf16, 32 x 128, "
+            f"make_train_step(mesh=) over one NCCL rank (ZeRO-1 moments, "
+            f"whole on one rank) against the mesh-less step, {DP_D_STEPS} "
+            f"steps: kept {[int(m['kept']) for m in m0]}, losses "
+            f"{[round(float(m['loss']), 4) for m in m0]}, grad_norm "
+            f"{[round(float(m['grad_norm']), 4) for m in m0]} equal within "
+            f"{REF_TRAIN_RTOL}; step ms (host, synchronized) first "
+            f"{dp['step_ms'][0]:.1f}, warm {warm(dp):.1f} (mesh-less "
+            f"{warm(plain):.1f}); peak {dp['peak_gib']:.1f} GiB (mesh-less "
+            f"{plain['peak_gib']:.1f}); sync guard on "
+            f"{DP_D_STEPS - 1} warm steps; profiled step: device busy "
+            f"{device_ms:.1f} ms, {launches:.0f} kernel launches, NCCL events "
+            f"{dp['nccl_events']} (device kernels {dp['nccl_kernels']}), "
+            f"device ms by kind: {dp['groups']}; top: {tops}; kernel "
+            f"launches the profiler saw: {seen}; launches {dp['launches']}; "
+            f"phase D {time.perf_counter() - t0:.1f} s")
+    return dp["launches"], line
+
+
+# phase E: four spawned ranks sharing the one card through gloo (NCCL
+# refuses two ranks on one GPU), each calling the train CLI with
+# --model-parallel 1: mamba2-370m at full width and depth (48 layers,
+# d_model 1024, 50,280 tokens), rows of 512, a global batch of 32 (8 a
+# rank). llama3-8b does not fit four times on one card (8 layers peak at
+# 50.8 GiB on one rank)
+DP_E_WORLD = 4
+DP_E_ARGV = ["--arch", "mamba2-370m", "--global-batch", "32", "--seq-len",
+             "512", "--steps", "3", "--device", "cuda", "--log-every", "1"]
+DP_E_RUNS = {  # name -> (extra flags, step cost, kept rows of 32, f32)
+    # (a) and the (c) runs take two steps: the second loss is the first one
+    # an update moved (AdamW's first step runs at the full rate), and the
+    # gates need no third; (b) three, so its third step recycles rows
+    "a": (["--method", "obftf", "--ratio", "0.25", "--steps", "2"], 1.75, 8,
+          False),
+    "b": (["--recycle", "--ledger", "device", "--instance-pool", "64",
+           "--ledger-route", "--ledger-exchange", "gather"], 0.75, 8, False),
+    # dense data-parallel against one rank: (c) in bf16, as the CLI runs,
+    # within DP_BF16_RTOL; (c-f32) the same config in f32, within
+    # REF_TRAIN_RTOL, where only the order of the sums differs
+    "c": (["--method", "full", "--steps", "2"], 3.0, 32, False),
+    "c-f32": (["--method", "full", "--steps", "2"], 3.0, 32, True),
+}
+# (c)'s losses against one rank's in bf16: each rank's grads round to bf16
+# before the sum, one rank's once, so AdamW's sign-like steps differ where
+# a grad is near 0. For mamba2-370m's smoke config on the CPU (the train
+# CLI, 32 rows of 24, two steps) one and four ranks read 5.2e-6 apart at
+# the second loss, and four ranks that skip the grads' all-reduce 3.4e-4.
+# A fault of the grads' scale shows in neither: AdamW and the clip cancel
+# it (tests/test_torch_dp_train.py holds the scale with SGD)
+DP_BF16_RTOL = 2e-4
+DP_E_KERNELS = ("xent_fwd", "xent_bwd", "ssd", "ssd_bwd")
+
+
+@contextlib.contextmanager
+def f32_configs(on: bool = True):
+    """``repro_torch.configs.get`` giving f32 params and compute while
+    inside (the train CLI has no dtype flag, as the JAX one has none)."""
+    from repro_torch import configs
+
+    get = configs.get
+    if on:
+        configs.get = lambda *a, **k: dataclasses.replace(
+            get(*a, **k), param_dtype="float32", compute_dtype="float32")
+    try:
+        yield
+    finally:
+        configs.get = get
+
+
+def _param_digest(torch, params) -> "np.ndarray":
+    """Two int64 sums a leaf over its bits (the plain sum and one weighted
+    by position): equal digests on every rank say equal params."""
+    import numpy as np
+
+    from repro_torch.models.params import tree_leaves
+
+    out = []
+    for x in tree_leaves(params):
+        bits = x.contiguous().view(torch.int16).reshape(-1).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append(torch.stack([bits.sum(), (bits * w).sum()]))
+    return np.asarray(torch.stack(out).cpu())
+
+
+def _train_rank(rank: int, store: str, out_dir: str, src: str) -> None:
+    """One rank of phase E: joins the gloo group and runs each of DP_E_RUNS
+    through ``train.main``, keeping its final params' digest, its kept
+    counts, its kernel launches, its peak memory, its host time in gloo's
+    collectives inside the steps, and in run (b) the ledger writes it
+    made."""
+    import contextlib
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, src)
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.ledger import ShardedLedgerOps
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, DP_E_WORLD), rank=rank,
+        world_size=DP_E_WORLD, timeout=datetime.timedelta(seconds=300))
+    rec = {"state": None, "kept": [], "writes": [], "gloo": 0.0,
+           "in_step": False}
+    make = train.make_train_step
+
+    def make_kept(*a, **k):
+        fn = make(*a, **k)
+
+        def run(state, batch, noise):
+            state, m = fn(state, batch, noise)
+            rec["state"] = state
+            rec["kept"].append(float(m["kept"]))
+            return state, m
+
+        return run
+
+    record_priority = ShardedLedgerOps.record_priority
+
+    def record_kept(self, state, ids, losses, step, valid=None, **kw):
+        rec["writes"].append((ids.cpu().numpy(), losses.cpu().numpy(),
+                              int(step), valid.cpu().numpy()))
+        return record_priority(self, state, ids, losses, step, valid, **kw)
+
+    def timed(fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if rec["in_step"]:
+                    rec["gloo"] += time.perf_counter() - t0
+        return call
+
+    guard = train.no_host_sync
+
+    @contextlib.contextmanager
+    def in_step(enabled):
+        rec["in_step"] = True
+        with guard(enabled):
+            yield
+        rec["in_step"] = False
+
+    train.make_train_step = make_kept
+    train.no_host_sync = in_step
+    ShardedLedgerOps.record_priority = record_kept
+    dist.all_reduce = timed(dist.all_reduce)
+    dist.all_to_all_single = timed(dist.all_to_all_single)
+    compat._all_gather_single = timed(compat._all_gather_single)
+    out = {}
+    for name, (extra, _, _, f32) in DP_E_RUNS.items():
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        rec.update(kept=[], writes=[], gloo=0.0)
+        argv = DP_E_ARGV + ["--model-parallel", "1"] + extra + [
+            "--json-out", os.path.join(out_dir, f"{name}.json")]
+        if name == "b":
+            argv += ["--ledger-out", os.path.join(out_dir, "b_ledger.npz")]
+        with f32_configs(f32):
+            train.main(argv)
+        out[f"{name}/digest"] = _param_digest(torch, rec["state"]["params"])
+        rec["state"] = None
+        out[f"{name}/kept"] = np.asarray(rec["kept"])
+        out[f"{name}/gloo_s"] = np.float64(rec["gloo"])
+        out[f"{name}/peak_gib"] = np.float64(
+            torch.cuda.max_memory_allocated() / 2**30)
+        for k, v in ops.LAUNCHES.items():
+            out[f"{name}/launches/{k}"] = np.int64(v)
+        for t, (ids, losses, step, valid) in enumerate(rec["writes"]):
+            out[f"{name}/write/{t}/ids"] = ids
+            out[f"{name}/write/{t}/losses"] = losses
+            out[f"{name}/write/{t}/step"] = np.int64(step)
+            out[f"{name}/write/{t}/valid"] = valid
+        torch.cuda.empty_cache()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+def dp_ranks_phase(torch, ops, tmp: str) -> tuple[dict, list[str]]:
+    """Phase E: four ranks (``_train_rank``, spawned, the kernels built in
+    this process before they start) each run DP_E_RUNS through the train
+    CLI. Gates, each run: every rank's final params the same bits; every
+    step's kept rows and the step cost as DP_E_RUNS gives them; finite
+    losses; each rank launching xent_fwd, xent_bwd, ssd and ssd_bwd (and
+    in (b) ledger_record_priority); (b)'s ``--ledger-out`` table equal to
+    the single card table that the ranks' writes give (the global batch
+    rank-major, through the ledger kernel as the gather path writes); the
+    losses of (c) and (c-f32) within DP_BF16_RTOL and REF_TRAIN_RTOL of one
+    rank's ``--method full`` run of the same config in the same dtype
+    (dense data-parallel equals one device) -> (launches by run and rank,
+    lines)."""
+    import multiprocessing as mp
+
+    import numpy as np
+
+    from repro_torch.core import device_ledger as dledger
+    from repro_torch.core.history import HistoryConfig
+
+    _free(torch)
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_train_rank, args=(
+        r, os.path.join(tmp, "dp_store"), tmp, os.path.join(ROOT, "src")))
+        for r in range(DP_E_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 420
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"phase E ranks exited with {codes}")
+    ranks_s = time.perf_counter() - t0
+    ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+             for r in range(DP_E_WORLD)]
+    one = {}
+    for name in ("c", "c-f32"):
+        with f32_configs(DP_E_RUNS[name][3]):
+            one[name] = train_run(torch, ops, DP_E_ARGV + DP_E_RUNS[name][0],
+                                  os.path.join(tmp, f"{name}_one.json"))
+    lines, launches = [], {}
+    for name, (_, cost, kept, f32) in DP_E_RUNS.items():
+        with open(os.path.join(tmp, f"{name}.json")) as f:
+            s = json.load(f)
+        for r in ranks[1:]:
+            if not np.array_equal(r[f"{name}/digest"],
+                                  ranks[0][f"{name}/digest"]):
+                raise AssertionError(f"phase E ({name}): the ranks' params "
+                                     "differ")
+        for r in ranks:
+            if list(r[f"{name}/kept"]) != [kept] * s["steps"]:
+                raise AssertionError(f"phase E ({name}) kept "
+                                     f"{r[f'{name}/kept']}")
+        if abs(s["mean_step_cost"] - cost) > 1e-6:
+            raise AssertionError(f"phase E ({name}) step cost "
+                                 f"{s['mean_step_cost']}")
+        if not all(math.isfinite(x) for x in (s["loss_first"],
+                                              s["loss_last"])):
+            raise AssertionError(f"phase E ({name}) losses {s}")
+        want = DP_E_KERNELS + (("ledger_record_priority",) if name == "b"
+                               else ())
+        for r, out in enumerate(ranks):
+            n = {k: int(out[f"{name}/launches/{k}"]) for k in ops.LAUNCHES}
+            launches[f"{name} rank {r}"] = n
+            if min(n[k] for k in want) <= 0:
+                raise AssertionError(f"phase E ({name}) rank {r} missed a "
+                                     f"kernel: {n}")
+        note = ""
+        if name == "b":
+            lcfg = HistoryConfig()
+            st = dledger.init_state(lcfg, "cuda")
+            for t in range(s["steps"]):
+                g = {k: np.concatenate([r[f"b/write/{t}/{k}"] for r in ranks])
+                     for k in ("ids", "losses", "valid")}
+                st, _ = dledger.record_priority(
+                    lcfg, st, torch.from_numpy(g["ids"]).cuda(),
+                    torch.from_numpy(g["losses"]).cuda(),
+                    int(ranks[0][f"b/write/{t}/step"]),
+                    valid=torch.from_numpy(g["valid"]).cuda())
+            single = dledger.state_dict_of(st)
+            got = dict(np.load(os.path.join(tmp, "b_ledger.npz")))
+            for k, v in single.items():
+                if not np.array_equal(got[k], v):
+                    raise AssertionError(f"phase E (b): table {k} differs "
+                                         "from the single table")
+            note = (f", the routed table equal to the single one "
+                    f"({int((single['owner'] >= 0).sum())} live slots)")
+        if name in one:
+            o, tol = one[name], REF_TRAIN_RTOL if f32 else DP_BF16_RTOL
+            rel = max(abs(s[k] - o[k]) / abs(o[k])
+                      for k in ("loss_first", "loss_last"))
+            note = (f", one rank's losses {o['loss_first']:.6f} -> "
+                    f"{o['loss_last']:.6f} (this run's {s['loss_first']:.6f}"
+                    f" -> {s['loss_last']:.6f}; largest relative difference "
+                    f"{rel:.3g}, tol {tol}), one rank's steady step "
+                    f"{o['steady_ms']:.1f} ms, peak {o['peak_gib']:.2f} GiB")
+            if rel > tol:
+                raise AssertionError(f"phase E ({name}): losses "
+                                     f"{s['loss_first']}, {s['loss_last']}; "
+                                     f"one rank {o['loss_first']}, "
+                                     f"{o['loss_last']} (tol {tol})")
+        warm = sorted(s["step_ms"][1:])
+        steady = warm[len(warm) // 2]
+        gloo = float(ranks[0][f"{name}/gloo_s"]) * 1e3 / s["steps"]
+        peaks = [round(float(r[f"{name}/peak_gib"]), 2) for r in ranks]
+        lines.append(
+            f"dp ranks (E, {name}): mamba2-370m 48 layers "
+            f"{'f32' if f32 else 'bf16'}, 4 gloo ranks "
+            f"on one card, 32 x 512 (8 rows a rank), {' '.join(DP_E_RUNS[name][0])}: "
+            f"loss {s['loss_first']:.4f} -> {s['loss_last']:.4f}, step cost "
+            f"{s['mean_step_cost']:.3f}C, kept {kept} a step, params equal "
+            f"on every rank, step ms (rank 0) first {s['step_ms'][0]:.1f}, "
+            f"steady (median of warm) {steady:.1f}, of which in gloo's "
+            f"collectives (host-staged; rank 0, a step) {gloo:.1f} "
+            f"({100 * gloo / (sum(s['step_ms']) / s['steps']):.0f}% of the "
+            f"mean step), peak GiB a rank {peaks}, launches rank 0 "
+            f"{launches[f'{name} rank 0']}" + note)
+    lines.append(f"phase E: {ranks_s:.1f} s the ranks, "
+                 f"{time.perf_counter() - t0:.1f} s in all")
+    return launches, lines
+
+
 def train_profile_phase(torch, arch="llama3-8b", layers=TRAIN_LAYERS,
                         seq=128) -> str:
     """Where a steady train step of run (a)'s configuration goes (32 rows
@@ -2789,16 +3289,17 @@ def train_profile_phase(torch, arch="llama3-8b", layers=TRAIN_LAYERS,
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     before = dict(ops.LAUNCHES)
+    # one step profiled: the profiler's handling of its events costs more
+    # than the step
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            step(4 + i)
+        step(4)
         torch.cuda.synchronize()
     seen = _seen(torch, prof, {k: v - before[k]
                                for k, v in ops.LAUNCHES.items()})
-    device_ms, launches, tops = _profile_summary(torch, prof, n)
-    groups = _kernel_groups(torch, prof, n)
-    stacks = _op_device_ms(prof, n, ("SelectBackward0", "AccumulateGrad"))
+    device_ms, launches, tops = _profile_summary(torch, prof, 1)
+    groups = _kernel_groups(torch, prof, 1)
+    stacks = _op_device_ms(prof, 1, ("SelectBackward0", "AccumulateGrad"))
     del state
     _free(torch)
     return (f"steady train step {wall_ms:.1f} ms host wall (run a), device "
@@ -2820,7 +3321,7 @@ def _op_device_ms(prof, n, ops_: tuple) -> str:
             e, "cuda_time_total", 0.0)
 
     out = []
-    events = prof.key_averages()
+    events = _averages(prof)
     for op in ops_:
         # the operator's own row, or the autograd engine's row around it
         # ("autograd::engine::evaluate_function: <op>"), whichever holds
@@ -3353,6 +3854,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     start = time.perf_counter()
+    laps, last = [], [start]
+
+    def lap(name: str) -> None:
+        """Seconds since the previous lap, for the phase-times line."""
+        now = time.perf_counter()
+        laps.append(f"{name} {now - last[0]:.1f}")
+        last[0] = now
+
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build, ops, ref
 
@@ -3368,6 +3877,7 @@ def main() -> int:
     for line in rep.get("log", "").splitlines():
         if "registers" in line:
             print(f"build:   {line.strip()}")
+    lap("build")
     kernels = []
 
     def show(row):
@@ -3382,6 +3892,7 @@ def main() -> int:
     for phase in (topk_phase, paged_phase, decode_attn_phase, ssd_phase):
         show(phase(torch, ops, ref))
     show(ssd_bwd_phase(torch, ops))
+    lap("kernel checks")
     _free(torch)
     with tempfile.TemporaryDirectory() as tmp:
         s = serve_phase(torch, ops, tmp)
@@ -3391,6 +3902,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         st, line = telemetry_serve_phase(torch, ops, tmp, s)
     print(line, flush=True)
+    lap("serve, profile, telemetry")
     t_a = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         routed, lines = routed_serve_phase(torch, ops, tmp, s)
@@ -3400,7 +3912,9 @@ def main() -> int:
           f"{profile_phase(torch, SERVE_ARGV + ROUTED_ARGV['a2a'])}",
           flush=True)
     print(f"phase A: {time.perf_counter() - t_a:.1f} s", flush=True)
+    lap("A")
     print(f"reference: {reference_phase(torch)}", flush=True)
+    lap("reference")
     with tempfile.TemporaryDirectory() as tmp:
         sl = slice_serve_phases(torch, ops, tmp)
     for key, name in (("hybrid", "zamba2-2.7b 54 layers"),
@@ -3419,6 +3933,7 @@ def main() -> int:
     # launches over each kernel's own main path: the paged llama3-8b serve
     # for topk_lse and paged_decode_attn, the zamba2 serve for the slice's
     # two kernels, the two train runs for the training kernels
+    lap("ssm and hybrid serves, references")
     launches = {k: s["launches"][k] for k in SERVE_KERNELS}
     launches.update({k: sl["hybrid"]["launches"][k]
                      for k in ("decode_attn", "ssd")})
@@ -3428,8 +3943,10 @@ def main() -> int:
     row, spans = ledger_phase(torch, ops, ref)
     show(row)
     print(spans, flush=True)
+    lap("xent, ledger")
     shard_launches, lines = sharded_ops_phase(torch, ops)
     print(lines, flush=True)
+    lap("B")
     with tempfile.TemporaryDirectory() as tmp:
         a, b = train_phase(torch, ops, tmp)
         t_c = time.perf_counter()
@@ -3453,7 +3970,17 @@ def main() -> int:
           f"{time.perf_counter() - t_c:.1f} s", flush=True)
     for k in ("xent_fwd", "xent_bwd", "ledger_record_priority"):
         launches[k] = a["launches"][k] + b["launches"][k]
+    lap("train a, b, C")
+    d_launches, line = dp_step_phase(torch, ops)
+    print(line, flush=True)
+    lap("D")
+    with tempfile.TemporaryDirectory() as tmp:
+        e_launches, lines = dp_ranks_phase(torch, ops, tmp)
+    for line in lines:
+        print(line, flush=True)
+    lap("E")
     print(f"train profile: {train_profile_phase(torch)}", flush=True)
+    lap("train profile")
     by_path = {"serve llama3-8b paged": s["launches"],
                "serve llama3-8b paged, telemetry": st["launches"],
                "serve zamba2-2.7b": sl["hybrid"]["launches"],
@@ -3463,15 +3990,22 @@ def main() -> int:
                    routed["gather"]["launches"],
                "serve llama3-8b paged, routed a2a": routed["a2a"]["launches"],
                "train a": a["launches"], "train b": b["launches"],
-               "train b, routed a2a": c["launches"]}
+               "train b, routed a2a": c["launches"],
+               "train dp step, one NCCL rank (D)": d_launches}
+    for key, n in e_launches.items():
+        by_path[f"train dp mamba2-370m ({key}, 4 gloo ranks, E)"] = n
     for key, n in shard_launches.items():
         by_path[f"sharded ops {key} (4 ranks)"] = dict(
             {k: 0 for k in ops.LAUNCHES}, ledger_record_priority=n)
     with tempfile.TemporaryDirectory() as tmp:
         serves = arch_serve_phases(torch, ops, tmp)
+        lap("dense archs' serves")
         mixtral = mixtral_phases(torch, ops, tmp)
+        lap("mixtral")
         deepseek = deepseek_phases(torch, ops, tmp)
+        lap("deepseek-v2")
         trains = arch_train_phase(torch, ops, tmp)
+        lap("archs' trains")
     for arch, r in serves.items():
         by_path[f"serve {arch} paged"] = r["launches"]
     for key, r in mixtral.items():
@@ -3489,9 +4023,12 @@ def main() -> int:
           f"{train_profile_phase(torch, 'mamba2-370m', 0, 512)}", flush=True)
     print(f"zamba2 train profile: "
           f"{train_profile_phase(torch, 'zamba2-2.7b', 0, 512)}", flush=True)
+    lap("ssm train profiles")
     for arch in ("pixtral-12b", "musicgen-medium"):
         by_path[f"prefix {arch}"] = prefix_phase(torch, ops, arch)
+    lap("prefix")
     t3, claims = paper_phase(torch, ops)
+    lap("paper")
     by_path["paper table3"] = t3
     for line in claims:
         print(line, flush=True)
@@ -3509,6 +4046,7 @@ def main() -> int:
     extra = ("bound_design_ms", "bound_f32_ms", "dev_ms", "grids_ms",
              "tol_used", "dev_cold_ms", "dev_library_ms", "span_ms",
              "host_ms", "replaces_note", "launches_by_path")
+    print(f"phase times (s): {', '.join(laps)}", flush=True)
     print(f"total: every phase passed in {time.perf_counter() - start:.1f} "
           f"s", flush=True)
     print(json.dumps({"kernels": [

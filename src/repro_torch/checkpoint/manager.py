@@ -17,6 +17,13 @@ layout, so either package reads the other's checkpoints:
   * the spans ``checkpoint.fetch`` (the host copies), ``checkpoint.save``
     (the write, on the save thread) and ``checkpoint.restore`` go to the
     installed telemetry (``repro_torch.obs.current``).
+
+On a data axis of several ranks (``CheckpointManager(zero1=layout)``)
+saving is collective: every rank calls ``save``, the ZeRO-1 moment slices
+(``opt/m``, ``opt/v``) are gathered into full leaves, and rank 0 alone
+writes, so a checkpoint keeps the one-device layout (readable by the JAX
+manager). ``restore`` cuts each moment leaf to the restoring rank's slice
+of its own layout, so a checkpoint resumes on any number of ranks.
 """
 
 from __future__ import annotations
@@ -29,12 +36,45 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.models.params import tree_map
 
 LEDGER_FILE = "ledger.npz"
 _BF16 = np.dtype("V2")
+ZERO1_MOMENTS = ("m", "v")  # the optimizer-state leaves a ZeRO-1 layout cuts
+
+
+def _writes(zero1) -> bool:
+    """Whether this process writes checkpoints: rank 0 of the ZeRO-1
+    layout's data axis where one is given, else rank 0 of the group, or a
+    process outside any group."""
+    if zero1 is not None:
+        return zero1.rank == 0
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def full_moments(state: Any, zero1) -> Any:
+    """``state`` with its ZeRO-1 moment slices gathered into full leaves
+    (a collective: every rank of the data axis calls it)."""
+    opt = dict(state["opt"])
+    for k in ZERO1_MOMENTS:
+        if k in opt:
+            opt[k] = zero1.gather(opt[k])
+    return dict(state, opt=opt)
+
+
+def moment_cut(zero1):
+    """``cut(path, array)`` for ``load_checkpoint``: a full moment leaf ->
+    this rank's slice in ``zero1``'s layout; other leaves unchanged."""
+
+    def cut(path: tuple, arr: np.ndarray) -> np.ndarray:
+        if len(path) < 3 or path[0] != "opt" or path[1] not in ZERO1_MOMENTS:
+            return arr
+        return zero1.piece(arr, zero1.dim_at(path[2:]))
+
+    return cut
 
 
 def _key(path: tuple) -> str:
@@ -140,9 +180,12 @@ def _from_numpy(arr: np.ndarray, dtype: str, like) -> Any:
     return arr
 
 
-def load_checkpoint(directory: str, step: int, target: Any) -> Any:
+def load_checkpoint(directory: str, step: int, target: Any,
+                    cut=None) -> Any:
     """Restore into ``target``'s structure: each tensor leaf comes back on
-    the target leaf's device in its dtype; other leaves as numpy arrays."""
+    the target leaf's device in its dtype; other leaves as numpy arrays.
+    ``cut(path, array)``, where given, takes each stored array first (the
+    rank's slice of a ZeRO-1 moment: ``moment_cut``)."""
     path = os.path.join(directory, f"step_{step:010d}")
     with obs.span("checkpoint.restore", cat="checkpoint", step=step):
         with open(os.path.join(path, "manifest.json")) as f:
@@ -151,6 +194,8 @@ def load_checkpoint(directory: str, step: int, target: Any) -> Any:
         def leaf(p, like):
             meta = manifest["leaves"][_key(p)]
             arr = np.load(os.path.join(path, meta["file"]))
+            if cut is not None:
+                arr = cut(p, arr)
             return _from_numpy(arr, meta["dtype"], like)
 
         return tree_map(leaf, target)
@@ -168,14 +213,22 @@ def load_ledger(directory: str, step: int) -> Optional[dict[str, np.ndarray]]:
 
 
 class CheckpointManager:
-    """Async keep-k checkpointing with torn-save garbage collection."""
+    """Async keep-k checkpointing with torn-save garbage collection.
 
-    def __init__(self, directory: str, keep: int = 3):
+    ``zero1`` (a ``distributed.zero.Zero1Layout``): the state's moments
+    are this rank's slices; ``save`` gathers them (every rank calls it)
+    and rank 0 writes; ``restore`` cuts them to this rank's slices."""
+
+    def __init__(self, directory: str, keep: int = 3, zero1=None):
         self.directory = directory
         self.keep = keep
+        self.zero1 = zero1
+        self.writes = _writes(zero1)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         os.makedirs(directory, exist_ok=True)
+        if not self.writes:
+            return
         for name in os.listdir(directory):  # torn saves of a crash
             if name.endswith(".tmp"):
                 shutil.rmtree(os.path.join(directory, name),
@@ -189,8 +242,13 @@ class CheckpointManager:
         ledger: Optional[dict[str, np.ndarray]] = None,
     ) -> None:
         """Fetch ``state`` (and snapshot ``ledger``) now, write it in the
-        background; ``block`` waits for the write."""
+        background; ``block`` waits for the write. With a ZeRO-1 layout a
+        collective; a rank other than 0 writes nothing."""
         self.wait()  # one save in flight
+        if self.zero1 is not None:
+            state = full_moments(state, self.zero1)
+        if not self.writes:
+            return
         with obs.span("checkpoint.fetch", cat="checkpoint", step=step):
             flat = _flatten(state)  # host copies, before the thread runs
         if ledger is not None:
@@ -231,7 +289,8 @@ class CheckpointManager:
         return latest_step(self.directory)
 
     def restore(self, step: int, target: Any) -> Any:
-        return load_checkpoint(self.directory, step, target)
+        cut = None if self.zero1 is None else moment_cut(self.zero1)
+        return load_checkpoint(self.directory, step, target, cut)
 
     def restore_ledger(self, step: int) -> Optional[dict[str, np.ndarray]]:
         return load_ledger(self.directory, step)

@@ -7,5 +7,6 @@ from repro_torch.data.pipeline import (  # noqa: F401
     RecycleFeed,
     SyntheticLMStream,
     SyntheticRegression,
+    local_rows,
     mnist_like,
 )

@@ -107,6 +107,25 @@ class SyntheticLMStream:
             step += 1
 
 
+def local_rows(batch: dict, rank: int, shards: int) -> dict:
+    """Rank ``rank``'s rows of a global batch: rows ``[r*n_local,
+    (r+1)*n_local)`` of every array (the JAX package's ``P("data")``
+    layout of the data-parallel step); scalars, such as the feed's
+    ``ledger_hit_rate``, pass through."""
+
+    def rows(x):
+        x = np.asarray(x)
+        if x.ndim == 0:
+            return x.item()
+        if x.shape[0] % shards:
+            raise ValueError(f"batch of {x.shape[0]} rows does not divide "
+                             f"over {shards} ranks")
+        n = x.shape[0] // shards
+        return x[rank * n:(rank + 1) * n]
+
+    return {k: rows(v) for k, v in batch.items()}
+
+
 class RecycleFeed:
     """Joins the recycle ledger's signal onto a batch stream.
 

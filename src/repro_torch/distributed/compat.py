@@ -15,6 +15,12 @@ through this module, so one place decides how a group moves tensors:
   tensor is staged through the CPU on the way in and out. The group's
   backend decides this, never a caught error.
 
+The data-parallel train step moves whole trees: ``all_reduce_buckets``
+(the gradients) and ``all_gather_along`` (the ZeRO-1 update slices) pack
+every leaf of one dtype into one flat bucket, so a step makes one
+collective a dtype, not one a leaf. ``any_rank`` max-reduces a host flag
+(the trainer's agreed stop).
+
 The data axis is the default process group (``launch.mesh``). The
 collectives are blocking (``async_op=False``). On NCCL, blocking means
 the caller's stream waits for the collective's; the host does not, so
@@ -76,3 +82,61 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     out = _in(x).clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM)
     return out.to(x.device)
+
+
+def _buckets(xs) -> dict:
+    """Leaf positions grouped by dtype, in first-seen order."""
+    out: dict = {}
+    for i, x in enumerate(xs):
+        out.setdefault(x.dtype, []).append(i)
+    return out
+
+
+def all_reduce_buckets(xs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The sum over ranks of every tensor of ``xs`` -> new tensors (views
+    of one flat buffer a dtype): one ``all_reduce`` a dtype bucket."""
+    out: list = [None] * len(xs)
+    for idx in _buckets(xs).values():
+        flat = torch.cat([xs[i].reshape(-1) for i in idx])
+        src = _in(flat)  # a fresh buffer: reduced in place
+        dist.all_reduce(src, op=dist.ReduceOp.SUM)
+        total = src.to(flat.device)
+        off = 0
+        for i in idx:
+            n = xs[i].numel()
+            out[i] = total[off:off + n].view(xs[i].shape)
+            off += n
+    return out
+
+
+def all_gather_along(xs: list[torch.Tensor],
+                     dims: list[int]) -> list[torch.Tensor]:
+    """Every rank's piece of each tensor, joined along its dim ``dims[i]``
+    in rank order (JAX's ``all_gather(..., axis=d, tiled=True)``) -> full
+    tensors: one ``all_gather`` a dtype bucket. Each rank's pieces must
+    have the same shapes."""
+    out: list = [None] * len(xs)
+    size = axis_size()
+    for idx in _buckets(xs).values():
+        flat = torch.cat([xs[i].reshape(-1) for i in idx])
+        g = all_gather(flat).view(size, flat.numel())
+        off = 0
+        for i in idx:
+            x, d = xs[i], dims[i]
+            n = x.numel()
+            stacked = g[:, off:off + n].reshape((size,) + x.shape)
+            full = list(x.shape)
+            full[d] *= size
+            out[i] = stacked.movedim(0, d).reshape(full)
+            off += n
+    return out
+
+
+def any_rank(flag: bool, device: torch.device) -> bool:
+    """Whether ``flag`` is set on any rank (a max-reduce; a collective, and
+    a host read: call it outside a guarded step). ``device`` is where the
+    group takes its tensors (the rank's card under NCCL)."""
+    x = torch.full((1,), int(flag), dtype=torch.int32, device=device)
+    src = _in(x)
+    dist.all_reduce(src, op=dist.ReduceOp.MAX)
+    return bool(src.item())

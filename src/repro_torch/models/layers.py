@@ -53,8 +53,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * rms).to(x.dtype) * w.to(x.dtype)
 
 
-def rmsnorm_spec(d: int) -> ParamSpec:
-    return ParamSpec((d,), init="ones")
+def rmsnorm_spec(d: int, axis: Optional[str] = "embed") -> ParamSpec:
+    return ParamSpec((d,), (axis,), init="ones")
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -88,14 +88,17 @@ def gqa_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = d**-0.5
     p = {
-        "wq": ParamSpec((d, h, hd), scale=s),
-        "wk": ParamSpec((d, kv, hd), scale=s),
-        "wv": ParamSpec((d, kv, hd), scale=s),
-        "wo": ParamSpec((h, hd, d), scale=(h * hd) ** -0.5),
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim"), scale=s),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+                        scale=s),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+                        scale=s),
+        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed"),
+                        scale=(h * hd) ** -0.5),
     }
     if cfg.qk_norm:
-        p["q_norm"] = rmsnorm_spec(hd)
-        p["k_norm"] = rmsnorm_spec(hd)
+        p["q_norm"] = rmsnorm_spec(hd, "head_dim")
+        p["k_norm"] = rmsnorm_spec(hd, "head_dim")
     return p
 
 
@@ -372,13 +375,16 @@ def mla_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
     nope, pe, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     s = d**-0.5
     return {
-        "wq_a": ParamSpec((d, qr), scale=s),
-        "q_norm": rmsnorm_spec(qr),
-        "wq_b": ParamSpec((qr, h, nope + pe), scale=qr**-0.5),
-        "wkv_a": ParamSpec((d, r + pe), scale=s),
-        "kv_norm": rmsnorm_spec(r),
-        "wkv_b": ParamSpec((r, h, nope + vd), scale=r**-0.5),
-        "wo": ParamSpec((h, vd, d), scale=(h * vd) ** -0.5),
+        "wq_a": ParamSpec((d, qr), ("embed", "q_lora"), scale=s),
+        "q_norm": rmsnorm_spec(qr, "q_lora"),
+        "wq_b": ParamSpec((qr, h, nope + pe), ("q_lora", "heads", "head_dim"),
+                          scale=qr**-0.5),
+        "wkv_a": ParamSpec((d, r + pe), ("embed", "kv_lora"), scale=s),
+        "kv_norm": rmsnorm_spec(r, "kv_lora"),
+        "wkv_b": ParamSpec((r, h, nope + vd), ("kv_lora", "heads", "head_dim"),
+                           scale=r**-0.5),
+        "wo": ParamSpec((h, vd, d), ("heads", "head_dim", "embed"),
+                        scale=(h * vd) ** -0.5),
     }
 
 
@@ -515,11 +521,11 @@ def mlp_specs(d: int, f: int, gelu: bool = False) -> dict[str, ParamSpec]:
     """SwiGLU's ``w1``/``w3``/``w2``, or with ``gelu`` the GPTBigCode-style
     MLP's ``w1``/``w2`` alone (granite)."""
     p = {
-        "w1": ParamSpec((d, f), scale=d**-0.5),
-        "w2": ParamSpec((f, d), scale=f**-0.5),
+        "w1": ParamSpec((d, f), ("embed", "mlp"), scale=d**-0.5),
+        "w2": ParamSpec((f, d), ("mlp", "embed"), scale=f**-0.5),
     }
     if not gelu:  # SwiGLU gate
-        p["w3"] = ParamSpec((d, f), scale=d**-0.5)
+        p["w3"] = ParamSpec((d, f), ("embed", "mlp"), scale=d**-0.5)
     return p
 
 

@@ -71,7 +71,8 @@ def dtype_of(name: str) -> torch.dtype:
 def stack_specs(tree, n: int):
     """Add a leading stacked-layers dim to every spec in the tree."""
     return tree_map(
-        lambda _, s: ParamSpec((n, *s.shape), s.init, s.scale), tree
+        lambda _, s: ParamSpec((n, *s.shape), ("layers", *s.axes), s.init,
+                               s.scale), tree
     )
 
 
@@ -110,11 +111,12 @@ def param_specs(cfg: ModelConfig) -> dict:
     _require(cfg, SERVING_FAMILIES, "the parameter layout")
     d, v = cfg.d_model, cfg.vocab_size
     specs: dict = {
-        "embed": ParamSpec((v, d), scale=0.02),
+        "embed": ParamSpec((v, d), ("vocab", "embed"), scale=0.02),
         "final_norm": L.rmsnorm_spec(d),
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = ParamSpec((v, d), scale=d**-0.5)
+        specs["lm_head"] = ParamSpec((v, d), ("vocab", "embed"),
+                                     scale=d**-0.5)
     if cfg.family in ATTN_FAMILIES:
         for key, n in _attn_stacks(cfg):
             ffn = "moe" if key == "blocks" and cfg.family == "moe" else "dense"

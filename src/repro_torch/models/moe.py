@@ -39,10 +39,13 @@ ROUTED: dict = {"choices": 0, "kept": 0}
 def moe_specs(cfg: ModelConfig) -> dict:
     d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     p: dict = {
-        "router": ParamSpec((d, e), scale=d**-0.5),
-        "w1": ParamSpec((e, d, f), scale=d**-0.5),
-        "w3": ParamSpec((e, d, f), scale=d**-0.5),
-        "w2": ParamSpec((e, f, d), scale=f**-0.5),
+        "router": ParamSpec((d, e), ("embed", "experts"), scale=d**-0.5),
+        "w1": ParamSpec((e, d, f), ("experts", "embed", "expert_mlp"),
+                        scale=d**-0.5),
+        "w3": ParamSpec((e, d, f), ("experts", "embed", "expert_mlp"),
+                        scale=d**-0.5),
+        "w2": ParamSpec((e, f, d), ("experts", "expert_mlp", "embed"),
+                        scale=f**-0.5),
     }
     if cfg.num_shared_experts:
         p["shared"] = mlp_specs(d, cfg.num_shared_experts * f)

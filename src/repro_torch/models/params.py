@@ -1,9 +1,13 @@
 """Parameter specs and their tensors.
 
 The model declares its parameters as a nested dict of ``ParamSpec`` (shape,
-initializer, scale), the layout of ``repro.models.params``: the layers of a
-stack share one tensor with a leading layer dim (``blocks``). From the spec
-tree come
+logical axis names, initializer, scale), the layout of
+``repro.models.params``: the layers of a stack share one tensor with a
+leading layer dim (``blocks``, logical axis ``layers``). The logical axes
+are what ``distributed.sharding`` maps onto the mesh (the JAX package's
+vocabulary: "vocab", "embed", "heads", "kv_heads", "head_dim", "mlp",
+"experts", "expert_mlp", "q_lora", "kv_lora", "ssm_inner", "ssm_heads",
+"ssm_state", "conv", "layers", "blocks", None). From the spec tree come
 
 * ``materialize`` — initialized tensors, drawn on the target device from a
   ``torch.Generator`` seeded per leaf from (seed, path);
@@ -20,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -29,8 +33,12 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]  # logical axis name per dim
     init: str = "normal"  # normal | zeros | ones | ssm_a | ssm_dt | conv
     scale: float = 1.0  # stddev for "normal"
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 def is_spec(x: Any) -> bool:

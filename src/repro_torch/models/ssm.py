@@ -48,14 +48,17 @@ def ssm_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
     conv_dim = di + 2 * g * n
     return {
         # order: [z: di | x: di | B: g*n | C: g*n | dt: h]
-        "in_proj": ParamSpec((d, 2 * di + 2 * g * n + h), scale=d**-0.5),
-        "conv_w": ParamSpec((cfg.ssm_conv, conv_dim), init="conv"),
-        "conv_b": ParamSpec((conv_dim,), init="zeros"),
-        "a_log": ParamSpec((h,), init="ssm_a"),
-        "dt_bias": ParamSpec((h,), init="ssm_dt"),
-        "d_skip": ParamSpec((h,), init="ones"),
-        "norm": ParamSpec((di,), init="ones"),
-        "out_proj": ParamSpec((di, d), scale=di**-0.5),
+        "in_proj": ParamSpec((d, 2 * di + 2 * g * n + h),
+                             ("embed", "ssm_inner"), scale=d**-0.5),
+        "conv_w": ParamSpec((cfg.ssm_conv, conv_dim), ("conv", "ssm_inner"),
+                            init="conv"),
+        "conv_b": ParamSpec((conv_dim,), ("ssm_inner",), init="zeros"),
+        "a_log": ParamSpec((h,), ("ssm_heads",), init="ssm_a"),
+        "dt_bias": ParamSpec((h,), ("ssm_heads",), init="ssm_dt"),
+        "d_skip": ParamSpec((h,), ("ssm_heads",), init="ones"),
+        "norm": ParamSpec((di,), ("ssm_inner",), init="ones"),
+        "out_proj": ParamSpec((di, d), ("ssm_inner", "embed"),
+                              scale=di**-0.5),
     }
 
 

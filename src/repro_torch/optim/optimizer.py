@@ -10,6 +10,13 @@ arrays) and returns that state: at llama3-8b width the moments are the
 largest tensors of a train step, and a second copy of them would not fit
 beside the rest. The step counter is a 0-dim int32 tensor on the params'
 device, so nothing is read back to the host.
+
+``adamw(..., zero1=layout)`` shards the moments over the data axis
+(``distributed.zero.Zero1Layout``, ZeRO-1): each rank keeps its slice of
+each moment leaf, updates it from its slice of the (already all-reduced)
+grads and params, and the full update is gathered from every rank's
+slices. The clip's global norm is taken over the full grads, so its scale
+is the same on every rank.
 """
 
 from __future__ import annotations
@@ -47,11 +54,17 @@ def _zip_map(fn, *trees):
     return tree_map(lambda _, x: fn(x, *(next(i) for i in its)), trees[0])
 
 
-def _clip(grads: Any, clip_norm: Optional[float]) -> Any:
-    """f32 copies of the grads, scaled in place to ``clip_norm`` at most."""
-    grads = tree_map(lambda _, g: g.to(F32, copy=True), grads)
+def _clip(grads: Any, clip_norm: Optional[float], zero1=None) -> Any:
+    """f32 copies of the grads (of this rank's slices of them, with a
+    ``zero1`` layout), scaled in place so that the full grads' global norm
+    is ``clip_norm`` at most."""
+    scale = None
     if clip_norm is not None:
         scale = torch.clamp(clip_norm / (global_norm(grads) + 1e-9), max=1.0)
+    if zero1 is not None:
+        grads = zero1.slice(grads)
+    grads = tree_map(lambda _, g: g.to(F32, copy=True), grads)
+    if scale is not None:
         for g in tree_leaves(grads):
             g.mul_(scale)
     return grads
@@ -74,15 +87,21 @@ def _step0(params: Any) -> torch.Tensor:
 def adamw(
     schedule: Callable[[torch.Tensor], torch.Tensor],
     cfg: AdamWConfig = AdamWConfig(),
+    zero1=None,
 ) -> Optimizer:
+    """AdamW; with ``zero1`` (a ``distributed.zero.Zero1Layout``) the
+    moments hold this rank's slices and ``update`` is a collective (the
+    update's gather): every rank of the data axis calls it."""
+    cut = (lambda t: t) if zero1 is None else zero1.slice
+
     def init(params):
         zeros = lambda _, p: torch.zeros(p.shape, dtype=F32, device=p.device)
-        return {"step": _step0(params), "m": tree_map(zeros, params),
-                "v": tree_map(zeros, params)}
+        return {"step": _step0(params), "m": tree_map(zeros, cut(params)),
+                "v": tree_map(zeros, cut(params))}
 
     def update(grads, state, params):
         step = state["step"] + 1
-        grads = _clip(grads, cfg.clip_norm)
+        grads = _clip(grads, cfg.clip_norm, zero1)
 
         def moments(mu, nu, g):
             mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
@@ -101,7 +120,9 @@ def adamw(
                 u = u + cfg.weight_decay * p.to(F32)
             return -lr * u
 
-        updates = _zip_map(upd, state["m"], state["v"], params)
+        updates = _zip_map(upd, state["m"], state["v"], cut(params))
+        if zero1 is not None:
+            updates = zero1.gather(updates)
         return updates, {"step": step, "m": state["m"], "v": state["v"]}
 
     return Optimizer(init, update)

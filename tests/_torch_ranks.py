@@ -1,7 +1,8 @@
 """Rank programs of the port's multi-process tests, and the inputs they share
 with the parent test.
 
-    python tests/_torch_ranks.py {ledger|serving} RANK WORLD STORE OUT_DIR
+    python tests/_torch_ranks.py {ledger|serving|train|resume} RANK WORLD \
+        STORE OUT_DIR
 
 Each rank joins a gloo group through a ``FileStore`` at STORE (no TCP
 port, so parallel test workers cannot collide), with a 60 s timeout on
@@ -30,16 +31,18 @@ WORLD = 4
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def start(scenario: str, out_dir: Path) -> list[subprocess.Popen]:
-    """Start the WORLD ranks of ``scenario``, each a process of its own."""
+def start(scenario: str, out_dir: Path,
+          world: int = WORLD) -> list[subprocess.Popen]:
+    """Start the ``world`` ranks of ``scenario``, each a process of its
+    own."""
     env = {"PYTHONPATH": str(ROOT / "src"), "HOME": str(out_dir),
            "TMPDIR": str(out_dir), "OMP_NUM_THREADS": "1",
            "PATH": os.environ.get("PATH", "/usr/bin:/bin")}
     store = out_dir / f"{scenario}.store"
     return [subprocess.Popen(
-        [sys.executable, __file__, scenario, str(r), str(WORLD), str(store),
+        [sys.executable, __file__, scenario, str(r), str(world), str(store),
          str(out_dir)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
 
 
 def finish(procs, scenario: str, out_dir: Path,
@@ -62,7 +65,7 @@ def finish(procs, scenario: str, out_dir: Path,
     bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
     assert not bad, f"ranks failed {bad}:\n" + "\n".join(logs)
     return [dict(np.load(out_dir / f"{scenario}-{r}.npz"))
-            for r in range(WORLD)]
+            for r in range(len(procs))]
 
 # -- the sharded ledger ops ----------------------------------------------------
 
@@ -283,16 +286,227 @@ def run_serving(rank: int) -> dict:
     return out
 
 
+# -- the data-parallel train step and the train CLI ----------------------------
+
+# 8 rows a rank. AdamW's update lr * m / sqrt(v) amplifies the grads' f32
+# noise where m nearly cancels (a grad that turns sign between the steps):
+# at lr 1e-3 a few entries land more than 1e-6 from JAX's. At 1e-4 every
+# update (about lr an entry a step) is still 100 times the params' 1e-6
+# tolerance, so a misplaced or stale moment slice shows.
+DP_N, DP_SEQ, DP_STEPS, DP_LR = 32, 12, 2, 1e-4
+# name -> (mode, method, ratio, recycle_forward, shard_local, optimizer)
+DP_CASES = {
+    "obftf-noise": ("obftf", "obftf", 0.25, False, True, "adamw"),
+    "maxk-recycled": ("obftf", "maxk", 0.25, True, True, "adamw"),
+    "full": ("full", "obftf", 0.25, False, True, "adamw"),
+    "global": ("obftf", "obftf", 0.25, False, False, "adamw"),
+    "ratio-0.3": ("obftf", "obftf", 0.3, False, True, "adamw"),
+    # SGD's update is linear in the grads, so a grad scaled wrongly
+    # (a mean of per-rank means, a sum) shows in the params; AdamW's would
+    # hide it
+    "global-sgd": ("obftf", "obftf", 0.25, False, False, "sgd"),
+}
+DRAWS = ("perm", "gumbel", "normal")
+CLI = ["--arch", "llama3-8b", "--smoke", "--global-batch", "16",
+       "--seq-len", "16", "--log-every", "1", "--model-parallel", "1"]
+# name -> extra flags; the port's and the JAX CLI's runs of these resume
+# from one checkpoint of the JAX CLI's initial state
+CLI_RUNS = {
+    "full": ["--method", "full", "--steps", "4"],
+    # two kept rows a rank against an a2a capacity of one a destination
+    "pinned": ["--method", "maxk", "--ratio", "0.5", "--recycle",
+               "--ledger", "device", "--instance-pool", "32", "--steps", "4"],
+    "a2a": ["--method", "maxk", "--ratio", "0.5", "--recycle", "--ledger",
+            "device", "--instance-pool", "32", "--steps", "4",
+            "--ledger-route", "--ledger-exchange", "a2a",
+            "--capacity-factor", "0.125"],
+    # every rank's LossHistory fed the gathered per-example losses
+    "host": ["--method", "maxk", "--ratio", "0.5", "--recycle", "--ledger",
+             "host", "--instance-pool", "32", "--steps", "4"],
+}
+FULL = CLI + ["--device", "cpu", "--method", "full"]
+
+
+def dp_config():
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get("llama3-8b", smoke=True),
+                               param_dtype="float32",
+                               compute_dtype="float32")
+
+
+class FixedDraws:
+    """The selection's draws, recorded beforehand (the JAX selector's, from
+    the parent), as the port's Noise."""
+
+    def __init__(self, perm, gumbel, normal):
+        self.perm = torch.from_numpy(np.asarray(perm, np.int64))
+        self.gum = torch.from_numpy(np.asarray(gumbel, np.float32))
+        self.norm = torch.from_numpy(np.asarray(normal, np.float32))
+
+    def permutation(self, n):
+        assert n == self.perm.shape[0], (n, self.perm.shape)
+        return self.perm
+
+    def gumbel(self, n):
+        assert n == self.gum.shape[0], (n, self.gum.shape)
+        return self.gum
+
+    def normal(self):
+        return self.norm
+
+
+def _optimizer(name: str, layout):
+    from repro_torch import optim as O
+
+    if name == "sgd":
+        return O.sgd_momentum(O.constant(0.05), momentum=0.9)
+    return O.adamw(O.constant(DP_LR), O.AdamWConfig(weight_decay=0.1),
+                   zero1=layout)
+
+
+def _tree_from(flat: dict, prefix: str, like):
+    from repro_torch.models.params import tree_map
+
+    return tree_map(lambda p, _: torch.from_numpy(
+        np.array(flat[prefix + "/".join(p)])), like)
+
+
+def _flat(tree, prefix: str) -> dict:
+    from repro_torch.models.params import tree_map
+
+    out = {}
+    tree_map(lambda p, x: out.__setitem__(prefix + "/".join(p),
+                                          x.detach().numpy().copy()), tree)
+    return out
+
+
+def run_dp_steps(rank: int, mesh) -> dict:
+    """Every case of ``DP_CASES``: DP_STEPS steps of ``make_train_step(mesh=)``
+    on this rank's rows, with the draws the parent recorded."""
+    from repro_torch.checkpoint.manager import full_moments
+    from repro_torch.core import obftf as OB
+    from repro_torch.core.selection import SelectionConfig
+    from repro_torch.distributed.zero import zero1_layout
+    from repro_torch.models import model as M
+
+    cfg = dp_config()
+    specs = M.param_specs(cfg)
+    inp = dict(np.load(OUT / "dp_inputs.npz"))
+    n_local = DP_N // WORLD
+    seg = slice(rank * n_local, (rank + 1) * n_local)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(inp[f"batch/{k}"][seg]))
+             for k in ("tokens", "labels", "recorded_loss", "instance_id")}
+    out = {}
+    for case, (mode, method, ratio, recycle, local, opt) in DP_CASES.items():
+        layout = zero1_layout(specs, mesh, rank)
+        optimizer = _optimizer(opt, layout)
+        step = OB.make_train_step(M.loss_fn(cfg), optimizer, OB.OBFTFConfig(
+            selection=SelectionConfig(method=method, ratio=ratio),
+            recycle_forward=recycle, mode=mode, shard_local=local),
+            mesh=mesh)
+        params = _tree_from(inp, "params/", specs)
+        state = {"params": params, "opt": optimizer.init(params),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        for t in range(DP_STEPS):
+            who = "global" if not local else f"rank{rank}"
+            noise = FixedDraws(*(inp[f"draws/{t}/{who}/{d}"] for d in DRAWS))
+            state, m = step(state, batch, noise)
+            for k, v in m.items():
+                out[f"{case}/{t}/{k}"] = v.numpy()
+        out.update(_flat(state["params"], f"{case}/params/"))
+        opt_state = (full_moments(state, layout)["opt"] if opt == "adamw"
+                     else state["opt"])
+        for k in ("m", "v"):
+            if k in opt_state:
+                out.update(_flat(opt_state[k], f"{case}/{k}/"))
+    return out
+
+
+def run_train(rank: int) -> dict:
+    """The step cases, then the train CLI on the four ranks: the runs of
+    ``CLI_RUNS`` resumed from the JAX CLI's initial state, the pinned one
+    resumed from its own final checkpoint, an obftf run,
+    a 4-step run of ``FULL`` checkpointed at step 2 and its resumption
+    from there, and a SIGTERM to rank 1 as its first step starts."""
+    import os
+    import shutil
+    import signal
+
+    import torch.distributed as dist
+
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_elastic_mesh
+
+    mesh = make_elastic_mesh(device="cpu")
+    out = run_dp_steps(rank, mesh)
+    for name, extra in CLI_RUNS.items():
+        assert train.main(CLI + ["--device", "cpu"] + extra + [
+            "--ckpt-dir", str(OUT / f"ck-port-{name}"), "--resume", "auto",
+            "--json-out", str(OUT / f"port-{name}.json"),
+            "--ledger-out", str(OUT / f"port-{name}.npz")]) == 0
+    # the pinned run's final checkpoint (its table sharded) resumed
+    assert train.main(CLI + ["--device", "cpu"] + CLI_RUNS["pinned"] + [
+        "--steps", "6", "--ckpt-dir", str(OUT / "ck-port-pinned"),
+        "--resume", "auto", "--json-out",
+        str(OUT / "port-pinned-resumed.json")]) == 0
+    assert train.main(CLI + ["--device", "cpu", "--steps", "3", "--json-out",
+                             str(OUT / "port-obftf.json")]) == 0
+    assert train.main(FULL + ["--steps", "4", "--ckpt-every", "2",
+                              "--ckpt-dir", str(OUT / "ck-save"),
+                              "--json-out", str(OUT / "full4.json"),
+                              "--metrics-out", str(OUT / "full4.jsonl"),
+                              "--metrics-every", "1"]) == 0
+    if rank == 0:
+        shutil.copytree(OUT / "ck-save", OUT / "ck-resume4")
+    dist.barrier()
+    assert train.main(FULL + ["--steps", "4", "--resume", "2", "--ckpt-dir",
+                              str(OUT / "ck-resume4"), "--json-out",
+                              str(OUT / "resume4.json")]) == 0
+    batch = pipeline.SyntheticLMStream.batch
+
+    def batch_then_signal(self, step):
+        if rank == 1 and step == 0:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return batch(self, step)
+
+    pipeline.SyntheticLMStream.batch = batch_then_signal
+    assert train.main(FULL + ["--steps", "5", "--ckpt-dir",
+                              str(OUT / "ck-term"), "--json-out",
+                              str(OUT / "term.json")]) == 0
+    pipeline.SyntheticLMStream.batch = batch
+    mesh.close()
+    return out
+
+
+def run_resume(rank: int) -> dict:
+    """``FULL`` resumed from the four ranks' checkpoint (``ck-resume``) on
+    this world."""
+    from repro_torch.launch import train
+
+    assert train.main(FULL + ["--steps", "4", "--resume", "2",
+                              "--ckpt-dir", str(OUT / "ck-resume"),
+                              "--json-out", str(OUT / "resume.json")]) == 0
+    return {}
+
+
+OUT = Path(".")  # the rank's output directory (main sets it)
+
+
 def main(argv) -> int:
     import torch.distributed as dist
 
+    global OUT
     scenario, rank, world, store, out_dir = argv
     rank, world = int(rank), int(world)
+    OUT = Path(out_dir)
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", store=dist.FileStore(store, world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=60))
-    run = {"ledger": run_ledger, "serving": run_serving}[scenario]
+    run = {"ledger": run_ledger, "serving": run_serving, "train": run_train,
+           "resume": run_resume}[scenario]
     np.savez(f"{out_dir}/{scenario}-{rank}.npz", **run(rank))
     dist.destroy_process_group()
     return 0

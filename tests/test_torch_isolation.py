@@ -50,7 +50,9 @@ def test_every_kernel_source_has_its_note():
 
 
 @pytest.mark.parametrize("rel", ["distributed/compat.py",
-                                 "distributed/ledger.py", "launch/mesh.py"])
+                                 "distributed/ledger.py", "launch/mesh.py",
+                                 "distributed/sharding.py",
+                                 "distributed/zero.py"])
 def test_the_mesh_side_has_no_fallback(rel):
     """No ``try`` around a collective, the ledger kernel's call or the
     choice of a backend: the group's backend decides, never a caught
