@@ -126,8 +126,9 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    (b) again with ``--ledger-route --ledger-exchange a2a``: on one rank the
    single table, so the JAX summary's keys, ``exchange`` "a2a",
    ``a2a_overflow`` 0, (b)'s launches and (b)'s losses;
-8a. data-parallel step (D) — ``make_train_step(mesh=)`` called directly
-   over an NCCL group of one (the CLI passes no mesh on one rank), run
+8a. data-parallel step (D) — ``make_train_step(mesh=)`` called
+   directly over an NCCL group of one (the CLI passes no mesh on one
+   rank; the FSDP layout holds every leaf whole there), run
    (a)'s configuration, 3 steps, each step's losses then written through
    the sharded ledger's ``record_priority`` (pinned): kept rows, losses,
    ``grad_norm`` and the table equal to the mesh-less step's on the same
@@ -137,10 +138,12 @@ Phases, one line each (any failure raises, exits non-zero and prints no
 8b. data-parallel ranks (E) — four spawned ranks sharing the card through
    gloo, each calling the train CLI with ``--model-parallel 1`` on
    mamba2-370m at full width and depth (48 layers), rows of 512, 8 rows a
-   rank: (a) obftf at 0.25 (2 steps), (b) recycled on the device ledger
-   routed through gather (3 steps), (c) ``--method full`` in bf16 and
-   (c-f32) in f32 (2 steps each). Gates: every rank's final params the
-   same bits, kept rows and step cost (1.75 / 0.75 / 3.0), finite losses,
+   rank, the params FSDP-placed (a quarter of each leaf with an ``embed``
+   dim a rank): (a) obftf at 0.25 (2 steps), (b) recycled on the device
+   ledger routed through gather (3 steps), (c) ``--method full`` in bf16
+   and (c-f32) in f32 (2 steps each). Gates: every rank's final params,
+   gathered whole, the same bits, each rank's param bytes its layout's,
+   kept rows and step cost (1.75 / 0.75 / 3.0), finite losses,
    xent, ssd and ssd_bwd (and the ledger kernel in (b)) launched on every
    rank,
    (b)'s table equal to the single table of the ranks' writes, the losses
@@ -148,15 +151,22 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    of one rank's run in the same dtype (bf16 grads summed over four ranks
    round otherwise than one rank's); each run's steady step, its host
    time in gloo's collectives and the peak memory a rank beside one
-   rank's;
+   rank's and the replicated layout's; then on the same ranks 12 layers
+   of mamba2-370m's in_proj stack gathered through
+   ``param_gather_constraint``, plain and under ``FSDP_RULES`` with
+   ``int8_gather`` (timed; int8 within max|w|/127 a chunk, its backward
+   within a bf16 ulp of the summed cotangents), and
+   ``int8_ring_all_reduce`` against gloo's
+   ``all_reduce`` (timed; within the sum of the ranks' max|x|/254 a
+   chunk);
 9. train profile — run (a)'s configuration again, two warm steps timed by
    the host clock and one under torch.profiler;
-10. the other dense archs — deepseek-7b (30 layers, MHA), qwen3-14b (40,
-   qk-norm, G = 5) and granite-34b (88, MQA with G = 48, the GELU MLP) —
-   and the prefix-embedding families without a prefix, as their CLIs
-   serve them — pixtral-12b (40, vlm) and musicgen-medium (48, audio, 24
-   heads of 64) — served as in phase 4 at full width and depth, with the
-   same gates
+10. the other dense archs — deepseek-7b (15 of 30 layers, MHA),
+   qwen3-14b (20 of 40, qk-norm, G = 5) and granite-34b (44 of 88, MQA
+   with G = 48, the GELU MLP) — and the prefix-embedding families without
+   a prefix, as their CLIs serve them — pixtral-12b (20 of 40, vlm) and
+   musicgen-medium (24 of 48, audio, 24 heads of 64) — served as in phase
+   4 at full width and half depth (``ARCH_LAYERS``), with the same gates
    (``paged_decode_attn`` once per layer a step), each followed by a
    profile of its steady decode step; their smoke configs in f32 on the
    card and on the CPU (equal tokens, ledgers within 1e-5, the signal
@@ -2792,7 +2802,8 @@ def _dp_d_run(torch, mesh, profiled: bool = False) -> dict:
     """DP_D_STEPS steps of run (a)'s configuration (llama3-8b at full width,
     TRAIN_LAYERS deep, 32 rows of 128 tokens, obftf at 0.25, AdamW) through
     ``make_train_step(mesh=mesh)`` (None: the mesh-less step; over a mesh
-    the moments take the ZeRO-1 layout, whole on one rank), each step's
+    the params and moments take the FSDP and ZeRO-1 layout, whole on one
+    rank, where every gather returns its input), each step's
     per-example losses then written through ``record_priority`` (over the
     mesh: the sharded ops, pinned); the warm steps under the sync guard ->
     each step's metrics and ms, the launches, the table, the peak memory,
@@ -2808,7 +2819,7 @@ def _dp_d_run(torch, mesh, profiled: bool = False) -> dict:
     from repro_torch.core.selection import GeneratorNoise, SelectionConfig
     from repro_torch.data import DataConfig, SyntheticLMStream
     from repro_torch.distributed.ledger import sharded_ledger_ops
-    from repro_torch.distributed.zero import zero1_layout
+    from repro_torch.distributed.zero import data_layout
     from repro_torch.kernels import ops
     from repro_torch.launch.train import build_optimizer
     from repro_torch.models import model as Mdl
@@ -2818,11 +2829,13 @@ def _dp_d_run(torch, mesh, profiled: bool = False) -> dict:
     torch.cuda.reset_peak_memory_stats()
     cfg = configs.get("llama3-8b", layers=TRAIN_LAYERS)
     specs = Mdl.param_specs(cfg)
-    layout = None if mesh is None else zero1_layout(specs, mesh, mesh.rank)
+    layout = None if mesh is None else data_layout(specs, mesh, mesh.rank)
     opt = build_optimizer(1e-3, 100, layout)
     step_fn = make_train_step(Mdl.loss_fn(cfg), opt, OBFTFConfig(
         SelectionConfig(method="obftf", ratio=0.25)), mesh=mesh)
     params = materialize(specs, 0, torch.bfloat16, "cuda")
+    if layout is not None:
+        params = layout.hold(params)  # one rank: the same tensors
     state = {"params": params, "opt": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
     del params
@@ -2934,8 +2947,9 @@ def dp_step_phase(torch, ops) -> tuple[dict, str]:
     warm = lambda r: sorted(r["step_ms"][1:])[len(r["step_ms"][1:]) // 2]
     m0 = dp["metrics"]
     line = (f"dp step (D): llama3-8b {TRAIN_LAYERS} layers bf16, 32 x 128, "
-            f"make_train_step(mesh=) over one NCCL rank (ZeRO-1 moments, "
-            f"whole on one rank) against the mesh-less step, {DP_D_STEPS} "
+            f"make_train_step(mesh=) over one NCCL rank (FSDP "
+            f"params, ZeRO-1 moments, whole on one rank) against the "
+            f"mesh-less step, {DP_D_STEPS} "
             f"steps: kept {[int(m['kept']) for m in m0]}, losses "
             f"{[round(float(m['loss']), 4) for m in m0]}, grad_norm "
             f"{[round(float(m['grad_norm']), 4) for m in m0]} equal within "
@@ -2978,12 +2992,26 @@ DP_E_RUNS = {  # name -> (extra flags, step cost, kept rows of 32, f32)
 # (c)'s losses against one rank's in bf16: each rank's grads round to bf16
 # before the sum, one rank's once, so AdamW's sign-like steps differ where
 # a grad is near 0. For mamba2-370m's smoke config on the CPU (the train
-# CLI, 32 rows of 24, two steps) one and four ranks read 5.2e-6 apart at
-# the second loss, and four ranks that skip the grads' all-reduce 3.4e-4.
-# A fault of the grads' scale shows in neither: AdamW and the clip cancel
-# it (tests/test_torch_dp_train.py holds the scale with SGD)
+# CLI, 32 rows of 24, two steps) one and four ranks read 4.9e-5 apart at
+# the second loss with the params FSDP-placed (5.2e-6 with them replicated
+# and the grads all-reduced), and four ranks whose reduce-scatter keeps
+# each rank's own grads unsummed 6.8e-4 (replicated, skipping the
+# all-reduce: 3.4e-4). A fault of the grads' scale shows in neither: AdamW
+# and the clip cancel it (tests/test_torch_dp_train.py holds the scale
+# with SGD)
 DP_BF16_RTOL = 2e-4
 DP_E_KERNELS = ("xent_fwd", "xent_bwd", "ssd", "ssd_bwd")
+# the peak a rank of phase E in bf16 with the params replicated and the
+# grads all-reduced (PERF.md section 5), which the FSDP-placed runs are
+# printed against
+DP_E_REPLICATED_PEAK_GIB = 7.11
+# the int8 checks after the CLI runs, on mamba2-370m's in_proj stack
+# ([48, 1024, 4384] bf16, each rank a quarter of the 1024): its first
+# INT8_E_LAYERS layers gathered plain and int8 through
+# param_gather_constraint (timed), the first and the last of them checked
+# and one layer's backward; the ring on one layer's grad-sized f32 term a
+# rank, INT8_E_REPS times
+INT8_E_LAYERS, INT8_E_REPS = 12, 5
 
 
 @contextlib.contextmanager
@@ -3017,12 +3045,134 @@ def _param_digest(torch, params) -> "np.ndarray":
     return np.asarray(torch.stack(out).cpu())
 
 
+def _int8_rank_checks(torch, rank: int, dev: str = "cuda",
+                      smoke: bool = False) -> dict:
+    """On this rank of phase E, after the CLI runs: INT8_E_LAYERS layers of
+    mamba2-370m's in_proj stack gathered layer by layer through
+    ``param_gather_constraint``, plain (bf16) and under ``FSDP_RULES`` with
+    ``int8_gather`` (timed); the int8 values of the first and last of them
+    within max|w| / 127 a chunk of the flattened layer (JAX's chunks) of
+    the plain gather's; one layer's backward for this rank's cotangent:
+    the plain gather's is the bf16 reduce-scatter, the int8 gather's the
+    f32 one rounded to bf16 once, so within one bf16 ulp of the sum of
+    every rank's cotangent, taken from an all-gather; and
+    ``int8_ring_all_reduce`` of one layer's grad-sized f32 term against
+    gloo's ``all_reduce`` (timed), within the sum of the ranks' max|x| /
+    254 a chunk (1 % slack for the f32 sums' order) -> numbers, gates
+    raised here. ``dev`` and ``smoke`` (the smoke config) let it run on
+    four CPU ranks as a dry run."""
+    import dataclasses
+    import types
+
+    from repro_torch import configs
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.compression import int8_ring_all_reduce
+    from repro_torch.distributed.zero import data_layout
+    from repro_torch.models import model as Mdl
+
+    dev = torch.device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    specs = Mdl.param_specs(configs.get("mamba2-370m", smoke))
+    mesh = types.SimpleNamespace(shape={"data": DP_E_WORLD, "model": 1})
+    layout = data_layout(specs, mesh, rank)
+    path = ("blocks", "ssm", "in_proj")
+    shape = layout.shape_at(path)
+    dim = layout.dim_at(path)
+    g = torch.Generator(dev).manual_seed(11)  # the same stack on every rank
+    w = (torch.randn(shape, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    k = shape[dim] // DP_E_WORLD
+    mine = w.narrow(dim, rank * k, k).clone()
+    layers = min(INT8_E_LAYERS, shape[0])  # the smoke config has fewer
+    plain = SH.DEFAULT_RULES
+    int8 = dataclasses.replace(SH.FSDP_RULES, int8_gather=True)
+
+    def gather(rules, x):
+        with SH.use_rules(mesh, rules, layout):
+            return SH.param_gather_constraint({"in_proj": x},
+                                              path[:-1])["in_proj"]
+
+    out = {}
+    for name, rules in (("plain", plain), ("int8", int8)):
+        gather(rules, mine[0])  # warm
+        sync()
+        t0 = time.perf_counter()
+        for i in range(layers):
+            y = gather(rules, mine[i])
+        sync()
+        out[f"{name}_stack_ms"] = (time.perf_counter() - t0) * 1e3
+        del y
+    worst = 0.0
+    for i in (0, layers - 1):
+        ref = gather(plain, mine[i])
+        if not torch.equal(ref, w[i]):
+            raise AssertionError(f"E int8 checks: the plain gather of layer "
+                                 f"{i} is not the layer")
+        q = gather(int8, mine[i])
+        err = (q.float() - ref.float()).reshape(-1)
+        amax = ref.float().abs().reshape(-1)
+        pad = (-err.numel()) % 256
+        err = torch.nn.functional.pad(err, (0, pad)).view(-1, 256)
+        amax = torch.nn.functional.pad(amax, (0, pad)).view(-1, 256)
+        ratio = (err.abs().amax(1) / (amax.amax(1) / 127).clamp_min(1e-30))
+        worst = max(worst, float(ratio.max()))
+        if not worst <= 1.0:
+            raise AssertionError(f"E int8 checks: layer {i}'s int8 gather "
+                                 f"is {worst} times max|w|/127 off")
+    out["int8_err_share"] = worst
+    cot = torch.randn(w.shape[1:], generator=torch.Generator(dev).manual_seed(
+        100 + rank), device=dev).to(torch.bfloat16)
+    grads = {}
+    for name, rules in (("plain", plain), ("int8", int8)):
+        x = mine[0].clone().requires_grad_(True)
+        gather(rules, x).backward(cot)
+        grads[name] = x.grad.float()
+    every = compat.all_gather(cot.float()[None])  # [ranks, *layer]
+    want = every.sum(0).narrow(dim - 1, rank * k, k)
+    # one bf16 ulp, and the f32 sums' order where the cotangents cancel
+    ulp = (2.0**-7 * want.abs()
+           + 2.0**-20 * every.abs().sum(0).narrow(dim - 1, rank * k, k))
+    out["int8_bwd_ulps"] = float(((grads["int8"] - want).abs() / ulp).max())
+    out["plain_bwd_ulps"] = float(((grads["plain"] - want).abs() / ulp).max())
+    if not out["int8_bwd_ulps"] <= 1.0:
+        raise AssertionError(f"E int8 checks: the int8 gather's backward is "
+                             f"{out['int8_bwd_ulps']} bf16 ulps off the "
+                             f"summed cotangents")
+    term = torch.randn(w.shape[1:], generator=torch.Generator(dev)
+                       .manual_seed(200 + rank), device=dev) * (1 + rank)
+    times = {"ring": [], "all_reduce": []}
+    for _ in range(INT8_E_REPS):
+        sync()
+        t0 = time.perf_counter()
+        ring = int8_ring_all_reduce(term)
+        sync()
+        times["ring"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        exact = compat.all_reduce_sum(term)
+        sync()
+        times["all_reduce"].append((time.perf_counter() - t0) * 1e3)
+    for key, v in times.items():
+        out[f"{key}_ms"] = sorted(v)[len(v) // 2]
+    chunks = term.reshape(-1).abs()
+    pad = (-chunks.numel()) % 256
+    cmax = torch.nn.functional.pad(chunks, (0, pad)).view(-1, 256).amax(1)
+    bound = compat.all_reduce_sum(cmax) / 254 * 1.01
+    err = (ring - exact).reshape(-1).abs()
+    err = torch.nn.functional.pad(err, (0, pad)).view(-1, 256).amax(1)
+    out["ring_err_share"] = float((err / bound).max())
+    if not out["ring_err_share"] <= 1.0:
+        raise AssertionError(f"E int8 checks: the ring is "
+                             f"{out['ring_err_share']} times its bound off")
+    return out
+
+
 def _train_rank(rank: int, store: str, out_dir: str, src: str) -> None:
     """One rank of phase E: joins the gloo group and runs each of DP_E_RUNS
-    through ``train.main``, keeping its final params' digest, its kept
-    counts, its kernel launches, its peak memory, its host time in gloo's
-    collectives inside the steps, and in run (b) the ledger writes it
-    made."""
+    through ``train.main``, keeping its final params' digest (gathered
+    whole from every rank's slices), the bytes of the params it held and
+    of the full tree, its kept counts, its kernel launches, its peak
+    memory, its host time in gloo's collectives inside the steps, and in
+    run (b) the ledger writes it made; then ``_int8_rank_checks``."""
     import contextlib
     import datetime
 
@@ -3033,15 +3183,22 @@ def _train_rank(rank: int, store: str, out_dir: str, src: str) -> None:
     sys.path.insert(0, src)
     from repro_torch.distributed import compat
     from repro_torch.distributed.ledger import ShardedLedgerOps
+    from repro_torch.distributed.zero import HELD
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.models.params import tree_leaves
 
     dist.init_process_group(
         "gloo", store=dist.FileStore(store, DP_E_WORLD), rank=rank,
         world_size=DP_E_WORLD, timeout=datetime.timedelta(seconds=300))
     rec = {"state": None, "kept": [], "writes": [], "gloo": 0.0,
-           "in_step": False}
+           "in_step": False, "layout": None}
     make = train.make_train_step
+    layout_of = train.data_layout
+
+    def keep_layout(*a, **k):
+        rec["layout"] = layout_of(*a, **k)
+        return rec["layout"]
 
     def make_kept(*a, **k):
         fn = make(*a, **k)
@@ -3081,10 +3238,12 @@ def _train_rank(rank: int, store: str, out_dir: str, src: str) -> None:
         rec["in_step"] = False
 
     train.make_train_step = make_kept
+    train.data_layout = keep_layout
     train.no_host_sync = in_step
     ShardedLedgerOps.record_priority = record_kept
     dist.all_reduce = timed(dist.all_reduce)
     dist.all_to_all_single = timed(dist.all_to_all_single)
+    dist.reduce_scatter_tensor = timed(dist.reduce_scatter_tensor)
     compat._all_gather_single = timed(compat._all_gather_single)
     out = {}
     for name, (extra, _, _, f32) in DP_E_RUNS.items():
@@ -3097,8 +3256,19 @@ def _train_rank(rank: int, store: str, out_dir: str, src: str) -> None:
             argv += ["--ledger-out", os.path.join(out_dir, "b_ledger.npz")]
         with f32_configs(f32):
             train.main(argv)
-        out[f"{name}/digest"] = _param_digest(torch, rec["state"]["params"])
-        rec["state"] = None
+        held, lay = rec["state"]["params"], rec["layout"]
+        leaves = tree_leaves(held)
+        out[f"{name}/held_bytes"] = np.int64(sum(
+            x.numel() * x.element_size() for x in leaves))
+        out[f"{name}/want_bytes"] = np.int64(sum(
+            math.prod(s) * x.element_size() // (DP_E_WORLD if h else 1)
+            for x, s, h in zip(leaves, tree_leaves(lay.shapes),
+                               lay.held_mask())))
+        out[f"{name}/whole_bytes"] = np.int64(sum(
+            math.prod(s) * x.element_size()
+            for x, s in zip(leaves, tree_leaves(lay.shapes))))
+        out[f"{name}/digest"] = _param_digest(torch, lay.gather(held, HELD))
+        rec["state"] = held = None
         out[f"{name}/kept"] = np.asarray(rec["kept"])
         out[f"{name}/gloo_s"] = np.float64(rec["gloo"])
         out[f"{name}/peak_gib"] = np.float64(
@@ -3111,6 +3281,8 @@ def _train_rank(rank: int, store: str, out_dir: str, src: str) -> None:
             out[f"{name}/write/{t}/step"] = np.int64(step)
             out[f"{name}/write/{t}/valid"] = valid
         torch.cuda.empty_cache()
+    for k, v in _int8_rank_checks(torch, rank).items():
+        out[f"int8/{k}"] = np.float64(v)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
 
@@ -3118,7 +3290,10 @@ def _train_rank(rank: int, store: str, out_dir: str, src: str) -> None:
 def dp_ranks_phase(torch, ops, tmp: str) -> tuple[dict, list[str]]:
     """Phase E: four ranks (``_train_rank``, spawned, the kernels built in
     this process before they start) each run DP_E_RUNS through the train
-    CLI. Gates, each run: every rank's final params the same bits; every
+    CLI, the params FSDP-placed. Gates, each run: every rank's final
+    params, gathered whole, the same bits; every rank's param bytes those of
+    its layout, a quarter of each sliced leaf and the whole of the others
+    (and below half of the whole tree's); every
     step's kept rows and the step cost as DP_E_RUNS gives them; finite
     losses; each rank launching xent_fwd, xent_bwd, ssd and ssd_bwd (and
     in (b) ledger_record_priority); (b)'s ``--ledger-out`` table equal to
@@ -3126,8 +3301,9 @@ def dp_ranks_phase(torch, ops, tmp: str) -> tuple[dict, list[str]]:
     rank-major, through the ledger kernel as the gather path writes); the
     losses of (c) and (c-f32) within DP_BF16_RTOL and REF_TRAIN_RTOL of one
     rank's ``--method full`` run of the same config in the same dtype
-    (dense data-parallel equals one device) -> (launches by run and rank,
-    lines)."""
+    (dense data-parallel equals one device); then the int8 gather and ring
+    checks of ``_int8_rank_checks`` on every rank -> (launches by run and
+    rank, lines)."""
     import multiprocessing as mp
 
     import numpy as np
@@ -3168,8 +3344,15 @@ def dp_ranks_phase(torch, ops, tmp: str) -> tuple[dict, list[str]]:
         for r in ranks[1:]:
             if not np.array_equal(r[f"{name}/digest"],
                                   ranks[0][f"{name}/digest"]):
-                raise AssertionError(f"phase E ({name}): the ranks' params "
-                                     "differ")
+                raise AssertionError(f"phase E ({name}): the ranks' gathered "
+                                     "params differ")
+        held = [int(r[f"{name}/held_bytes"]) for r in ranks]
+        whole = int(ranks[0][f"{name}/whole_bytes"])
+        for r, h in zip(ranks, held):
+            if h != int(r[f"{name}/want_bytes"]) or not h < whole / 2:
+                raise AssertionError(
+                    f"phase E ({name}): a rank holds {h} param bytes, its "
+                    f"layout {int(r[f'{name}/want_bytes'])}, of {whole}")
         for r in ranks:
             if list(r[f"{name}/kept"]) != [kept] * s["steps"]:
                 raise AssertionError(f"phase E ({name}) kept "
@@ -3231,13 +3414,33 @@ def dp_ranks_phase(torch, ops, tmp: str) -> tuple[dict, list[str]]:
             f"{'f32' if f32 else 'bf16'}, 4 gloo ranks "
             f"on one card, 32 x 512 (8 rows a rank), {' '.join(DP_E_RUNS[name][0])}: "
             f"loss {s['loss_first']:.4f} -> {s['loss_last']:.4f}, step cost "
-            f"{s['mean_step_cost']:.3f}C, kept {kept} a step, params equal "
-            f"on every rank, step ms (rank 0) first {s['step_ms'][0]:.1f}, "
+            f"{s['mean_step_cost']:.3f}C, kept {kept} a step, gathered "
+            f"params equal on every rank, step ms (rank 0) first {s['step_ms'][0]:.1f}, "
             f"steady (median of warm) {steady:.1f}, of which in gloo's "
             f"collectives (host-staged; rank 0, a step) {gloo:.1f} "
             f"({100 * gloo / (sum(s['step_ms']) / s['steps']):.0f}% of the "
-            f"mean step), peak GiB a rank {peaks}, launches rank 0 "
-            f"{launches[f'{name} rank 0']}" + note)
+            f"mean step), peak GiB a rank {peaks} (params replicated, "
+            f"bf16: {DP_E_REPLICATED_PEAK_GIB}), param bytes a "
+            f"rank {held} of {whole} whole ({held[0] / whole:.4f}), "
+            f"launches rank 0 {launches[f'{name} rank 0']}" + note)
+    i8 = {k[5:]: [float(r[k]) for r in ranks] for k in ranks[0]
+          if k.startswith("int8/")}
+    med = lambda k: sorted(i8[k])[len(i8[k]) // 2]
+    lines.append(
+        f"dp ranks (E, int8): {INT8_E_LAYERS} layers of mamba2-370m's "
+        f"in_proj stack [48, 1024, 4384] bf16, a quarter a rank, gathered "
+        f"layer by layer through param_gather_constraint: plain "
+        f"{med('plain_stack_ms'):.1f} ms, int8_gather (FSDP_RULES) "
+        f"{med('int8_stack_ms'):.1f} ms the {INT8_E_LAYERS} (median of the "
+        f"ranks); int8 within {max(i8['int8_err_share']):.3f} of max|w|/127 "
+        f"a chunk (the first and last layers), its backward within "
+        f"{max(i8['int8_bwd_ulps']):.3f} bf16 ulps of the summed cotangents "
+        f"(the plain gather's bf16 reduce-scatter "
+        f"{max(i8['plain_bwd_ulps']):.3f}); int8_ring_all_reduce of a "
+        f"[1024, 4384] f32 "
+        f"term {med('ring_ms'):.2f} ms against gloo's all_reduce "
+        f"{med('all_reduce_ms'):.2f} ms (median of {INT8_E_REPS}), within "
+        f"{max(i8['ring_err_share']):.3f} of its bound")
     lines.append(f"phase E: {ranks_s:.1f} s the ranks, "
                  f"{time.perf_counter() - t0:.1f} s in all")
     return launches, lines
@@ -3334,15 +3537,17 @@ def _op_device_ms(prof, n, ops_: tuple) -> str:
 
 
 # the dense archs and the prefix-embedding families (served without a
-# prefix, as the serve CLI serves them): each served at full width and depth
-# through the paged cache, as the llama3-8b phase (prompts of
-# 128/112/96/80, 32 new tokens)
-ARCH_LAYERS = {"deepseek-7b": 30, "qwen3-14b": 40, "granite-34b": 88,
-               "pixtral-12b": 40, "musicgen-medium": 48}
+# prefix, as the serve CLI serves them): each served at full width through
+# the paged cache, as the llama3-8b phase (prompts of 128/112/96/80, 32
+# new tokens), at half its depth (30, 40, 88, 40 and 48 layers whole):
+# the cut that pays for phase E's FSDP runs within the script's time
+# limit (the whole script took 707.3 s with them at full depth)
+ARCH_LAYERS = {"deepseek-7b": 15, "qwen3-14b": 20, "granite-34b": 44,
+               "pixtral-12b": 20, "musicgen-medium": 24}
 
 
 def arch_argv(arch: str) -> list[str]:
-    argv = list(SERVE_ARGV)
+    argv = list(SERVE_ARGV) + ["--layers", str(ARCH_LAYERS[arch])]
     argv[argv.index("--arch") + 1] = arch
     return argv
 
@@ -3363,8 +3568,8 @@ def serve_gates(s: dict, layers: int, kernel="paged_decode_attn") -> None:
 def arch_serve_phases(torch, ops, tmp: str) -> dict:
     """deepseek-7b (MHA, G = 1), qwen3-14b (qk-norm, G = 5), granite-34b
     (MQA, G = 48, the GELU MLP), pixtral-12b (vlm, G = 4) and
-    musicgen-medium (audio, G = 1, D = 64) served at full width and depth,
-    each with a profile of its steady decode step; then each smoke config
+    musicgen-medium (audio, G = 1, D = 64) served at full width and half
+    depth (ARCH_LAYERS), each with a profile of its steady decode step; then each smoke config
     in f32 on the card and on the CPU: equal tokens, ledgers within 1e-5
     -> each serve's summary."""
     out = {}

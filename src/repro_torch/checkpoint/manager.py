@@ -18,12 +18,14 @@ layout, so either package reads the other's checkpoints:
     (the write, on the save thread) and ``checkpoint.restore`` go to the
     installed telemetry (``repro_torch.obs.current``).
 
-On a data axis of several ranks (``CheckpointManager(zero1=layout)``)
-saving is collective: every rank calls ``save``, the ZeRO-1 moment slices
-(``opt/m``, ``opt/v``) are gathered into full leaves, and rank 0 alone
-writes, so a checkpoint keeps the one-device layout (readable by the JAX
-manager). ``restore`` cuts each moment leaf to the restoring rank's slice
-of its own layout, so a checkpoint resumes on any number of ranks.
+On a data axis of several ranks (``CheckpointManager(layout=)``)
+saving is collective: every rank calls ``save``, the param slices that
+the layout holds (FSDP) and the ZeRO-1 moment slices (``opt/m``,
+``opt/v``) are gathered into full leaves, and rank 0 alone writes, so a
+checkpoint keeps the one-device layout (readable by the JAX manager).
+``restore`` cuts each held param leaf and each moment leaf to the
+restoring rank's slice of its own layout, so a checkpoint resumes on any
+number of ranks.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import obs
+from repro_torch.distributed.zero import HELD
 from repro_torch.models.params import tree_map
 
 LEDGER_FILE = "ledger.npz"
@@ -46,33 +49,37 @@ _BF16 = np.dtype("V2")
 ZERO1_MOMENTS = ("m", "v")  # the optimizer-state leaves a ZeRO-1 layout cuts
 
 
-def _writes(zero1) -> bool:
+def _writes(layout) -> bool:
     """Whether this process writes checkpoints: rank 0 of the ZeRO-1
     layout's data axis where one is given, else rank 0 of the group, or a
     process outside any group."""
-    if zero1 is not None:
-        return zero1.rank == 0
+    if layout is not None:
+        return layout.rank == 0
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def full_moments(state: Any, zero1) -> Any:
-    """``state`` with its ZeRO-1 moment slices gathered into full leaves
-    (a collective: every rank of the data axis calls it)."""
+def full_state(state: Any, layout) -> Any:
+    """``state`` with its held param slices and its ZeRO-1 moment slices
+    gathered into full leaves (a collective: every rank of the data axis
+    calls it)."""
     opt = dict(state["opt"])
     for k in ZERO1_MOMENTS:
         if k in opt:
-            opt[k] = zero1.gather(opt[k])
-    return dict(state, opt=opt)
+            opt[k] = layout.gather(opt[k])
+    return dict(state, params=layout.gather(state["params"], HELD), opt=opt)
 
 
-def moment_cut(zero1):
-    """``cut(path, array)`` for ``load_checkpoint``: a full moment leaf ->
-    this rank's slice in ``zero1``'s layout; other leaves unchanged."""
+def state_cut(layout):
+    """``cut(path, array)`` for ``load_checkpoint``: a full held param leaf
+    or moment leaf -> this rank's slice in ``layout``; other
+    leaves unchanged."""
 
     def cut(path: tuple, arr: np.ndarray) -> np.ndarray:
+        if path[0] == "params" and layout.held_at(path[1:]):
+            return layout.piece(arr, layout.dim_at(path[1:]))
         if len(path) < 3 or path[0] != "opt" or path[1] not in ZERO1_MOMENTS:
             return arr
-        return zero1.piece(arr, zero1.dim_at(path[2:]))
+        return layout.piece(arr, layout.dim_at(path[2:]))
 
     return cut
 
@@ -185,7 +192,7 @@ def load_checkpoint(directory: str, step: int, target: Any,
     """Restore into ``target``'s structure: each tensor leaf comes back on
     the target leaf's device in its dtype; other leaves as numpy arrays.
     ``cut(path, array)``, where given, takes each stored array first (the
-    rank's slice of a ZeRO-1 moment: ``moment_cut``)."""
+    rank's slice of a held param or a ZeRO-1 moment: ``state_cut``)."""
     path = os.path.join(directory, f"step_{step:010d}")
     with obs.span("checkpoint.restore", cat="checkpoint", step=step):
         with open(os.path.join(path, "manifest.json")) as f:
@@ -215,15 +222,16 @@ def load_ledger(directory: str, step: int) -> Optional[dict[str, np.ndarray]]:
 class CheckpointManager:
     """Async keep-k checkpointing with torn-save garbage collection.
 
-    ``zero1`` (a ``distributed.zero.Zero1Layout``): the state's moments
-    are this rank's slices; ``save`` gathers them (every rank calls it)
-    and rank 0 writes; ``restore`` cuts them to this rank's slices."""
+    ``layout`` (a ``distributed.zero.DataLayout``): the state's held
+    params and moments are this rank's slices; ``save`` gathers them
+    (every rank calls it) and rank 0 writes; ``restore`` cuts them to this
+    rank's slices."""
 
-    def __init__(self, directory: str, keep: int = 3, zero1=None):
+    def __init__(self, directory: str, keep: int = 3, layout=None):
         self.directory = directory
         self.keep = keep
-        self.zero1 = zero1
-        self.writes = _writes(zero1)
+        self.layout = layout
+        self.writes = _writes(layout)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         os.makedirs(directory, exist_ok=True)
@@ -242,11 +250,11 @@ class CheckpointManager:
         ledger: Optional[dict[str, np.ndarray]] = None,
     ) -> None:
         """Fetch ``state`` (and snapshot ``ledger``) now, write it in the
-        background; ``block`` waits for the write. With a ZeRO-1 layout a
+        background; ``block`` waits for the write. With a layout a
         collective; a rank other than 0 writes nothing."""
         self.wait()  # one save in flight
-        if self.zero1 is not None:
-            state = full_moments(state, self.zero1)
+        if self.layout is not None:
+            state = full_state(state, self.layout)
         if not self.writes:
             return
         with obs.span("checkpoint.fetch", cat="checkpoint", step=step):
@@ -289,7 +297,7 @@ class CheckpointManager:
         return latest_step(self.directory)
 
     def restore(self, step: int, target: Any) -> Any:
-        cut = None if self.zero1 is None else moment_cut(self.zero1)
+        cut = None if self.layout is None else state_cut(self.layout)
         return load_checkpoint(self.directory, step, target, cut)
 
     def restore_ledger(self, step: int) -> Optional[dict[str, np.ndarray]]:

@@ -31,10 +31,21 @@ the JAX package's ``make_train_step(mesh=, dp_axes=)`` on the global batch:
   all-gathered batch, so no shape depends on the data (``b % S`` must be
   0);
 * each rank differentiates the sum of its kept rows' losses over the
-  GLOBAL kept count, and one all-reduce a dtype bucket sums the grads:
-  JAX's mean over the global sub-batch (not a mean of per-rank means);
-* the optimizer runs replicated, or on ZeRO-1 slices
-  (``adamw(zero1=)``), so every rank applies the same full update.
+  GLOBAL kept count: JAX's mean over the global sub-batch (not a mean of
+  per-rank means);
+* the params are placed as the JAX trainer places them, in the layout
+  the optimizer was built with (``distributed.zero.DataLayout``,
+  ``adamw(layout=)``): each rank holds its slice of every leaf whose
+  spec names ``data`` (FSDP) and the others whole. The step runs under
+  ``distributed.sharding.use_rules`` with the layout's rules, so each
+  layer gathers its weights when it runs, in every forward (the
+  selection forward included) and in the backward's recompute, and the
+  backward reduce-scatters their grads: the sliced leaves' grads come out
+  summed over the ranks, and one all-reduce a dtype bucket sums the
+  others'. AdamW updates the slices in place of the rank's own and
+  gathers only the whole params' updates;
+* every rank runs the same forwards, layers and backwards in the same
+  order (each gather is a collective), and no shape depends on the data.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ import torch
 
 from repro_torch.core.selection import Noise, SelectionConfig, select
 from repro_torch.distributed import compat
+from repro_torch.distributed.sharding import use_rules
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import Optimizer, apply_updates, global_norm
 
@@ -148,10 +160,19 @@ def loss_and_grads(fn: Callable, params: Any, inputs: Any,
         params)
 
 
-def _all_reduce_tree(tree: Any) -> Any:
-    """The sum over ranks of every leaf: one all-reduce a dtype bucket."""
-    red = iter(compat.all_reduce_buckets(tree_leaves(tree)))
-    return tree_map(lambda _, __: next(red), tree)
+def _all_reduce_tree(tree: Any, layout) -> Any:
+    """The sum over ranks of every leaf that ``layout`` holds whole (the
+    sliced leaves' grads come out of the backward already
+    reduce-scattered): one all-reduce a dtype bucket."""
+    leaves = tree_leaves(tree)
+    whole = [i for i, h in enumerate(layout.held_mask()) if not h]
+    out = list(leaves)
+    if whole:
+        red = compat.all_reduce_buckets([leaves[i] for i in whole])
+        for i, x in zip(whole, red):
+            out[i] = x
+    it = iter(out)
+    return tree_map(lambda _, __: next(it), tree)
 
 
 def make_train_step(
@@ -185,11 +206,27 @@ def make_train_step(
     ``step_cost``, ``grad_norm``, and ``selected``, the global indices of
     every kept row), except ``per_example_loss`` and
     ``per_example_fresh``, which are this rank's segment, what the
-    sharded ledger's ops take."""
+    sharded ledger's ops take.
+
+    With a mesh the optimizer must carry this rank's layout
+    (``optimizer.layout``, a ``distributed.zero.DataLayout``): the state's
+    params are held in it, and the step runs under ``use_rules(mesh,
+    layout.rules, layout)``."""
     sel = cfg.selection
     shards = 1 if mesh is None else _dp_shard_count(mesh, dp_axes)
+    layout = optimizer.layout
+    if mesh is not None and layout is None:
+        raise ValueError("make_train_step(mesh=) needs an optimizer built "
+                         "with this rank's layout (adamw(layout=), "
+                         "distributed.zero.data_layout)")
 
     def train_step(state: dict, batch: Batch, noise: Noise):
+        if mesh is None:
+            return _train_step(state, batch, noise)
+        with use_rules(mesh, layout.rules, layout):
+            return _train_step(state, batch, noise)
+
+    def _train_step(state: dict, batch: Batch, noise: Noise):
         params = state["params"]
         inputs = model_inputs(batch)
         dev = state["step"].device
@@ -282,7 +319,7 @@ def make_train_step(
 
         with torch.no_grad():
             if mesh is not None:
-                grads = _all_reduce_tree(grads)
+                grads = _all_reduce_tree(grads, layout)
             updates, opt_state = optimizer.update(grads, state["opt"], params)
             del grads
             new_state = {
@@ -296,7 +333,7 @@ def make_train_step(
                 "selection_residual": residual,
                 "kept": _scalar(kept, dev),
                 "step_cost": _scalar(step_cost, dev),
-                "grad_norm": global_norm(updates),
+                "grad_norm": global_norm(updates, layout),
                 # true per-instance signals aligned to the in-batch index
                 # (this rank's segment under a mesh); `fresh` marks entries
                 # computed this step

@@ -16,10 +16,20 @@ through this module, so one place decides how a group moves tensors:
   backend decides this, never a caught error.
 
 The data-parallel train step moves whole trees: ``all_reduce_buckets``
-(the gradients) and ``all_gather_along`` (the ZeRO-1 update slices) pack
-every leaf of one dtype into one flat bucket, so a step makes one
-collective a dtype, not one a leaf. ``any_rank`` max-reduces a host flag
-(the trainer's agreed stop).
+(the gradients of the params held whole), ``all_gather_along`` (a layer's
+param slices, FSDP's gather, and the ZeRO-1 update slices) and its
+transpose ``reduce_scatter_along`` (the gathered params' gradients, summed
+and cut back to each rank's slices) pack every leaf of one dtype into one
+flat bucket, so each makes one collective a dtype, not one a leaf.
+``ring_shift`` is one hop of a ring (JAX's ``ppermute`` to rank r+1), the
+int8 all-reduce's (``distributed.compression``); ``all_to_all`` takes
+uneven splits for the int8 gather's re-layout. ``any_rank`` max-reduces a
+host flag (the trainer's agreed stop).
+
+gloo has ``reduce_scatter_tensor`` (bf16 included), the point-to-point ops
+of ``batch_isend_irecv`` and uneven ``all_to_all_single`` in the torch of
+the CPU tests (2.13) and of the card's machine (2.11), so every backend
+takes the same calls.
 
 The data axis is the default process group (``launch.mesh``). The
 collectives are blocking (``async_op=False``). On NCCL, blocking means
@@ -28,6 +38,8 @@ they run inside the engine's guarded step.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -67,13 +79,20 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
     return out.to(x.device)
 
 
-def all_to_all(x: torch.Tensor) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, send: Optional[list[int]] = None,
+               recv: Optional[list[int]] = None) -> torch.Tensor:
     """[S*c, ...] -> [S*c, ...]: rows [j*c, (j+1)*c) go to rank j, and rank
     i's rows land at [i*c, (i+1)*c) (JAX's tiled ``all_to_all`` over the
-    leading axis)."""
+    leading axis). With ``send`` and ``recv`` (rows to and from each rank)
+    the splits are uneven: ``send[j]`` rows go to rank j in order, and
+    rank i's ``recv[i]`` rows land in rank order."""
     src = _in(x)
-    out = torch.empty_like(src)
-    dist.all_to_all_single(out, src)
+    if send is None:
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src)
+    else:
+        out = src.new_empty((sum(recv),) + src.shape[1:])
+        dist.all_to_all_single(out, src, list(recv), list(send))
     return out.to(x.device)
 
 
@@ -130,6 +149,50 @@ def all_gather_along(xs: list[torch.Tensor],
             out[i] = stacked.movedim(0, d).reshape(full)
             off += n
     return out
+
+
+def reduce_scatter_along(xs: list[torch.Tensor],
+                         dims: list[int]) -> list[torch.Tensor]:
+    """The sum over ranks of each tensor of ``xs``, of which this rank keeps
+    its piece along ``dims[i]`` (rank r: indices ``[r*n, (r+1)*n)``, n the
+    dim over S): the transpose of ``all_gather_along`` (JAX's
+    ``psum_scatter(..., scatter_dimension=d, tiled=True)``). One
+    ``reduce_scatter_tensor`` a dtype bucket."""
+    out: list = [None] * len(xs)
+    size = axis_size()
+    for idx in _buckets(xs).values():
+        # row j of each part: rank j's piece, flattened in its own order
+        parts = [xs[i].unflatten(dims[i], (size, -1)).movedim(dims[i], 0)
+                 .reshape(size, -1) for i in idx]
+        flat = torch.cat(parts, 1)
+        src = _in(flat.reshape(-1))
+        red = src.new_empty(flat.shape[1])
+        dist.reduce_scatter_tensor(red, src)
+        red = red.to(flat.device)
+        off = 0
+        for i, part in zip(idx, parts):
+            shape = list(xs[i].shape)
+            shape[dims[i]] //= size
+            n = part.shape[1]
+            out[i] = red[off:off + n].view(shape)
+            off += n
+    return out
+
+
+def ring_shift(xs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """One hop of the ring: each tensor of ``xs`` goes to rank r+1 and rank
+    r-1's comes back (JAX's ``ppermute`` with ``(j, j+1 mod S)``), in one
+    ``batch_isend_irecv``, waited for."""
+    size, rank = axis_size(), linear_axis_index()
+    srcs = [_in(x) for x in xs]
+    outs = [torch.empty_like(s) for s in srcs]
+    ops = ([dist.P2POp(dist.isend, s, (rank + 1) % size, tag=t)
+            for t, s in enumerate(srcs)]
+           + [dist.P2POp(dist.irecv, o, (rank - 1) % size, tag=t)
+              for t, o in enumerate(outs)])
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [o.to(x.device) for o, x in zip(outs, xs)]
 
 
 def any_rank(flag: bool, device: torch.device) -> bool:

@@ -48,11 +48,18 @@ the capacity factor, with ``a2a_overflow`` 0.
 On N ranks (``torchrun``, or a caller that set up the default group) with
 ``--model-parallel 1`` the data axis has N ranks (``launch.mesh``; NCCL
 between cards, gloo on the CPU), as the JAX trainer's mesh on N devices:
+  * the params are placed as the JAX trainer's ``state_specs`` places
+    them (``distributed.zero``): drawn whole from the seed, then cut at
+    once to this rank's slice of every leaf whose spec names ``data``
+    (FSDP), the others held whole, and the full copy freed; an earlier
+    line prints each rank's param bytes;
   * each rank takes its rows of the global batch (``data.local_rows``) and
-    runs ``make_train_step(mesh=)``: shard-local selection with its own
-    draws (``fold_seed(seed, rank)``), the grads all-reduced, AdamW on
-    ZeRO-1 moment slices (``distributed.zero``); the params stay
-    replicated;
+    runs ``make_train_step(mesh=)`` with an optimizer built on this rank's
+    layout, under ``DEFAULT_RULES`` (no int8, as JAX's CLI): shard-local
+    selection with its own draws (``fold_seed(seed, rank)``), every layer
+    gathering its weights as it runs and reduce-scattering their grads
+    (ZeRO-3), the whole params' grads all-reduced, AdamW on the slices and
+    on ZeRO-1 moment slices;
   * ``--ledger device`` shards the table over the ranks
     (``distributed.ledger.sharded_ledger_ops``, with the three routing
     flags); ``--ledger host`` keeps the same ``LossHistory`` on every
@@ -61,7 +68,8 @@ between cards, gloo on the CPU), as the JAX trainer's mesh on N devices:
     is agreed at the end of the step, so all ranks stop after the same
     step; rank 0 alone prints and writes ``--json-out``, ``--metrics-out``,
     ``--trace-out``, ``--ledger-out`` and the checkpoints (saving gathers
-    the moments; a checkpoint resumes on any number of ranks).
+    the param and moment slices; a checkpoint resumes on any number of
+    ranks).
 ``--model-parallel`` 0 (the default) on more than one rank refuses before
 any group is set up, since the JAX mesh would take a model axis there,
 and above 1 refuses on any number of ranks: the model axis is not ported
@@ -73,6 +81,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import signal
 import sys
 import time
@@ -107,11 +116,11 @@ from repro_torch.data import (
 from repro_torch.distributed import compat
 from repro_torch.distributed.ledger import sharded_ledger_ops
 from repro_torch.distributed.sharding import DEFAULT_RULES
-from repro_torch.distributed.zero import zero1_layout
+from repro_torch.distributed.zero import data_layout
 from repro_torch.launch.mesh import make_elastic_mesh, validate_batch, world_size
 from repro_torch.models import model as Mdl
 from repro_torch.models import moe
-from repro_torch.models.params import materialize
+from repro_torch.models.params import materialize, tree_leaves
 from repro_torch.optim import AdamWConfig, adamw, warmup_cosine
 
 COLD_LOSS = 1e3  # recorded-loss fallback for ledger misses (cold start)
@@ -140,14 +149,15 @@ class Watchdog:
         return slow
 
 
-def build_optimizer(lr: float, total_steps: int, zero1=None):
+def build_optimizer(lr: float, total_steps: int, layout=None):
     """The optimizer of ``repro.launch.specs.state_specs``: AdamW (weight
-    decay 0.1, clip 1.0) on a warmup-cosine schedule; ``zero1`` (a
-    ``distributed.zero.Zero1Layout``) shards its moments over the data
-    axis, as ``state_specs`` places them on a mesh."""
+    decay 0.1, clip 1.0) on a warmup-cosine schedule; ``layout`` (a
+    ``distributed.zero.DataLayout``) places its state over the data axis
+    as ``state_specs`` places it on a mesh: the moments sliced, and the
+    params as the layout holds them."""
     warmup = min(2000, max(1, total_steps // 10))
     return adamw(warmup_cosine(lr, warmup, total_steps),
-                 AdamWConfig(weight_decay=0.1), zero1=zero1)
+                 AdamWConfig(weight_decay=0.1), layout=layout)
 
 
 def parse_args(argv=None):
@@ -255,6 +265,20 @@ def _gather_per_example(metrics: dict) -> dict:
                 per_example_fresh=g[:, 1] > 0)
 
 
+def _say_param_bytes(say, params, layout, device) -> None:
+    """Print every rank's param bytes against the whole tree's (one
+    gather)."""
+    leaves = tree_leaves(params)
+    mine = sum(x.numel() * x.element_size() for x in leaves)
+    whole = sum(math.prod(s) * x.element_size()
+                for x, s in zip(leaves, tree_leaves(layout.shapes)))
+    per = compat.all_gather(torch.tensor([mine], dtype=torch.int64,
+                                         device=device)).tolist()
+    say(f"params a rank (bytes): {per} of {whole} whole "
+        f"({sum(layout.held_mask())} of {len(leaves)} leaves sliced over "
+        f"{layout.shards} ranks)")
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     ranks = world_size()
@@ -299,19 +323,22 @@ def _train(args, mesh) -> int:
                         mode="full" if args.method == "full" else "obftf")
     specs = Mdl.param_specs(cfg)
     layout = (None if mesh is None else
-              zero1_layout(specs, mesh, rank, rules))
+              data_layout(specs, mesh, rank, rules))
     optimizer = build_optimizer(args.lr, args.steps, layout)
     step_fn = make_train_step(Mdl.loss_fn(cfg), optimizer, obftf, mesh=mesh,
                               dp_axes=rules.batch_axes)
     params = materialize(specs, args.seed, Mdl.dtype_of(cfg.param_dtype),
                          device)
+    if layout is not None:
+        params = layout.hold(params)  # the full tree is freed here
+        _say_param_bytes(say, params, layout, device)
     state = {
         "params": params,
         "opt": optimizer.init(params),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
 
-    ckpt = (CheckpointManager(args.ckpt_dir, keep=3, zero1=layout)
+    ckpt = (CheckpointManager(args.ckpt_dir, keep=3, layout=layout)
             if args.ckpt_dir else None)
     start_step = 0
     resume_ledger = None  # applied below, once the ledger exists

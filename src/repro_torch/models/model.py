@@ -26,6 +26,16 @@ hand-written backward), ``per_example_signals``
 (CE, entropy and margin), ``prefill`` (full sequence, builds the decode
 cache) and ``decode_step`` (one token per row against the dense or the
 paged cache).
+
+Over a data axis whose layout holds the params sliced (FSDP; the train
+step runs under ``distributed.sharding.use_rules``), each layer gathers
+its weights when it runs (``param_gather``, at the start of ``_block`` and
+``_ssm_layer``, as the JAX ``_attn_block`` and ``_ssm_block`` do; the
+hybrid's shared block once a use), inside the layer's checkpoint, so the
+backward's recompute gathers again and no whole layer outlives its use;
+the embedding, the head and the final norm are gathered where they are
+used. The backward reduce-scatters the grads. With no rules (serving, one
+device) every gather returns its input.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from typing import Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MoE
@@ -61,6 +72,20 @@ def _require(cfg: ModelConfig, families: tuple[str, ...], what: str) -> None:
 
 def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
+
+
+def param_gather(p: dict, at: tuple) -> dict:
+    """ZeRO-3 per-layer weight gather point (JAX ``model.param_gather``):
+    ``p`` the params at path ``at`` of the tree, a layer's view of a stack
+    or a block. No-op unless the active rules hold a layout that slices
+    the params over a data axis of more than one rank."""
+    return SH.param_gather_constraint(p, at)
+
+
+def _whole(params: dict, key: str) -> torch.Tensor:
+    """The top-level leaf ``key`` (embedding, head, final norm) whole:
+    the plain gather JAX leaves to GSPMD."""
+    return SH.gather_whole(params[key], (key,))
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +177,7 @@ def embed_tokens(
     that reads nothing back to the host (an advanced-index gather's
     backward may, on CUDA); a ``prefix`` [B, P, D] goes in front, cast to
     the compute dtype."""
-    w = params["embed"].to(dtype_of(cfg.compute_dtype))
+    w = _whole(params, "embed").to(dtype_of(cfg.compute_dtype))
     x = w.index_select(0, tokens.reshape(-1).long()).reshape(
         *tokens.shape, w.shape[1])
     if prefix is not None:
@@ -161,7 +186,7 @@ def embed_tokens(
 
 
 def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    w = _whole(params, "embed" if cfg.tie_embeddings else "lm_head")
     return x @ w.to(x.dtype).T
 
 
@@ -180,7 +205,10 @@ def _attend(h, p, cfg, positions):
     return L.gqa_attend(h, p, cfg, positions)
 
 
-def _block(x, p, cfg, positions):
+def _block(x, p, cfg, positions, at=("blocks",)):
+    """One attention block; ``p`` the params at path ``at`` (a layer of the
+    stack ``at``, or the hybrid's ``shared_attn``)."""
+    p = param_gather(p, at)
     h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     x = x + _attend(h, p["attn"], cfg, positions)
     out, aux, routed = _ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p,
@@ -189,7 +217,9 @@ def _block(x, p, cfg, positions):
 
 
 def _ssm_layer(x, p, cfg):
-    """One layer of the ssm family: x + Mamba2(rmsnorm(x))."""
+    """One layer of the ssm family (or of a hybrid group): x +
+    Mamba2(rmsnorm(x))."""
+    p = param_gather(p, ("blocks",))
     return x + S.ssm_block(L.rmsnorm(x, p["norm"], cfg.norm_eps), p["ssm"],
                            cfg)
 
@@ -197,10 +227,22 @@ def _ssm_layer(x, p, cfg):
 def _hybrid_group(x, shared, group, cfg, positions):
     """One group of the hybrid family: the weight-shared attention block,
     then the group's ``hybrid_attn_every`` SSM layers."""
-    x, _, _ = _block(x, shared, cfg, positions)
+    x, _, _ = _block(x, shared, cfg, positions, ("shared_attn",))
     for e in range(cfg.hybrid_attn_every):
         x = _ssm_layer(x, layer(group, e), cfg)
     return x
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``, its recompute under
+    the forward's sharding rules (``recompute_context``)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=SH.recompute_context)
+
+
+def _final_norm(x, params, cfg):
+    return L.rmsnorm(x, _whole(params, "final_norm"), cfg.norm_eps)
 
 
 def forward_hidden(
@@ -234,32 +276,28 @@ def forward_hidden(
     if cfg.family == "ssm":
         for i in range(cfg.num_layers):
             p = layer(params["blocks"], i)
-            x = (checkpoint(_ssm_layer, x, p, cfg, use_reentrant=False,
-                            preserve_rng_state=False)
-                 if remat else _ssm_layer(x, p, cfg))
-        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+            x = _remat(_ssm_layer, x, p, cfg) if remat else _ssm_layer(
+                x, p, cfg)
+        return _final_norm(x, params, cfg), aux
     if cfg.family == "hybrid":
         shared = params["shared_attn"]
         for g in range(_groups(cfg)):
             group = layer(params["blocks"], g)
-            x = (checkpoint(_hybrid_group, x, shared, group, cfg, positions,
-                            use_reentrant=False, preserve_rng_state=False)
+            x = (_remat(_hybrid_group, x, shared, group, cfg, positions)
                  if remat else _hybrid_group(x, shared, group, cfg,
                                              positions))
-        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+        return _final_norm(x, params, cfg), aux
     for key, n in _attn_stacks(cfg):
         for i in range(n):
             p = layer(params[key], i)
             if remat:
-                x, a, routed = checkpoint(_block, x, p, cfg, positions,
-                                          use_reentrant=False,
-                                          preserve_rng_state=False)
+                x, a, routed = _remat(_block, x, p, cfg, positions, (key,))
             else:
-                x, a, routed = _block(x, p, cfg, positions)
+                x, a, routed = _block(x, p, cfg, positions, (key,))
             if a is not None:
                 aux = aux + a
                 MoE.count_routing(*routed)
-    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+    return _final_norm(x, params, cfg), aux
 
 
 def per_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -281,6 +319,14 @@ def _token_hidden(params, cfg, batch):
     return hidden, aux
 
 
+def _tied_whole(params: dict, cfg: ModelConfig) -> dict:
+    """``params`` with a tied table gathered once for both its uses (the
+    embedding and the head then find it whole)."""
+    if not cfg.tie_embeddings:
+        return params
+    return dict(params, embed=_whole(params, "embed"))
+
+
 def per_example_loss(
     params: dict, cfg: ModelConfig, batch: dict[str, torch.Tensor]
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -288,6 +334,7 @@ def per_example_loss(
     loss). The OBFTF loss signal. A batch's ``prefix_embed`` [B, P, D]
     goes in front of the tokens, and the loss is over the token positions
     only."""
+    params = _tied_whole(params, cfg)
     hidden, aux = _token_hidden(params, cfg, batch)
     ce = per_token_loss(unembed(params, cfg, hidden), batch["labels"])
     denom = torch.clamp((batch["labels"] >= 0).sum(dim=-1), min=1)
@@ -307,6 +354,7 @@ def per_example_signals(
     two signals come from detached logits: they are read, never
     differentiated. ``aux`` is the MoE aux loss (0 without MoE layers);
     a ``prefix_embed`` is read as ``per_example_loss`` reads it."""
+    params = _tied_whole(params, cfg)
     hidden, aux = _token_hidden(params, cfg, batch)
     logits = unembed(params, cfg, hidden).to(torch.float32)
     labels = batch["labels"]

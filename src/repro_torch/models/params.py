@@ -52,6 +52,13 @@ def tree_map(fn: Callable, tree: Any, path: tuple = ()) -> Any:
     return fn(path, tree)
 
 
+def tree_at(tree: Any, path: tuple) -> Any:
+    """The subtree (or leaf) of a nested dict at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def tree_leaves(tree: Any) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]

@@ -11,12 +11,20 @@ largest tensors of a train step, and a second copy of them would not fit
 beside the rest. The step counter is a 0-dim int32 tensor on the params'
 device, so nothing is read back to the host.
 
-``adamw(..., zero1=layout)`` shards the moments over the data axis
-(``distributed.zero.Zero1Layout``, ZeRO-1): each rank keeps its slice of
-each moment leaf, updates it from its slice of the (already all-reduced)
-grads and params, and the full update is gathered from every rank's
-slices. The clip's global norm is taken over the full grads, so its scale
-is the same on every rank.
+``adamw(..., layout=)`` runs on the data axis's layout
+(``distributed.zero.DataLayout``): the params and grads come as the rank
+holds them, the FSDP'd leaves as this rank's slices (their grads already
+reduce-scattered), the others whole (their grads all-reduced). Each rank
+keeps its slice of each moment leaf and updates it from its slice of the
+grads and params; the updates of the sliced params stay slices, applied in
+place of the rank's own, and those of the params held whole are gathered
+from every rank's slices (ZeRO-1). The clip's global norm is the full
+grads' (``global_norm(grads, layout)``: one all-reduce of the slices' sums
+of squares), so its scale is the same on every rank. ``sgd_momentum(...,
+layout=)`` keeps its momentum as the params are held (elementwise, so a
+slice updates a slice) and clips by the same global norm. The optimizer
+carries its layout (``Optimizer.layout``): the data-parallel train step
+reads it from there, so the step and the optimizer cannot disagree.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed import compat
+from repro_torch.distributed.zero import REPLICATED
 from repro_torch.models.params import tree_leaves, tree_map
 
 F32 = torch.float32
@@ -34,11 +44,25 @@ F32 = torch.float32
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple[Any, Any]]
+    # the data axis's ``distributed.zero.DataLayout`` its state is held in
+    # (None: one device, every leaf whole)
+    layout: Any = None
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32 (0-dim tensor)."""
-    return torch.sqrt(sum(x.to(F32).square().sum() for x in tree_leaves(tree)))
+def global_norm(tree: Any, layout=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32 (0-dim tensor).
+    With ``layout`` (a ``distributed.zero.DataLayout``) the tree is held
+    as the params are: the full tree's norm is taken from the sum over
+    ranks of the sliced leaves' sums of squares (one all-reduce, a
+    collective) plus the whole leaves' own, counted once."""
+    sq = [x.to(F32).square().sum() for x in tree_leaves(tree)]
+    if layout is None or layout.shards == 1:
+        return torch.sqrt(sum(sq))
+    held = layout.held_mask()
+    zero = torch.zeros((), dtype=F32, device=sq[0].device)
+    part = sum((s for s, h in zip(sq, held) if h), zero)
+    whole = sum((s for s, h in zip(sq, held) if not h), zero)
+    return torch.sqrt(compat.all_reduce_sum(part) + whole)
 
 
 def apply_updates(params: Any, updates: Any) -> Any:
@@ -54,15 +78,17 @@ def _zip_map(fn, *trees):
     return tree_map(lambda _, x: fn(x, *(next(i) for i in its)), trees[0])
 
 
-def _clip(grads: Any, clip_norm: Optional[float], zero1=None) -> Any:
-    """f32 copies of the grads (of this rank's slices of them, with a
-    ``zero1`` layout), scaled in place so that the full grads' global norm
-    is ``clip_norm`` at most."""
+def _clip(grads: Any, clip_norm: Optional[float], layout=None,
+          moments: bool = False) -> Any:
+    """f32 copies of the grads (held as ``layout`` holds the params; with
+    ``moments``, of this rank's moment slices of them), scaled in place so
+    that the full grads' global norm is ``clip_norm`` at most."""
     scale = None
     if clip_norm is not None:
-        scale = torch.clamp(clip_norm / (global_norm(grads) + 1e-9), max=1.0)
-    if zero1 is not None:
-        grads = zero1.slice(grads)
+        scale = torch.clamp(
+            clip_norm / (global_norm(grads, layout) + 1e-9), max=1.0)
+    if moments:
+        grads = layout.slice(grads, REPLICATED)
     grads = tree_map(lambda _, g: g.to(F32, copy=True), grads)
     if scale is not None:
         for g in tree_leaves(grads):
@@ -87,12 +113,15 @@ def _step0(params: Any) -> torch.Tensor:
 def adamw(
     schedule: Callable[[torch.Tensor], torch.Tensor],
     cfg: AdamWConfig = AdamWConfig(),
-    zero1=None,
+    layout=None,
 ) -> Optimizer:
-    """AdamW; with ``zero1`` (a ``distributed.zero.Zero1Layout``) the
-    moments hold this rank's slices and ``update`` is a collective (the
-    update's gather): every rank of the data axis calls it."""
-    cut = (lambda t: t) if zero1 is None else zero1.slice
+    """AdamW; with ``layout`` (a ``distributed.zero.DataLayout``) the
+    params, grads and updates are held in it, the moments hold this
+    rank's slices, and ``update`` is a collective (the clip's norm, the
+    gather of the whole params' updates): every rank of the data axis
+    calls it."""
+    cut = ((lambda t: t) if layout is None
+           else (lambda t: layout.slice(t, REPLICATED)))
 
     def init(params):
         zeros = lambda _, p: torch.zeros(p.shape, dtype=F32, device=p.device)
@@ -101,7 +130,7 @@ def adamw(
 
     def update(grads, state, params):
         step = state["step"] + 1
-        grads = _clip(grads, cfg.clip_norm, zero1)
+        grads = _clip(grads, cfg.clip_norm, layout, layout is not None)
 
         def moments(mu, nu, g):
             mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
@@ -121,11 +150,11 @@ def adamw(
             return -lr * u
 
         updates = _zip_map(upd, state["m"], state["v"], cut(params))
-        if zero1 is not None:
-            updates = zero1.gather(updates)
+        if layout is not None:
+            updates = layout.gather(updates, REPLICATED)
         return updates, {"step": step, "m": state["m"], "v": state["v"]}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, layout)
 
 
 def sgd_momentum(
@@ -133,14 +162,18 @@ def sgd_momentum(
     momentum: float = 0.9,
     weight_decay: float = 0.0,
     clip_norm: Optional[float] = None,
+    layout=None,
 ) -> Optimizer:
+    """SGD with momentum; with ``layout`` the params, grads, momentum and
+    updates are held in it (the clip's norm is then a collective)."""
+
     def init(params):
         zeros = lambda _, p: torch.zeros(p.shape, dtype=F32, device=p.device)
         return {"step": _step0(params), "m": tree_map(zeros, params)}
 
     def update(grads, state, params):
         step = state["step"] + 1
-        grads = _clip(grads, clip_norm)
+        grads = _clip(grads, clip_norm, layout)
         if weight_decay:
             grads = _zip_map(lambda g, p: g + weight_decay * p.to(F32),
                              grads, params)
@@ -149,4 +182,4 @@ def sgd_momentum(
         updates = tree_map(lambda _, mu: -lr * mu, state["m"])
         return updates, {"step": step, "m": state["m"]}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, layout)

@@ -294,18 +294,30 @@ def run_serving(rank: int) -> dict:
 # update (about lr an entry a step) is still 100 times the params' 1e-6
 # tolerance, so a misplaced or stale moment slice shows.
 DP_N, DP_SEQ, DP_STEPS, DP_LR = 32, 12, 2, 1e-4
-# name -> (mode, method, ratio, recycle_forward, shard_local, optimizer)
+# name -> (mode, method, ratio, recycle_forward, shard_local, optimizer,
+# int8 gathers: the step under FSDP_RULES with int8_gather, JAX's under
+# the same rules)
 DP_CASES = {
-    "obftf-noise": ("obftf", "obftf", 0.25, False, True, "adamw"),
-    "maxk-recycled": ("obftf", "maxk", 0.25, True, True, "adamw"),
-    "full": ("full", "obftf", 0.25, False, True, "adamw"),
-    "global": ("obftf", "obftf", 0.25, False, False, "adamw"),
-    "ratio-0.3": ("obftf", "obftf", 0.3, False, True, "adamw"),
+    "obftf-noise": ("obftf", "obftf", 0.25, False, True, "adamw", False),
+    "maxk-recycled": ("obftf", "maxk", 0.25, True, True, "adamw", False),
+    "full": ("full", "obftf", 0.25, False, True, "adamw", False),
+    "global": ("obftf", "obftf", 0.25, False, False, "adamw", False),
+    "ratio-0.3": ("obftf", "obftf", 0.3, False, True, "adamw", False),
     # SGD's update is linear in the grads, so a grad scaled wrongly
     # (a mean of per-rank means, a sum) shows in the params; AdamW's would
     # hide it
-    "global-sgd": ("obftf", "obftf", 0.25, False, False, "sgd"),
+    "global-sgd": ("obftf", "obftf", 0.25, False, False, "sgd", False),
+    # every layer's weights int8-quantized, in the selection forward too
+    "obftf-int8": ("obftf", "obftf", 0.25, False, True, "adamw", True),
 }
+
+
+def int8_rules():
+    """The int8 gather's rules, as the JAX ``dryrun`` builds them:
+    ``FSDP_RULES`` (which set ``gather_params``) with ``int8_gather``."""
+    from repro_torch.distributed import sharding as S
+
+    return dataclasses.replace(S.FSDP_RULES, int8_gather=True)
 DRAWS = ("perm", "gumbel", "normal")
 CLI = ["--arch", "llama3-8b", "--smoke", "--global-batch", "16",
        "--seq-len", "16", "--log-every", "1", "--model-parallel", "1"]
@@ -360,9 +372,9 @@ def _optimizer(name: str, layout):
     from repro_torch import optim as O
 
     if name == "sgd":
-        return O.sgd_momentum(O.constant(0.05), momentum=0.9)
+        return O.sgd_momentum(O.constant(0.05), momentum=0.9, layout=layout)
     return O.adamw(O.constant(DP_LR), O.AdamWConfig(weight_decay=0.1),
-                   zero1=layout)
+                   layout=layout)
 
 
 def _tree_from(flat: dict, prefix: str, like):
@@ -376,19 +388,23 @@ def _flat(tree, prefix: str) -> dict:
     from repro_torch.models.params import tree_map
 
     out = {}
-    tree_map(lambda p, x: out.__setitem__(prefix + "/".join(p),
-                                          x.detach().numpy().copy()), tree)
+    tree_map(lambda p, x: out.__setitem__(prefix + "/".join(p), np.array(
+        x.detach().numpy() if isinstance(x, torch.Tensor) else x)), tree)
     return out
 
 
 def run_dp_steps(rank: int, mesh) -> dict:
     """Every case of ``DP_CASES``: DP_STEPS steps of ``make_train_step(mesh=)``
-    on this rank's rows, with the draws the parent recorded."""
-    from repro_torch.checkpoint.manager import full_moments
+    on this rank's rows, the params held FSDP-placed in the optimizer's
+    layout, with the draws the parent recorded; the params and moments
+    written gathered whole, and, once, the shape of each leaf this rank
+    holds."""
+    from repro_torch.checkpoint.manager import full_state
     from repro_torch.core import obftf as OB
     from repro_torch.core.selection import SelectionConfig
-    from repro_torch.distributed.zero import zero1_layout
+    from repro_torch.distributed.zero import HELD, data_layout
     from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
 
     cfg = dp_config()
     specs = M.param_specs(cfg)
@@ -398,14 +414,16 @@ def run_dp_steps(rank: int, mesh) -> dict:
     batch = {k: torch.from_numpy(np.ascontiguousarray(inp[f"batch/{k}"][seg]))
              for k in ("tokens", "labels", "recorded_loss", "instance_id")}
     out = {}
-    for case, (mode, method, ratio, recycle, local, opt) in DP_CASES.items():
-        layout = zero1_layout(specs, mesh, rank)
+    for case, (mode, method, ratio, recycle, local, opt,
+               int8) in DP_CASES.items():
+        layout = (data_layout(specs, mesh, rank, int8_rules()) if int8
+                  else data_layout(specs, mesh, rank))
         optimizer = _optimizer(opt, layout)
         step = OB.make_train_step(M.loss_fn(cfg), optimizer, OB.OBFTFConfig(
             selection=SelectionConfig(method=method, ratio=ratio),
             recycle_forward=recycle, mode=mode, shard_local=local),
             mesh=mesh)
-        params = _tree_from(inp, "params/", specs)
+        params = layout.hold(_tree_from(inp, "params/", specs))
         state = {"params": params, "opt": optimizer.init(params),
                  "step": torch.zeros((), dtype=torch.int32)}
         for t in range(DP_STEPS):
@@ -414,17 +432,143 @@ def run_dp_steps(rank: int, mesh) -> dict:
             state, m = step(state, batch, noise)
             for k, v in m.items():
                 out[f"{case}/{t}/{k}"] = v.numpy()
-        out.update(_flat(state["params"], f"{case}/params/"))
-        opt_state = (full_moments(state, layout)["opt"] if opt == "adamw"
-                     else state["opt"])
+        if case == "full":
+            out.update(_flat(tree_map(lambda _, x: np.asarray(x.shape),
+                                      state["params"]), "held/"))
+        whole = (full_state(state, layout) if opt == "adamw" else {
+            "params": layout.gather(state["params"], HELD),
+            "opt": {"m": layout.gather(state["opt"]["m"], HELD)}})
+        out.update(_flat(whole["params"], f"{case}/params/"))
+        opt_state = whole["opt"]
         for k in ("m", "v"):
             if k in opt_state:
                 out.update(_flat(opt_state[k], f"{case}/{k}/"))
     return out
 
 
+# the int8 ZeRO-3 gather's cases: name -> (arch whose layout places the
+# leaf, its params path; None: the gather called directly), the leaf's
+# shape, the dim each rank holds a quarter of (None: the leaf held whole),
+# the chunk, the dtype. "odd" cuts rows across the pieces' edges and pads;
+# "in_proj" is a layer's view (through param_gather_constraint, one run a
+# rank); "w2" a whole stack; "conv_w" a layer's leaf held whole, quantized
+# where it is
+INT8_CASES = {
+    "odd": (None, None, (5, 12, 7), 1, 16, "float32"),
+    "in_proj": ("mamba2-370m", ("blocks", "ssm", "in_proj"), (64, 296), 0,
+                256, "bfloat16"),
+    "w2": ("llama3-8b", ("blocks", "mlp", "w2"), (2, 128, 64), 2, 256,
+           "float32"),
+    "conv_w": ("mamba2-370m", ("blocks", "ssm", "conv_w"), (4, 160), None,
+               256, "float32"),
+}
+RING_SHAPE = (5, 301)  # a rank's term of the int8 ring all-reduce
+
+
+def run_int8(rank: int, mesh) -> dict:
+    """The int8 ring all-reduce of this rank's term, and each INT8_CASES
+    gather of this rank's quarter of the leaf (or of the whole leaf): its
+    value (whole) and the grad of what the rank holds for this rank's
+    cotangent."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.compression import int8_ring_all_reduce
+    from repro_torch.distributed.zero import data_layout
+    from repro_torch.models import model as M
+
+    inp = dict(np.load(OUT / "dp_inputs.npz"))
+    x = torch.from_numpy(inp["int8/ring/x"][rank])
+    out = {"int8/ring": int8_ring_all_reduce(x).numpy()}
+    rules = int8_rules()
+    for name, (arch, path, shape, dim, chunk, dtype) in INT8_CASES.items():
+        w = torch.from_numpy(inp[f"int8/{name}/w"]).to(getattr(torch, dtype))
+        if dim is not None:
+            k = shape[dim] // WORLD
+            w = w.narrow(dim, rank * k, k)
+        x = w.clone().requires_grad_(True)
+        if arch is None:
+            y = S._Int8Gather.apply(x, dim, chunk)
+        else:
+            layout = data_layout(M.param_specs(configs.get(arch, smoke=True)),
+                                 mesh, rank, rules)
+            with S.use_rules(mesh, rules, layout):
+                y = S.param_gather_constraint({path[-1]: x},
+                                              path[:-1])[path[-1]]
+        c = torch.from_numpy(inp[f"int8/{name}/c{rank}"])
+        (y.float() * c).sum().backward()
+        out[f"int8/{name}/value"] = y.detach().float().numpy()
+        out[f"int8/{name}/grad"] = x.grad.float().numpy()
+    return out
+
+
+# one full-method step of the hybrid smoke config in f32, remat on (each
+# group's recompute gathers again), SGD (linear in the grads): HYB_N rows
+# of HYB_SEQ tokens, against the mesh-less step on the whole batch. name ->
+# (tied embeddings, int8 gathers): "tied" gathers the shared table once for
+# its two uses; "int8" holds the params in a layout of ``int8_rules()``
+HYB_N, HYB_SEQ, HYB_LR = 8, 12, 0.05
+HYB_CASES = {"plain": (False, False), "tied": (True, False),
+             "int8": (False, True)}
+
+
+def hybrid_config(tied: bool = False):
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get("zamba2-2.7b", smoke=True),
+                               param_dtype="float32",
+                               compute_dtype="float32", remat=True,
+                               tie_embeddings=tied)
+
+
+def hybrid_step(case: str, mesh=None, rank: int = 0):
+    """(metrics, the params after the step, whole) of one full-method step
+    of HYB_CASES[case] on this rank's rows (the whole batch without a
+    mesh)."""
+    from repro_torch import optim as O
+    from repro_torch.core import obftf as OB
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.zero import HELD, data_layout
+    from repro_torch.models import model as M
+    from repro_torch.models.params import materialize
+
+    tied, int8 = HYB_CASES[case]
+    cfg = hybrid_config(tied)
+    specs = M.param_specs(cfg)
+    rs = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rs.integers(0, cfg.vocab_size,
+                                             (HYB_N, HYB_SEQ)))
+             for k in ("tokens", "labels")}
+    params = materialize(specs, 0, torch.float32, "cpu")
+    layout = None
+    if mesh is not None:
+        n = HYB_N // WORLD
+        batch = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+        layout = data_layout(specs, mesh, rank,
+                             int8_rules() if int8 else S.DEFAULT_RULES)
+        params = layout.hold(params)
+    opt = O.sgd_momentum(O.constant(HYB_LR), momentum=0.9, layout=layout)
+    step = OB.make_train_step(M.loss_fn(cfg), opt, OB.OBFTFConfig(
+        mode="full"), mesh=mesh)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    state, m = step(state, batch, None)
+    whole = (state["params"] if layout is None
+             else layout.gather(state["params"], HELD))
+    return {k: v.numpy() for k, v in m.items()}, whole
+
+
+def run_hybrid(rank: int, mesh) -> dict:
+    out = {}
+    for case in HYB_CASES:
+        m, params = hybrid_step(case, mesh, rank)
+        out.update({f"hybrid/{case}/{k}": v for k, v in m.items()})
+        out.update(_flat(params, f"hybrid/{case}/params/"))
+    return out
+
+
 def run_train(rank: int) -> dict:
-    """The step cases, then the train CLI on the four ranks: the runs of
+    """The int8 checks, the hybrid step, the step cases, then the train CLI
+    on the four ranks: the runs of
     ``CLI_RUNS`` resumed from the JAX CLI's initial state, the pinned one
     resumed from its own final checkpoint, an obftf run,
     a 4-step run of ``FULL`` checkpointed at step 2 and its resumption
@@ -440,7 +584,9 @@ def run_train(rank: int) -> dict:
     from repro_torch.launch.mesh import make_elastic_mesh
 
     mesh = make_elastic_mesh(device="cpu")
-    out = run_dp_steps(rank, mesh)
+    out = run_int8(rank, mesh)
+    out.update(run_hybrid(rank, mesh))
+    out.update(run_dp_steps(rank, mesh))
     for name, extra in CLI_RUNS.items():
         assert train.main(CLI + ["--device", "cpu"] + extra + [
             "--ckpt-dir", str(OUT / f"ck-port-{name}"), "--resume", "auto",

@@ -113,7 +113,7 @@ def test_zero1_slices_cover_every_leaf_once(arch, shards):
     cfg = configs.get(arch, smoke=True)
     specs = M.param_specs(cfg)
     mesh = types.SimpleNamespace(shape={"data": shards, "model": 1})
-    lays = [Z.zero1_layout(specs, mesh, r) for r in range(shards)]
+    lays = [Z.data_layout(specs, mesh, r) for r in range(shards)]
     parts = _port_leaves(Z.zero1_partition_specs(specs, S.DEFAULT_RULES,
                                                  mesh))
     dims = _port_leaves(lays[0].dims)
@@ -136,3 +136,38 @@ def test_zero1_slices_cover_every_leaf_once(arch, shards):
         assert torch.equal(torch.cat(pieces, d), p), path
     cut = sum(d is not None for d in dims.values())
     assert cut > len(dims) // 2, (cut, len(dims))  # most leaves are cut
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_held_params_are_the_leaves_jax_shards_over_data(arch):
+    """On a (4, 1) mesh shape each rank holds, of every leaf whose JAX
+    param spec (``param_partition_specs`` under ``DEFAULT_RULES``, as the
+    JAX trainer's ``state_specs`` takes it) names ``data``, its slice of
+    that dim, the moments' dim too (the moe family's ``expert_mlp`` where
+    ``embed`` does not come first); every other leaf whole. A rank's
+    params are 1/4 of the sliced leaves and the whole of the others."""
+    jspecs, specs = JM.param_specs(jconfigs.get(arch)), M.param_specs(
+        configs.get(arch))
+    m = _mesh("data4")
+    want = _jax_leaves(JS.param_partition_specs(jspecs, JS.DEFAULT_RULES, m),
+                       tuple)
+    lay = Z.data_layout(specs, m, 1)
+    held, dims = _port_leaves(lay.held), _port_leaves(lay.dims)
+    shapes = _port_leaves(specs, lambda s: s.shape)
+    for path, spec in want.items():
+        hits = [i for i, a in enumerate(spec) if a == "data"]
+        assert held[path] == bool(hits), path
+        if hits:
+            assert dims[path] == hits[0], path
+            assert shapes[path][hits[0]] % 4 == 0, path
+    if arch == "mixtral-8x22b":
+        assert want[("blocks", "moe", "w2")][2:] == ("data", None)
+    assert any(held.values())
+    # the slices a rank holds: views of a quarter of each held leaf
+    small_specs = M.param_specs(configs.get(arch, smoke=True))
+    params = materialize(small_specs, 0, torch.float32, "cpu")
+    small = Z.data_layout(small_specs, m, 1)
+    for (path, p), q, h in zip(_port_leaves(params).items(),
+                               tree_leaves(small.hold(params)),
+                               tree_leaves(small.held)):
+        assert q.numel() * (4 if h else 1) == p.numel(), path
