@@ -134,7 +134,8 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    ``grad_norm`` and the table equal to the mesh-less step's on the same
    weights, batches and draws (within ``REF_TRAIN_RTOL``), the warm steps
    under the sync guard, the kernels launched, and a profiled step showing
-   NCCL events and the xent and ledger kernels;
+   the xent and ledger kernels and no NCCL event (an axis of one rank
+   issues no collective);
 8b. data-parallel ranks (E) — four spawned ranks sharing the card through
    gloo, each calling the train CLI with ``--model-parallel 1`` on
    mamba2-370m at full width and depth (48 layers), rows of 512, 8 rows a
@@ -159,6 +160,29 @@ Phases, one line each (any failure raises, exits non-zero and prints no
    ``int8_ring_all_reduce`` against gloo's
    ``all_reduce`` (timed; within the sum of the ranks' max|x|/254 a
    chunk);
+8c. tensor-parallel ranks (F) — four spawned ranks sharing the card
+   through gloo, each calling the train CLI on JAX's (data, model) mesh,
+   tensor-parallel as ``DEFAULT_RULES`` place the dense family (each rank
+   its slice of the heads, kv heads, MLP columns and vocab rows; FSDP
+   over the data axis inside it): llama3-8b at full width cut to 4 layers,
+   16 x 128 tokens, (a) ``--model-parallel 0`` (1, 4) obftf at 0.25, 2
+   steps, (b) ``--model-parallel 2`` (2, 2) recycled from the device
+   ledger, 3 steps, (c-f32) full in f32 on (1, 4) against one rank, 2
+   steps; granite-34b at full width (48 heads, one kv head) cut to 2
+   layers, full, bf16, (1, 4), against one rank. Gates: the mesh; the
+   params gathered over the data axis the same bits across each data
+   column and the leaves the model axis leaves whole the same bits
+   across each model group; each rank's
+   param bytes its layout's; the kept rows equal across each model group;
+   the step cost; xent_fwd, xent_bwd and the ledger kernel launched as
+   ``tp_kernel_launches`` counts from the code; (b)'s ledger replicas and
+   writes equal across each model group; losses and grad norms within
+   ``REF_TRAIN_RTOL`` (f32) and ``DP_BF16_RTOL`` (bf16) of one rank; then
+   the vocab-parallel loss on the card, four slices of 2,048 rows of
+   llama3-8b's logits in bf16 through xent_fwd and xent_bwd, combined,
+   against the plain full-vocab cross-entropy. Each run's steady step,
+   its host time and count of gloo's collectives, the peak and the param
+   bytes a rank;
 9. train profile — run (a)'s configuration again, two warm steps timed by
    the host clock and one under torch.profiler;
 10. the other dense archs — deepseek-7b (15 of 30 layers, MHA),
@@ -2476,7 +2500,7 @@ def _ledger_rank(rank: int, store: str, out_dir: str, src: str) -> None:
     dist.init_process_group(
         "gloo", store=dist.FileStore(store, SHARD_WORLD), rank=rank,
         world_size=SHARD_WORLD, timeout=datetime.timedelta(seconds=120))
-    mesh = make_elastic_mesh(device="cuda:0")
+    mesh = make_elastic_mesh(1, device="cuda:0")
     seg = slice(rank * SHARD_B, (rank + 1) * SHARD_B)
     out = {}
     for stream in SHARD_STREAMS:
@@ -2829,7 +2853,8 @@ def _dp_d_run(torch, mesh, profiled: bool = False) -> dict:
     torch.cuda.reset_peak_memory_stats()
     cfg = configs.get("llama3-8b", layers=TRAIN_LAYERS)
     specs = Mdl.param_specs(cfg)
-    layout = None if mesh is None else data_layout(specs, mesh, mesh.rank)
+    layout = None if mesh is None else data_layout(specs, mesh,
+                                                   mesh.data_index)
     opt = build_optimizer(1e-3, 100, layout)
     step_fn = make_train_step(Mdl.loss_fn(cfg), opt, OBFTFConfig(
         SelectionConfig(method="obftf", ratio=0.25)), mesh=mesh)
@@ -2897,6 +2922,72 @@ def _dp_d_run(torch, mesh, profiled: bool = False) -> dict:
     return out
 
 
+def _nccl_route_check(torch, dev: str = "cuda") -> str:
+    """``distributed.compat``'s NCCL route on the card. An axis of one rank
+    without a group (every axis of phase D's mesh) issues no collective; one
+    given a group of its own issues them all, so a one-rank NCCL group,
+    registered as the data and the model axis, drives each collective the
+    steps use (``all_gather``, ``all_to_all`` even and uneven,
+    ``all_reduce_sum``, ``all_reduce_buckets``, ``all_gather_along``,
+    ``reduce_scatter_along``) on bf16 and f32 tensors on the card, with no
+    host staging. Gates: each returns its input's bits, on the card (the
+    sum or the gather over one rank), and the profile shows NCCL events.
+    ``ring_shift`` is left out: a ring of one has no hop. ``dev`` "cpu"
+    runs it over a gloo world of one (a dry run on the CPU). -> the
+    line."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed import compat
+
+    prev = dict(compat._axes)
+    own = dist.new_group([0])
+    backend = dist.get_backend(own)
+    try:
+        compat.set_axes({compat.DATA: compat.Axis(own, (0,), 0),
+                         compat.MODEL: compat.Axis(own, (0,), 0)})
+        if compat.host_staged(compat.DATA) != (dev == "cpu"):
+            raise AssertionError(f"phase D: the {backend} group's staging")
+        g = torch.Generator(dev).manual_seed(3)
+        xs = [torch.randn((64, 48), generator=g, device=dev).to(
+            torch.bfloat16), torch.randn((96,), generator=g, device=dev)]
+        sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+        compat.all_reduce_buckets(xs)  # the communicator set up, unprofiled
+        sync()
+        got, want = [], []
+        with profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if dev == "cuda" else [])) as prof:
+            for name in (compat.DATA, compat.MODEL):
+                got += [compat.all_gather(xs[1], name),
+                        compat.all_to_all(xs[1], name=name),
+                        compat.all_to_all(xs[1], [96], [96], name),
+                        compat.all_reduce_sum(xs[0], name)]
+                got += compat.all_reduce_buckets(xs, name)
+                got += compat.all_gather_along(xs, [1, 0], name)
+                got += compat.reduce_scatter_along(xs, [1, 0], name)
+                want += [xs[1], xs[1], xs[1], xs[0]] + xs * 3
+            sync()
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not (a.device.type == dev and torch.equal(a, b)):
+                raise AssertionError(f"phase D: {backend} collective {i} of "
+                                     "a one-rank group changed its input")
+        events = _averages(prof)
+        nccl = sum(e.count for e in events if backend in e.key.lower())
+        kernels = sum(e.count for e in events if backend in e.key.lower()
+                      and e.device_type == torch.autograd.DeviceType.CUDA)
+        if nccl == 0:
+            raise AssertionError(f"phase D: compat's collectives over a "
+                                 f"one-rank {backend} group showed no "
+                                 f"{backend} event")
+    finally:
+        compat.set_axes(prev)
+        dist.destroy_process_group(own)
+    return (f"{backend} route: {len(got)} collectives of compat over a "
+            f"one-rank {backend} group as both axes, bf16 and f32 on "
+            f"{dev}, each its input's bits, {backend} events {nccl} (device "
+            f"kernels {kernels})")
+
+
 def dp_step_phase(torch, ops) -> tuple[dict, str]:
     """Phase D: ``make_train_step(mesh=)`` over an NCCL group of one against
     the mesh-less step, from the same weights, batches and draws. Gates: on
@@ -2904,18 +2995,21 @@ def dp_step_phase(torch, ops) -> tuple[dict, str]:
     per-example losses, the loss and ``grad_norm`` within REF_TRAIN_RTOL;
     the ledger tables' integers equal and their EMAs within REF_TRAIN_RTOL;
     the xent and ledger kernels launched on both; the warm steps under the
-    sync guard (a host sync raises); a profiled step shows NCCL events and
-    the xent and ledger kernels -> (the mesh run's launches, the line)."""
+    sync guard (a host sync raises); a profiled step shows the xent and
+    ledger kernels and no NCCL event (a group of one issues no collective,
+    on either axis); then ``_nccl_route_check`` on the same NCCL world ->
+    (the mesh run's launches, the line)."""
     import numpy as np
 
     from repro_torch.launch.mesh import make_elastic_mesh
 
     t0 = time.perf_counter()
     plain = _dp_d_run(torch, None)
-    mesh = make_elastic_mesh(device="cuda")
+    mesh = make_elastic_mesh(1, device="cuda")
     if (mesh.backend, mesh.size) != ("nccl", 1):
         raise AssertionError(f"phase D mesh {mesh.backend} x {mesh.size}")
     dp = _dp_d_run(torch, mesh, profiled=True)
+    nccl_line = _nccl_route_check(torch)
     mesh.close()
     for i, (a, b) in enumerate(zip(dp["metrics"], plain["metrics"])):
         for k in ("selected", "kept", "step_cost", "per_example_fresh"):
@@ -2937,8 +3031,11 @@ def dp_step_phase(torch, ops) -> tuple[dict, str]:
         if min(run["launches"][k] for k in ("xent_fwd", "xent_bwd",
                                             "ledger_record_priority")) <= 0:
             raise AssertionError(f"phase D missed a kernel: {run['launches']}")
-    if dp["nccl_events"] <= 0:
-        raise AssertionError("phase D: the profile shows no NCCL event")
+    # an axis of one rank issues no collective (``distributed.compat``):
+    # neither the data axis of one nor the model axis of one
+    if dp["nccl_events"] != 0:
+        raise AssertionError(f"phase D: a group of one issued "
+                             f"{dp['nccl_events']} NCCL events")
     seen = dp["seen"]
     for k in ("xent_fwd", "xent_bwd", "ledger_record_priority"):
         if f"{k} 0 for" in seen:
@@ -2962,7 +3059,7 @@ def dp_step_phase(torch, ops) -> tuple[dict, str]:
             f"{dp['nccl_events']} (device kernels {dp['nccl_kernels']}), "
             f"device ms by kind: {dp['groups']}; top: {tops}; kernel "
             f"launches the profiler saw: {seen}; launches {dp['launches']}; "
-            f"phase D {time.perf_counter() - t0:.1f} s")
+            f"{nccl_line}; phase D {time.perf_counter() - t0:.1f} s")
     return dp["launches"], line
 
 
@@ -3038,11 +3135,27 @@ def _param_digest(torch, params) -> "np.ndarray":
     from repro_torch.models.params import tree_leaves
 
     out = []
+    step = 1 << 24  # elements a chunk: the int64 copies stay small
     for x in tree_leaves(params):
-        bits = x.contiguous().view(torch.int16).reshape(-1).to(torch.int64)
-        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
-        out.append(torch.stack([bits.sum(), (bits * w).sum()]))
+        bits = x.contiguous().view(torch.int16).reshape(-1)
+        acc = torch.zeros(2, dtype=torch.int64, device=bits.device)
+        for lo in range(0, bits.numel(), step):
+            b = bits[lo:lo + step].to(torch.int64)
+            w = torch.arange(lo, lo + b.numel(), device=b.device) % 65521 + 1
+            acc += torch.stack([b.sum(), (b * w).sum()])
+        out.append(acc)
     return np.asarray(torch.stack(out).cpu())
+
+
+def _moment_squares(torch, state) -> "np.ndarray":
+    """Each first-moment leaf's sum of squares as this rank holds it, in
+    f64 (an AdamW state's ``opt/m``, tree order)."""
+    import numpy as np
+
+    from repro_torch.models.params import tree_leaves
+
+    return np.asarray([float(x.float().square().sum(dtype=torch.float64))
+                       for x in tree_leaves(state["opt"]["m"])])
 
 
 def _int8_rank_checks(torch, rank: int, dev: str = "cuda",
@@ -3442,6 +3555,475 @@ def dp_ranks_phase(torch, ops, tmp: str) -> tuple[dict, list[str]]:
         f"{med('all_reduce_ms'):.2f} ms (median of {INT8_E_REPS}), within "
         f"{max(i8['ring_err_share']):.3f} of its bound")
     lines.append(f"phase E: {ranks_s:.1f} s the ranks, "
+                 f"{time.perf_counter() - t0:.1f} s in all")
+    return launches, lines
+
+
+TP_F_WORLD = 4
+# llama3-8b at full width (d 4096, 32 heads, 8 kv, d_ff 14336, vocab
+# 128,256) cut to 4 layers, global batch 16 x 128 tokens
+TP_F_ARGV = ["--arch", "llama3-8b", "--layers", "4", "--global-batch", "16",
+             "--seq-len", "128", "--device", "cuda", "--log-every", "1"]
+# name -> (extra flags, mesh (data, model), step cost, kept rows of 16,
+# f32, held against one rank's run of the same flags)
+TP_F_RUNS = {
+    "a": (["--model-parallel", "0", "--method", "obftf", "--ratio", "0.25",
+           "--steps", "2"], (1, 4), 1.75, 4, False, False),
+    "b": (["--model-parallel", "2", "--method", "obftf", "--ratio", "0.25",
+           "--recycle", "--ledger", "device", "--instance-pool", "32",
+           "--steps", "3"], (2, 2), 0.75, 4, False, False),
+    "c-f32": (["--model-parallel", "0", "--method", "full", "--steps", "3"],
+              (1, 4), 3.0, 16, True, True),
+    # granite-34b at full width (48 heads, kv 1: the heads cut, the one kv
+    # head whole on every rank; the GELU MLP; vocab 49,152) cut to 2 layers
+    "granite": (["--arch", "granite-34b", "--layers", "2",
+                 "--model-parallel", "0", "--method", "full", "--steps",
+                 "3"], (1, 4), 3.0, 16, False, True),
+}
+# the runs held against one rank take 3 steps: the schedule's warmup of
+# one step and its cosine to 0 at the last leave two nonzero updates (and
+# ``grad_norm`` is the update's norm). Their first moments, which hold each
+# leaf's grad scale where AdamW's update does not, are compared leaf by
+# leaf as norms: in f32 within REF_TRAIN_RTOL, in bf16 within 2^-5 (the
+# bf16 CPU test's bound against JAX, tests/test_torch_tp_train.py; a grad
+# summed over the model axis once too often or not at all is off by 1 or
+# 0.5)
+TP_F_BF16_MOMENT_RTOL = 2.0**-5
+# the vocab-parallel loss on the card: rows of llama3-8b's vocabulary in
+# bf16, four slices through xent_fwd / xent_bwd, combined, against the
+# plain full-vocab cross-entropy
+TP_F_XENT_T = 2048
+
+
+def tp_kernel_launches(name: str) -> dict:
+    """The xent (and ledger) launches a rank of TP_F_RUNS[name] makes, from
+    the code: each forward of the loss one ``xent_fwd`` on the rank's
+    vocab slice and each backward one ``xent_bwd``; a selection forward
+    where the run is not recycled; the ledger kernel once a step on the
+    data rank's pinned slice where the table is on the device."""
+    extra = TP_F_RUNS[name][0]
+    steps = int(extra[extra.index("--steps") + 1])
+    full, recycled = "full" in extra, "--recycle" in extra
+    fwd = 1 + (0 if full or recycled else 1)
+    return {"xent_fwd": fwd * steps, "xent_bwd": steps,
+            "ledger_record_priority": steps if "device" in extra else 0}
+
+
+@contextlib.contextmanager
+def recording_steps(train, rec: dict):
+    """``train.make_train_step`` and ``train.data_layout`` wrapped to keep
+    the run's layout, final state and every step's kept count, kept rows,
+    loss and grad norm in ``rec`` (device tensors, read after the run)."""
+    make, layout_of = train.make_train_step, train.data_layout
+
+    def keep_layout(*a, **k):
+        rec["layout"] = layout_of(*a, **k)
+        return rec["layout"]
+
+    def make_kept(*a, **k):
+        fn = make(*a, **k)
+
+        def run(state, batch, noise):
+            state, m = fn(state, batch, noise)
+            rec["state"] = state
+            # device copies: the step may run under the sync guard
+            rec["steps"].append({k: m[k].detach().clone() for k in (
+                "kept", "selected", "loss", "grad_norm")})
+            return state, m
+
+        return run
+
+    train.make_train_step, train.data_layout = make_kept, keep_layout
+    try:
+        yield
+    finally:
+        train.make_train_step, train.data_layout = make, layout_of
+
+
+def _tp_xent_check(torch, ops, ref, mesh, layout, dev="cuda",
+                   v=128256) -> dict:
+    """The vocab-parallel loss on this rank's quarter of TP_F_XENT_T rows of
+    bf16 logits (the same on every rank, from one seed; labels of -1, 0,
+    V-1 and the slices' borders among them): its per-token loss and its
+    slice of the gradient against the plain full-vocab cross-entropy, with
+    phase 7's tolerances."""
+    import numpy as np
+
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models import model as Mdl
+
+    g = torch.Generator(dev).manual_seed(11)
+    x = (3 * torch.randn((TP_F_XENT_T, v), generator=g, device=dev)
+         ).to(torch.bfloat16)
+    labels = torch.randint(0, v, (TP_F_XENT_T,), generator=g, device=dev)
+    edges = [-1, 0, v - 1] + [k * v // 4 + e for k in range(1, 4)
+                              for e in (-1, 0)]
+    labels[:len(edges)] = torch.tensor(edges, device=dev)
+    cot = torch.randn((TP_F_XENT_T,), generator=g, device=dev)
+    n, m = v // mesh.shape["model"], mesh.model_index
+    part = x[:, m * n:(m + 1) * n].contiguous().requires_grad_(True)
+    ops.reset_launches()
+    with S.use_rules(mesh, S.DEFAULT_RULES, layout):
+        t0 = time.perf_counter()
+        loss = Mdl.per_token_loss(part[None], labels[None], True)[0]
+        (loss * cot).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launched = dict(ops.LAUNCHES)
+    keep = labels >= 0
+    want, lse = ref.xent_ref(x, labels)
+    want = torch.where(keep, want, 0.0)
+    grad = ref.xent_grad_ref(x, labels, lse, torch.where(keep, cot, 0.0))
+    err = (loss.detach() - want).abs()
+    lim = XENT_ATOL + XENT_RTOL * want.abs()
+    gw = grad[:, m * n:(m + 1) * n].float()
+    gerr = (part.grad.float() - gw).abs()
+    glim = (XENT_BWD_RTOL["torch.bfloat16"] * gw.abs()
+            + torch.finfo(torch.bfloat16).tiny)
+    if not (bool((err <= lim).all()) and bool((gerr <= glim).all())):
+        raise AssertionError(
+            f"F xent: the vocab-parallel loss is {float(err.max())} off "
+            f"(share of tol {float((err / lim).max())}), its grad "
+            f"{float((gerr / glim).max())} of its tol")
+    if dev == "cuda" and (launched["xent_fwd"],
+                          launched["xent_bwd"]) != (1, 1):
+        raise AssertionError(f"F xent: launches {launched}")
+    return {"xent_err": float(err.max()),
+            "xent_share": float((err / lim).max()),
+            "xent_grad_share": float((gerr / glim).max()),
+            "xent_ms": ms}
+
+
+def _tp_rank(rank: int, store: str, out_dir: str, src: str,
+             smoke: bool = False) -> None:
+    """One rank of phase F: joins the gloo group and runs each of TP_F_RUNS
+    through ``train.main``, keeping every step's kept rows, loss and grad
+    norm, the digest of its final params gathered whole and of the leaves
+    the model axis leaves whole as the rank holds them, the bytes it held,
+    its kernel launches, its peak memory, its host time and count of
+    gloo's collectives inside the steps, and in run (b) its ledger table
+    and writes; then ``_tp_xent_check`` on the (1, 4) mesh. ``smoke`` runs
+    the smoke configs on the CPU (a dry run of the rank's program: no
+    card, the kernels' plain versions)."""
+    import contextlib
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, src)
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.ledger import ShardedLedgerOps
+    from repro_torch.distributed.zero import HELD, data_layout
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.models import model as Mdl
+    from repro_torch.models.params import tree_leaves
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, TP_F_WORLD), rank=rank,
+        world_size=TP_F_WORLD, timeout=datetime.timedelta(seconds=300))
+    rec = {"state": None, "steps": [], "writes": [], "table": None,
+           "gloo": 0.0, "calls": 0, "in_step": False, "layout": None}
+    dev = "cpu" if smoke else "cuda"
+    cuda = torch.cuda if not smoke else None
+    record_priority = ShardedLedgerOps.record_priority
+
+    def record_kept(self, state, ids, losses, step, valid=None, **kw):
+        rec["writes"].append((ids.cpu().numpy(), losses.cpu().numpy(),
+                              valid.cpu().numpy()))
+        out = record_priority(self, state, ids, losses, step, valid, **kw)
+        rec["table"] = out[0]
+        return out
+
+    def timed(fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if rec["in_step"]:
+                    rec["gloo"] += time.perf_counter() - t0
+                    rec["calls"] += 1
+        return call
+
+    guard = train.no_host_sync
+
+    @contextlib.contextmanager
+    def in_step(enabled):
+        rec["in_step"] = True
+        with guard(enabled):
+            yield
+        rec["in_step"] = False
+
+    train.no_host_sync = in_step
+    ShardedLedgerOps.record_priority = record_kept
+    dist.all_reduce = timed(dist.all_reduce)
+    dist.all_to_all_single = timed(dist.all_to_all_single)
+    dist.reduce_scatter_tensor = timed(dist.reduce_scatter_tensor)
+    compat._all_gather_single = timed(compat._all_gather_single)
+    out = {}
+    for name, (extra, _, _, _, f32, _) in TP_F_RUNS.items():
+        ops.reset_launches()
+        if cuda:
+            cuda.reset_peak_memory_stats()
+        rec.update(steps=[], writes=[], table=None, gloo=0.0, calls=0)
+        argv = TP_F_ARGV + extra + [
+            "--json-out", os.path.join(out_dir, f"tp-{name}.json")]
+        if smoke:
+            argv += ["--smoke", "--device", "cpu"]
+        with f32_configs(f32), recording_steps(train, rec):
+            train.main(argv)
+        held, lay = rec["state"]["params"], rec["layout"]
+        # the run's mesh again (the CLI ended its groups), for the gathers
+        mesh = make_elastic_mesh(lay.model_shards, device=dev)
+        leaves = tree_leaves(held)
+        out[f"{name}/mesh"] = np.asarray([lay.shards, lay.model_shards,
+                                          lay.rank, lay.model_rank])
+        out[f"{name}/held_bytes"] = np.int64(sum(
+            x.numel() * x.element_size() for x in leaves))
+        out[f"{name}/want_bytes"] = np.int64(sum(
+            math.prod(s) * x.element_size() // (lay.shards if h else 1)
+            // (lay.model_shards if c else 1)
+            for x, s, h, c in zip(leaves, tree_leaves(lay.shapes),
+                                  lay.held_mask(), lay.model_mask())))
+        out[f"{name}/whole_bytes"] = np.int64(sum(
+            math.prod(s) * x.element_size()
+            for x, s in zip(leaves, tree_leaves(lay.shapes))))
+        # the model view (the data slices gathered), the same on every rank
+        # of a data column; the model slices differ by design
+        out[f"{name}/digest"] = _param_digest(torch, lay.gather(held, HELD))
+        out[f"{name}/replicated"] = _param_digest(torch, {
+            str(i): x for i, (x, c) in enumerate(zip(
+                leaves, lay.model_mask())) if not c})
+        # each first-moment slice's sum of squares, and whether the leaf is
+        # cut over the data and the model axis
+        out[f"{name}/m_sq"] = _moment_squares(torch, rec["state"])
+        out[f"{name}/m_cut"] = np.asarray([
+            [d is not None, c] for d, c in zip(tree_leaves(lay.dims),
+                                               lay.model_mask())])
+        mesh.close()
+        rec["state"] = held = None
+        for t, st in enumerate(rec["steps"]):
+            for k, v in st.items():
+                out[f"{name}/{t}/{k}"] = v.cpu().numpy()
+        out[f"{name}/gloo_s"] = np.float64(rec["gloo"])
+        out[f"{name}/gloo_calls"] = np.int64(rec["calls"])
+        out[f"{name}/peak_gib"] = np.float64(
+            cuda.max_memory_allocated() / 2**30 if cuda else 0.0)
+        for k, v in ops.LAUNCHES.items():
+            out[f"{name}/launches/{k}"] = np.int64(v)
+        if rec["table"] is not None:
+            out[f"{name}/table"] = np.concatenate([
+                rec["table"].ema.float().cpu().numpy(),
+                rec["table"].owner.float().cpu().numpy()])
+            for t, (ids, losses, valid) in enumerate(rec["writes"]):
+                out[f"{name}/write/{t}"] = np.concatenate(
+                    [ids.astype(np.float64), losses, valid])
+        if cuda:
+            cuda.empty_cache()
+    from repro_torch import configs
+    mesh = make_elastic_mesh(0, device="cpu" if smoke else "cuda:0")
+    cfg = configs.get("llama3-8b", smoke)
+    layout = data_layout(Mdl.param_specs(cfg), mesh, mesh.data_index,
+                         model_rank=mesh.model_index)
+    for k, v in _tp_xent_check(torch, ops, ref, mesh, layout, dev,
+                               cfg.vocab_size).items():
+        out[f"xent/{k}"] = np.float64(v)
+    mesh.close()
+    np.savez(os.path.join(out_dir, f"tp{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+def tp_ranks_phase(torch, ops, tmp: str) -> tuple[dict, list[str]]:
+    """Phase F: four ranks (``_tp_rank``, spawned, sharing the card through
+    gloo) each run TP_F_RUNS through the train CLI on JAX's (data, model)
+    mesh, tensor-parallel as ``DEFAULT_RULES`` place the dense family.
+    Gates, each run: the mesh TP_F_RUNS gives; every rank's final params,
+    gathered over the data axis, the same bits across its data column,
+    and the leaves the model axis leaves whole the same bits on every
+    rank of a model group as the ranks hold them; every rank's param bytes those of its layout; every step's kept
+    rows equal across each model group (and the kept count and step cost
+    as TP_F_RUNS gives them); finite losses; xent_fwd, xent_bwd (and in
+    (b) ledger_record_priority) launched a rank as ``tp_kernel_launches``
+    counts from the code; in (b) the ledger replicas of a data row and
+    their writes equal; the losses and grad norms of (c-f32) within
+    REF_TRAIN_RTOL and of granite within DP_BF16_RTOL of one rank's run;
+    then ``_tp_xent_check`` on every rank -> (launches by run and rank,
+    lines)."""
+    import multiprocessing as mp
+
+    import numpy as np
+
+    from repro_torch.launch import train
+    from repro_torch.models.params import tree_map
+
+    _free(torch)
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank, args=(
+        r, os.path.join(tmp, "tp_store"), tmp, os.path.join(ROOT, "src")))
+        for r in range(TP_F_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 420
+    # a rank that fails leaves the others in a collective: stop them all
+    while (time.monotonic() < deadline and any(p.is_alive() for p in procs)
+           and not any(p.exitcode for p in procs)):
+        time.sleep(1.0)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"phase F ranks exited with {codes}")
+    ranks_s = time.perf_counter() - t0
+    ranks = [dict(np.load(os.path.join(tmp, f"tp{r}.npz")))
+             for r in range(TP_F_WORLD)]
+    one = {}
+    for name, (extra, _, _, _, f32, compare) in TP_F_RUNS.items():
+        if not compare:
+            continue
+        rec = {"steps": [], "state": None, "layout": None}
+        with f32_configs(f32), recording_steps(train, rec):
+            one[name] = train_run(torch, ops, TP_F_ARGV + extra,
+                                  os.path.join(tmp, f"tp-{name}-one.json"))
+        one[name]["grad_norm"] = [float(st["grad_norm"])
+                                  for st in rec["steps"]]
+        one[name]["m_norm"] = np.sqrt(_moment_squares(torch, rec["state"]))
+        one[name]["m_names"] = []
+        tree_map(lambda p, _: one[name]["m_names"].append("/".join(p)),
+                 rec["state"]["opt"]["m"])
+        rec.clear()
+        _free(torch)
+    lines, launches = [], {}
+    for name, (extra, shape, cost, kept, f32, compare) in TP_F_RUNS.items():
+        with open(os.path.join(tmp, f"tp-{name}.json")) as f:
+            s = json.load(f)
+        d, m = shape
+        for r, out in enumerate(ranks):
+            got = tuple(int(v) for v in out[f"{name}/mesh"])
+            if got != (d, m, r // m, r % m):
+                raise AssertionError(f"phase F ({name}) rank {r} mesh {got}")
+            if not np.array_equal(out[f"{name}/digest"],
+                                  ranks[r % m][f"{name}/digest"]):
+                raise AssertionError(f"phase F ({name}): rank {r}'s params, "
+                                     "gathered over the data axis, differ "
+                                     "from its data column's")
+            lead = ranks[(r // m) * m]
+            if not np.array_equal(out[f"{name}/replicated"],
+                                  lead[f"{name}/replicated"]):
+                raise AssertionError(f"phase F ({name}) rank {r}: a leaf the "
+                                     "model axis leaves whole differs within "
+                                     "its model group")
+            for t in range(s["steps"]):
+                if not np.array_equal(out[f"{name}/{t}/selected"],
+                                      lead[f"{name}/{t}/selected"]):
+                    raise AssertionError(f"phase F ({name}) step {t}: rank "
+                                         f"{r} kept other rows than its "
+                                         "model group")
+                if float(out[f"{name}/{t}/kept"]) != kept:
+                    raise AssertionError(f"phase F ({name}) kept "
+                                         f"{out[f'{name}/{t}/kept']}")
+            if out[f"{name}/held_bytes"] != out[f"{name}/want_bytes"]:
+                raise AssertionError(
+                    f"phase F ({name}) rank {r} holds "
+                    f"{int(out[f'{name}/held_bytes'])} param bytes, its "
+                    f"layout {int(out[f'{name}/want_bytes'])}")
+            n = {k: int(out[f"{name}/launches/{k}"]) for k in ops.LAUNCHES}
+            launches[f"{name} rank {r}"] = n
+            want = tp_kernel_launches(name)
+            if any(n[k] != v for k, v in want.items()):
+                raise AssertionError(f"phase F ({name}) rank {r} launches "
+                                     f"{n}, the code's {want}")
+            if f"{name}/table" in out:
+                if not np.array_equal(out[f"{name}/table"],
+                                      lead[f"{name}/table"]):
+                    raise AssertionError(f"phase F ({name}): rank {r}'s "
+                                         "ledger replica differs")
+                for t in range(s["steps"]):
+                    if not np.array_equal(out[f"{name}/write/{t}"],
+                                          lead[f"{name}/write/{t}"]):
+                        raise AssertionError(f"phase F ({name}): rank {r}'s "
+                                             f"ledger write {t} differs")
+        if abs(s["mean_step_cost"] - cost) > 1e-6:
+            raise AssertionError(f"phase F ({name}) step cost "
+                                 f"{s['mean_step_cost']}")
+        if not all(math.isfinite(x) for x in (s["loss_first"],
+                                              s["loss_last"])):
+            raise AssertionError(f"phase F ({name}) losses {s}")
+        norms = [float(ranks[0][f"{name}/{t}/grad_norm"])
+                 for t in range(s["steps"])]
+        note = ""
+        if compare:
+            o, tol = one[name], REF_TRAIN_RTOL if f32 else DP_BF16_RTOL
+            pairs = [(s["loss_first"], o["loss_first"]),
+                     (s["loss_last"], o["loss_last"])] + list(
+                zip(norms, o["grad_norm"]))
+            rel = max(abs(a - b) / abs(b) if b else abs(a)
+                      for a, b in pairs)
+            note = (f", one rank: losses {o['loss_first']:.6f} -> "
+                    f"{o['loss_last']:.6f}, grad norms {o['grad_norm']} "
+                    f"(largest relative difference of the four {rel:.3g}, "
+                    f"tol {tol}), steady step {o['steady_ms']:.1f} ms, peak "
+                    f"{o['peak_gib']:.2f} GiB")
+            if rel > tol:
+                raise AssertionError(f"phase F ({name}): {pairs} (tol {tol})")
+            # each leaf's first moment: the ranks' slices' squares summed
+            # over the axes that cut it, once over those that do not
+            sq = sum(np.where((r[f"{name}/m_cut"][:, 0] | (i // m == 0))
+                              & (r[f"{name}/m_cut"][:, 1] | (i % m == 0)),
+                              r[f"{name}/m_sq"], 0.0)
+                     for i, r in enumerate(ranks))
+            mtol = REF_TRAIN_RTOL if f32 else TP_F_BF16_MOMENT_RTOL
+            mrel = np.abs(np.sqrt(sq) - o["m_norm"]) / np.maximum(
+                o["m_norm"], 1e-30)
+            worst = o["m_names"][int(np.argmax(mrel))]
+            note += (f", first moments' norms leaf by leaf within "
+                     f"{mrel.max():.3g} (at {worst}; tol {mtol}) of one "
+                     f"rank's over {len(mrel)} leaves")
+            if mrel.max() > mtol:
+                raise AssertionError(f"phase F ({name}): the first moment of "
+                                     f"{worst} is {mrel.max()} off one "
+                                     f"rank's (tol {mtol})")
+        warm = sorted(s["step_ms"][1:])
+        steady = warm[len(warm) // 2]
+        gloo = float(ranks[0][f"{name}/gloo_s"]) * 1e3 / s["steps"]
+        calls = int(ranks[0][f"{name}/gloo_calls"]) / s["steps"]
+        held = [int(r[f"{name}/held_bytes"]) for r in ranks]
+        whole = int(ranks[0][f"{name}/whole_bytes"])
+        peaks = [round(float(r[f"{name}/peak_gib"]), 2) for r in ranks]
+        arch = "granite-34b 2" if name == "granite" else "llama3-8b 4"
+        lines.append(
+            f"tp ranks (F, {name}): {arch} layers "
+            f"{'f32' if f32 else 'bf16'}, 4 gloo ranks on one card, mesh "
+            f"(data {d}, model {m}), 16 x 128, {' '.join(extra)}: loss "
+            f"{s['loss_first']:.4f} -> {s['loss_last']:.4f}, grad norms "
+            f"{norms}, step cost {s['mean_step_cost']:.3f}C, kept {kept} a "
+            f"step, equal across each model group, step ms (rank 0) first "
+            f"{s['step_ms'][0]:.1f}, steady (median of warm) {steady:.1f}, "
+            f"of which in gloo's collectives (host-staged; rank 0, a step) "
+            f"{gloo:.1f} ({100 * gloo / (sum(s['step_ms']) / s['steps']):.0f}"
+            f"% of the mean step) in {calls:.0f} collectives a step, peak "
+            f"GiB a rank {peaks}, param bytes a rank {held} of {whole} whole "
+            f"({held[0] / whole:.4f}), launches rank 0 "
+            f"{launches[f'{name} rank 0']}" + note)
+    x = {k[10:]: [float(r[k]) for r in ranks] for k in ranks[0]
+         if k.startswith("xent/")}  # xent/xent_<name>
+    lines.append(
+        f"tp ranks (F, xent): {TP_F_XENT_T} rows of llama3-8b's 128,256 "
+        f"logits bf16 in four vocab slices, xent_fwd and xent_bwd once a "
+        f"rank, combined: loss within {max(x['share']):.3f} of its "
+        f"tolerance (largest error {max(x['err']):.3g}), grad within "
+        f"{max(x['grad_share']):.3f} of its tolerance, of the plain "
+        f"full-vocab cross-entropy; fwd + bwd {sorted(x['ms'])[1]:.1f} ms a "
+        f"rank (median, gloo-staged gather of the [2, T] lse and picked "
+        f"logit included)")
+    lines.append(f"phase F: {ranks_s:.1f} s the ranks, "
                  f"{time.perf_counter() - t0:.1f} s in all")
     return launches, lines
 
@@ -4184,6 +4766,11 @@ def main() -> int:
     for line in lines:
         print(line, flush=True)
     lap("E")
+    with tempfile.TemporaryDirectory() as tmp:
+        f_launches, lines = tp_ranks_phase(torch, ops, tmp)
+    for line in lines:
+        print(line, flush=True)
+    lap("F")
     print(f"train profile: {train_profile_phase(torch)}", flush=True)
     lap("train profile")
     by_path = {"serve llama3-8b paged": s["launches"],
@@ -4199,6 +4786,8 @@ def main() -> int:
                "train dp step, one NCCL rank (D)": d_launches}
     for key, n in e_launches.items():
         by_path[f"train dp mamba2-370m ({key}, 4 gloo ranks, E)"] = n
+    for key, n in f_launches.items():
+        by_path[f"train tp ({key}, 4 gloo ranks, F)"] = n
     for key, n in shard_launches.items():
         by_path[f"sharded ops {key} (4 ranks)"] = dict(
             {k: 0 for k in ops.LAUNCHES}, ledger_record_priority=n)

@@ -25,7 +25,10 @@ the layout holds (FSDP) and the ZeRO-1 moment slices (``opt/m``,
 checkpoint keeps the one-device layout (readable by the JAX manager).
 ``restore`` cuts each held param leaf and each moment leaf to the
 restoring rank's slice of its own layout, so a checkpoint resumes on any
-number of ranks.
+number of ranks. On a mesh with a model axis the model cuts are gathered
+too (after the data cuts) and taken again on restore (before them), so a
+checkpoint of (2, 2) resumes on (1, 4), (4, 1) or one rank: the format
+knows no layout.
 """
 
 from __future__ import annotations
@@ -50,35 +53,41 @@ ZERO1_MOMENTS = ("m", "v")  # the optimizer-state leaves a ZeRO-1 layout cuts
 
 
 def _writes(layout) -> bool:
-    """Whether this process writes checkpoints: rank 0 of the ZeRO-1
-    layout's data axis where one is given, else rank 0 of the group, or a
-    process outside any group."""
+    """Whether this process writes checkpoints: rank (0, 0) of the
+    layout's (data, model) mesh where one is given, else rank 0 of the
+    group, or a process outside any group."""
     if layout is not None:
-        return layout.rank == 0
+        return layout.rank == 0 and layout.model_rank == 0
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def full_state(state: Any, layout) -> Any:
     """``state`` with its held param slices and its ZeRO-1 moment slices
-    gathered into full leaves (a collective: every rank of the data axis
-    calls it)."""
+    gathered into full leaves, over the data axis and then the model axis
+    (a collective: every rank of the mesh calls it)."""
     opt = dict(state["opt"])
     for k in ZERO1_MOMENTS:
         if k in opt:
-            opt[k] = layout.gather(opt[k])
-    return dict(state, params=layout.gather(state["params"], HELD), opt=opt)
+            opt[k] = layout.model_gather(layout.gather(opt[k]))
+    return dict(state, params=layout.model_gather(
+        layout.gather(state["params"], HELD)), opt=opt)
 
 
 def state_cut(layout):
-    """``cut(path, array)`` for ``load_checkpoint``: a full held param leaf
-    or moment leaf -> this rank's slice in ``layout``; other
-    leaves unchanged."""
+    """``cut(path, array)`` for ``load_checkpoint``: a full param leaf or
+    moment leaf -> this rank's slice in ``layout`` (its model slice, then
+    its data slice where the layout holds one); other leaves
+    unchanged."""
 
     def cut(path: tuple, arr: np.ndarray) -> np.ndarray:
-        if path[0] == "params" and layout.held_at(path[1:]):
-            return layout.piece(arr, layout.dim_at(path[1:]))
+        if path[0] == "params":
+            arr = layout.model_piece(arr, layout.model_dim_at(path[1:]))
+            if layout.held_at(path[1:]):
+                return layout.piece(arr, layout.dim_at(path[1:]))
+            return arr
         if len(path) < 3 or path[0] != "opt" or path[1] not in ZERO1_MOMENTS:
             return arr
+        arr = layout.model_piece(arr, layout.model_dim_at(path[2:]))
         return layout.piece(arr, layout.dim_at(path[2:]))
 
     return cut

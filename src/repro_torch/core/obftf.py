@@ -46,6 +46,20 @@ the JAX package's ``make_train_step(mesh=, dp_axes=)`` on the global batch:
   gathers only the whole params' updates;
 * every rank runs the same forwards, layers and backwards in the same
   order (each gather is a collective), and no shape depends on the data.
+
+On a mesh with a model axis (JAX's (data, model) mesh under
+``DEFAULT_RULES``; the dense family) the batch, the selection, its draws
+and the global row offsets go by the DATA axis alone, as JAX folds
+``linear_axis_index(dp_axes)``: the M ranks of a data row take the same
+rows and draws. Their per-example losses come out of the vocab-parallel
+loss equal by construction (``models.model._VocabXent``), so they keep the
+same rows; were they ever to differ, the tensor-parallel collectives
+would mix rows or hang. Each rank holds its model slice of the cut
+leaves, whose grads come out of its backward whole for that slice; the
+grads of the leaves the model axis leaves whole are whole on every model
+rank, or summed over the axis in the backward where a region uses them
+(``distributed.sharding.enter``); the data all-reduce then runs over the
+data group.
 """
 
 from __future__ import annotations
@@ -115,7 +129,8 @@ def select_and_gather(
     b = cfg.budget(n)
     idx = select(cfg, noise, losses.to(F32), b)
     sub = {k: v.index_select(0, idx) for k, v in batch.items()}
-    offset = 0 if mesh is None else compat.linear_axis_index() * n
+    offset = 0 if mesh is None else compat.linear_axis_index(
+        compat.DATA) * n
     return sub, idx + offset, losses.index_select(0, idx)
 
 
@@ -168,7 +183,8 @@ def _all_reduce_tree(tree: Any, layout) -> Any:
     whole = [i for i, h in enumerate(layout.held_mask()) if not h]
     out = list(leaves)
     if whole:
-        red = compat.all_reduce_buckets([leaves[i] for i in whole])
+        red = compat.all_reduce_buckets([leaves[i] for i in whole],
+                                        compat.DATA)
         for i, x in zip(whole, red):
             out[i] = x
     it = iter(out)
@@ -239,7 +255,7 @@ def make_train_step(
                 f"do not divide over {shards} ranks: each rank trains an "
                 "equal share of the kept list (use shard_local=True or "
                 "another ratio)")
-        rank = 0 if mesh is None else compat.linear_axis_index()
+        rank = 0 if mesh is None else compat.linear_axis_index(compat.DATA)
 
         if cfg.mode == "full":
             per_example, grads = loss_and_grads(
@@ -247,7 +263,8 @@ def make_train_step(
                 None if mesh is None else n)
             per_example = per_example.to(F32)
             loss = (per_example.mean() if mesh is None else
-                    compat.all_reduce_sum(per_example.sum()) / n)
+                    compat.all_reduce_sum(per_example.sum(),
+                                          compat.DATA) / n)
             sel_mean = loss
             residual = _scalar(0.0, dev)
             per_example_fresh = torch.ones((n_local,), dtype=torch.bool,
@@ -287,7 +304,8 @@ def make_train_step(
                     row = torch.cat([torch.stack([
                         sub_losses.sum(), sel_losses.sum(), losses.sum()]),
                         sel_idx.to(F32)])
-                    rows = compat.all_gather(row).view(shards, -1)
+                    rows = compat.all_gather(row, compat.DATA).view(
+                        shards, -1)
                     tot = rows[:, :3].sum(0)
                     loss, sel_mean = tot[0] / b, tot[1] / b
                     residual = torch.abs(sel_mean - tot[2] / n)
@@ -295,16 +313,17 @@ def make_train_step(
             else:
                 # 6-7 over the global batch, on every rank alike; rank r
                 # trains its share of the kept list
-                losses_all = compat.all_gather(losses)
+                losses_all = compat.all_gather(losses, compat.DATA)
                 b = sel.budget(n)
                 sel_idx = select(sel, noise, losses_all, b)
                 share = sel_idx[rank * (b // shards):
                                 (rank + 1) * (b // shards)]
-                sub_inputs = {k: compat.all_gather(v).index_select(0, share)
+                sub_inputs = {k: compat.all_gather(v, compat.DATA)
+                              .index_select(0, share)
                               for k, v in inputs.items()}
                 sub_losses, grads = loss_and_grads(
                     per_example_loss_fn, params, sub_inputs, b)
-                sub_all = compat.all_gather(sub_losses.to(F32))
+                sub_all = compat.all_gather(sub_losses.to(F32), compat.DATA)
                 seg = slice(rank * n_local, (rank + 1) * n_local)
                 per_example = losses_all.index_put((sel_idx,), sub_all)[seg]
                 loss = sub_all.mean()

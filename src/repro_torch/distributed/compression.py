@@ -28,8 +28,9 @@ does not fix the order, and on 16,384 f32 elements over four devices
 device 0 and device r differ by up to 2.4e-4). Rank r of the port gives
 JAX's device r, bit for bit.
 
-``int8_ring_all_reduce`` takes a tensor on every rank of the data axis (a
-collective: every rank calls it); a group of one returns ``x`` untouched,
+``int8_ring_all_reduce`` takes a tensor on every rank of its axis (the
+data axis by default, the data-parallel all-reduce's; a collective: every
+rank of the axis calls it); a group of one returns ``x`` untouched,
 unquantized, as JAX does.
 """
 
@@ -70,22 +71,26 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
     return g.reshape(-1)[:n].reshape(shape)
 
 
-def int8_ring_all_reduce(x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
-    """The sum over the data axis of ``x``, int8 on the wire, f32
-    accumulation in JAX's ring order (this rank's term, then rank r-1's,
-    r-2's, ...), cast back to ``x``'s dtype. A group of one returns ``x``."""
-    p = compat.axis_size()
+def int8_ring_all_reduce(x: torch.Tensor, chunk: int = 256,
+                         axis: str = compat.DATA) -> torch.Tensor:
+    """The sum over the mesh axis ``axis`` (the data-parallel all-reduce's)
+    of ``x``, int8 on the wire, f32 accumulation in JAX's ring order (this
+    rank's term, then rank r-1's, r-2's, ...), cast back to ``x``'s dtype.
+    A group of one returns ``x``."""
+    p = compat.axis_size(axis)
     if p == 1:
         return x
     q, s = quantize_int8(x, chunk)
     acc = q.view(-1, chunk).to(F32) * s[:, None]
     for _ in range(p - 1):
-        q, s = compat.ring_shift([q, s])
+        q, s = compat.ring_shift([q, s], axis)
         # acc + q * s rounded once, as XLA contracts JAX's dequantize-add
         acc = torch.addcmul(acc, q.view(-1, chunk).to(F32), s[:, None])
     return acc.reshape(-1)[:x.numel()].reshape(x.shape).to(x.dtype)
 
 
-def compressed_psum_tree(tree: Any, chunk: int = 256) -> Any:
-    """``int8_ring_all_reduce`` of every leaf of a nested dict."""
-    return tree_map(lambda _, x: int8_ring_all_reduce(x, chunk), tree)
+def compressed_psum_tree(tree: Any, chunk: int = 256,
+                         axis: str = compat.DATA) -> Any:
+    """``int8_ring_all_reduce`` of every leaf of a nested dict over
+    ``axis``."""
+    return tree_map(lambda _, x: int8_ring_all_reduce(x, chunk, axis), tree)

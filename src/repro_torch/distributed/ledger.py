@@ -7,7 +7,11 @@ axis (``launch.mesh``, one rank a device) calls each op with its own
 segment of the batch and holds its own [C/S]-slot slice of the table, and
 the exchanges are collectives over the group (``distributed.compat``).
 Every rank must call every op in the same order with the same shapes: a
-branch on the rank would leave the others waiting in a collective.
+branch on the rank would leave the others waiting in a collective. On a
+mesh with a model axis the ops run over the data group (``compat``'s
+default axis): the model ranks of a data row hold equal replicas of its
+slice and make the same writes, as JAX's ledger is replicated over
+``model``.
 
 * **pinned** (``route=False``): ids hash into the rank's own slice; no
   communication.

@@ -11,12 +11,13 @@ so one table serves kv=1 MQA, 8-expert and 160-expert models alike; per-arch
 
 A partition spec here is a plain tuple with one entry per dim: None
 (replicated), a mesh axis name, or a tuple of names. The mesh is anything
-with a ``shape`` dict (``launch.mesh.Mesh.shape`` is ``{"data": S,
-"model": 1}``), as the JAX ``spec_for`` reads only ``mesh.shape``.
+with a ``shape`` dict (``launch.mesh.Mesh.shape`` is ``{"data": D,
+"model": M}``), as the JAX ``spec_for`` reads only ``mesh.shape``.
 
 What the port places with these tables (``distributed.zero``): the
-params over the data axis where their spec names it (FSDP, as the JAX
-trainer's ``state_specs``), and the ZeRO-1 optimizer moments.
+params over the model axis and over the data axis where their spec names
+them (tensor parallelism and FSDP, as the JAX trainer's
+``state_specs``), and the ZeRO-1 optimizer moments.
 
 The parameter hooks of the JAX module's lines 181-280 are ported:
 ``set_rules`` and ``use_rules`` (a thread-local context, which here also
@@ -40,10 +41,30 @@ gives the same values since JAX's pieces are aligned to the chunks.
 ``recompute_context`` carries the rules into a checkpointed layer's
 recompute, which autograd may run on another thread.
 
-Not ported (they belong with the model axis): ``ulysses_constraint``,
-``cp_kv_gather`` and ``activation_constraint`` (the JAX module's lines
-281-376), and the ``AxisRules`` fields only they read (``seq_axis``,
-``model_axis``, ``ulysses``).
+The model axis (tensor parallelism of the dense family, as GSPMD places
+``DEFAULT_RULES``' heads, kv heads, MLP columns and vocab rows): a leaf
+whose spec names ``model`` is held as this rank's model slice for good
+(``zero.DataLayout.model_dim_at``; ``model_cut`` reads it from the active
+layout), and the model code runs each tensor-parallel region between two
+operations on ``compat``'s model axis, ``enter`` (identity forward, sum
+over the model axis backward) and ``leave`` (sum forward, identity
+backward). The rule for a leaf the model axis leaves whole (a norm): its
+grad must be summed over the model axis exactly where it is used inside a
+region, on cut heads (``q_norm``; ``k_norm`` where the kv heads are cut),
+and never where it is used before the entry (``attn_norm``,
+``ffn_norm``, ``final_norm``, and ``wk``, ``wv``, ``k_norm`` where the kv
+heads are whole), whose grad is whole on every model rank already. So
+each replicated tensor goes through ``enter`` once, where it first meets
+cut compute: the activation before the cut projections, the whole k and v
+before the kv heads a rank's q heads use are picked, and a norm's weight
+itself where it acts on cut heads.
+
+``activation_constraint`` is JAX's hook for the residual stream. It is
+the identity while the rules' ``seq_axis`` is None (``DEFAULT_RULES``);
+sequence parallelism is not ported: rules with a ``seq_axis`` raise.
+
+Not ported: ``ulysses_constraint``, ``cp_kv_gather`` (the JAX module's
+lines 281-356) and the ``ulysses`` field, with sequence parallelism.
 """
 
 from __future__ import annotations
@@ -69,6 +90,8 @@ class AxisRules:
 
     rules: dict[Optional[str], MeshAxes]
     batch_axes: tuple[str, ...] = ("data",)
+    seq_axis: Optional[str] = None  # sequence-parallel residual stream
+    model_axis: Optional[str] = "model"
     # ZeRO-3: JAX forces the per-layer weight all-gather with it, instead
     # of letting GSPMD all-reduce partial-sum activations. The port always
     # gathers (no GSPMD); here, as in JAX, it gates ``int8_gather``
@@ -283,6 +306,8 @@ def _gather(tree: Any, at: tuple, layout, int8: bool) -> Any:
     tree_map(visit, tree)
     if not picks:
         return tree
+    if layout is not None and layout.shards > 1:
+        compat.expect(compat.DATA, layout.shards, layout.rank)
     leaves = [tree_at(tree, p) for p, _ in picks]
     if int8:
         out = [_Int8Gather.apply(x, d, INT8_CHUNK)
@@ -423,3 +448,90 @@ class _Int8Gather(torch.autograd.Function):
             return g, None, None
         r = compat.reduce_scatter_along([g.to(torch.float32)], [ctx.dim])
         return r[0].to(torch.bfloat16).to(g.dtype), None, None
+
+
+# ---------------------------------------------------------------------------
+# the model axis: tensor-parallel regions and the residual stream's hook
+# ---------------------------------------------------------------------------
+
+
+def model_cut(path: tuple) -> bool:
+    """Whether the active layout holds the param at ``path`` (a top-level
+    or a stacked leaf) cut over a model axis of more than one rank."""
+    _, _, layout = _current()
+    return (layout is not None and layout.model_shards > 1
+            and layout.model_dim_at(path) is not None)
+
+
+def model_place() -> tuple[int, int]:
+    """(this rank's index on the model axis, the axis's size) of the
+    active layout; (0, 1) without one. The layout owns the model axis:
+    where it cuts one, the registered mesh axis, which the region's
+    collectives run over, must agree (``compat.expect``), else this
+    raises."""
+    _, _, layout = _current()
+    if layout is None:
+        return 0, 1
+    if layout.model_shards > 1:
+        compat.expect(compat.MODEL, layout.model_shards, layout.model_rank)
+    return layout.model_rank, layout.model_shards
+
+
+class _Enter(torch.autograd.Function):
+    """Into a tensor-parallel region: the tensors as they are; the
+    backward sums their grads over the model axis (one all-reduce a
+    dtype)."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        return xs if len(xs) > 1 else xs[0]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return tuple(compat.all_reduce_buckets(list(grads), compat.MODEL))
+
+
+class _Leave(torch.autograd.Function):
+    """Out of a tensor-parallel region: the sum over the model axis of
+    each rank's partial result; the backward passes the grad as it is."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return compat.all_reduce_sum(x, compat.MODEL)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def enter(*xs: torch.Tensor):
+    """``xs`` into a tensor-parallel region (the rule in the module doc:
+    once each, where a replicated tensor first meets cut compute). With
+    autograd off, or the active layout's model axis of one, the tensors
+    themselves."""
+    if model_place()[1] == 1 or not torch.is_grad_enabled():
+        return xs if len(xs) > 1 else xs[0]
+    return _Enter.apply(*xs)
+
+
+def leave(x: torch.Tensor) -> torch.Tensor:
+    """A region's partial result summed over the model axis (the input
+    itself on the active layout's model axis of one)."""
+    if model_place()[1] == 1:
+        return x
+    return _Leave.apply(x)
+
+
+def activation_constraint(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """JAX's annotation of an activation ("residual" [B,S,D], "batch"
+    [B,...]): the batch is the rank's rows already, and the residual stream
+    is whole on every model rank, so it is the identity, as JAX's is while
+    ``seq_axis`` is None. Rules with a ``seq_axis`` (sequence parallelism,
+    ROADMAP Queue 1 item 2, its sequence-parallel sub-item) raise."""
+    mesh, rules, _ = _current()
+    if mesh is None or rules is None or rules.seq_axis is None:
+        return x
+    raise NotImplementedError(
+        f"activation_constraint({kind!r}) with seq_axis="
+        f"{rules.seq_axis!r}: sequence parallelism is not ported (ROADMAP "
+        "Queue 1 item 2, the sequence-parallel sub-item)")

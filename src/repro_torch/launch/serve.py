@@ -26,11 +26,13 @@ keys and the port's own: ``seconds``, ``device``, ``layers``,
 ``guarded_steps``, ``step_ms`` and ``instance_ids``.
 
 ``--ledger-route`` shards the device ledger over the ranks of the data
-axis (``launch.mesh``: one rank a device, from the ``torchrun``
-environment, else a group of one in-process; NCCL on the card, gloo on the
-CPU) and routes each record to the rank owning its global slot, through
-``--ledger-exchange`` (``gather`` or ``a2a``, sized by
-``--capacity-factor``). Each rank runs the same engine on the same
+axis of JAX's serve mesh (``launch.mesh.make_elastic_mesh()`` with JAX's
+default model axis: on N ranks up to 16 that is (data 1, model N), so the
+table is whole on every rank, as on JAX's devices; one rank a device,
+from the ``torchrun`` environment, else a group of one in-process; NCCL
+on the card, gloo on the CPU) and routes each record to the rank owning
+its global slot, through ``--ledger-exchange`` (``gather`` or ``a2a``,
+sized by ``--capacity-factor``). Each rank runs the same engine on the same
 requests with the same seed, the multi-controller form of the JAX
 engine's mesh-replicated state; only rank 0 prints and writes the output
 files. On a box with N GPUs:
@@ -208,6 +210,8 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.ledger_route and args.ledger != "device":
         raise SystemExit("--ledger-route requires --ledger device")
+    # JAX's serve CLI builds make_elastic_mesh() with its default model
+    # axis: the ledger's data axis is what that leaves
     mesh = make_elastic_mesh(device=args.device) if args.ledger_route \
         else None
     try:

@@ -5,6 +5,8 @@ data-parallel over several ranks.
         --smoke --device cpu --steps 20 --method obftf --ratio 0.25
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --device cpu --model-parallel 1 --arch llama3-8b --smoke --steps 20
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --device cpu --model-parallel 2 --arch llama3-8b --smoke --steps 20
 
 ``repro.launch.train`` with its flags, printed lines and ``--json-out``
 names, for every family (the vlm and audio archs
@@ -45,35 +47,45 @@ MoE layer routed any). ``--ledger-route``, ``--ledger-exchange`` and
 device: the table stays single, and the summary reports the exchange and
 the capacity factor, with ``a2a_overflow`` 0.
 
-On N ranks (``torchrun``, or a caller that set up the default group) with
-``--model-parallel 1`` the data axis has N ranks (``launch.mesh``; NCCL
-between cards, gloo on the CPU), as the JAX trainer's mesh on N devices:
+On N ranks (``torchrun``, or a caller that set up the default group) the
+mesh is JAX's (``launch.mesh``; NCCL between cards, gloo on the CPU):
+``--model-parallel`` M ranks on the model axis (0, the default, picks JAX's
+degree: the largest power of two at most min(16, N) dividing N) and N / M
+on the data axis; ``--model-parallel 1`` puts every rank on the data
+axis. Rank 0 prints the mesh as JAX's CLI prints it, ``mesh={'data': D,
+'model': M}``.
   * the params are placed as the JAX trainer's ``state_specs`` places
     them (``distributed.zero``): drawn whole from the seed, then cut at
-    once to this rank's slice of every leaf whose spec names ``data``
-    (FSDP), the others held whole, and the full copy freed; an earlier
-    line prints each rank's param bytes;
-  * each rank takes its rows of the global batch (``data.local_rows``) and
+    once to this rank's model slice of every leaf whose spec names
+    ``model`` (tensor parallelism: heads, kv heads, MLP columns, vocab
+    rows, of the dense family) and its data slice of every leaf whose spec
+    names ``data`` (FSDP), the others held whole, and the full copy freed;
+    an earlier line prints each rank's param bytes;
+  * each rank takes its data index's rows of the global batch
+    (``data.local_rows``; the model ranks of a data row take the same) and
     runs ``make_train_step(mesh=)`` with an optimizer built on this rank's
     layout, under ``DEFAULT_RULES`` (no int8, as JAX's CLI): shard-local
-    selection with its own draws (``fold_seed(seed, rank)``), every layer
-    gathering its weights as it runs and reduce-scattering their grads
-    (ZeRO-3), the whole params' grads all-reduced, AdamW on the slices and
-    on ZeRO-1 moment slices;
-  * ``--ledger device`` shards the table over the ranks
+    selection with its data row's draws (``fold_seed(seed, data index)``),
+    every layer gathering its weights over the data axis as it runs and
+    reduce-scattering their grads (ZeRO-3), the tensor-parallel regions'
+    sums over the model axis, the whole params' grads all-reduced over the
+    data axis, AdamW on the slices and on ZeRO-1 moment slices;
+  * ``--ledger device`` shards the table over the data axis
     (``distributed.ledger.sharded_ledger_ops``, with the three routing
-    flags); ``--ledger host`` keeps the same ``LossHistory`` on every
-    rank, fed the all-gathered per-example losses;
+    flags; the model ranks of a data row hold equal replicas of its slice
+    and make the same writes); ``--ledger host`` keeps the same
+    ``LossHistory`` on every rank, fed the all-gathered per-example
+    losses;
   * every rank makes the same collective calls; a stop signal on any rank
     is agreed at the end of the step, so all ranks stop after the same
     step; rank 0 alone prints and writes ``--json-out``, ``--metrics-out``,
     ``--trace-out``, ``--ledger-out`` and the checkpoints (saving gathers
     the param and moment slices; a checkpoint resumes on any number of
     ranks).
-``--model-parallel`` 0 (the default) on more than one rank refuses before
-any group is set up, since the JAX mesh would take a model axis there,
-and above 1 refuses on any number of ranks: the model axis is not ported
-(ROADMAP Queue 1 item 2).
+A model axis that does not divide the ranks refuses before any group is
+set up, with JAX's message, and so does a model axis above 1 for the
+families whose tensor parallelism is not ported (moe, ssm, hybrid and
+MLA's deepseek-v2-236b; ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -117,7 +129,12 @@ from repro_torch.distributed import compat
 from repro_torch.distributed.ledger import sharded_ledger_ops
 from repro_torch.distributed.sharding import DEFAULT_RULES
 from repro_torch.distributed.zero import data_layout
-from repro_torch.launch.mesh import make_elastic_mesh, validate_batch, world_size
+from repro_torch.launch.mesh import (
+    make_elastic_mesh,
+    model_degree,
+    validate_batch,
+    world_size,
+)
 from repro_torch.models import model as Mdl
 from repro_torch.models import moe
 from repro_torch.models.params import materialize, tree_leaves
@@ -217,11 +234,10 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", default="", help="'auto' or a step number")
     ap.add_argument("--model-parallel", type=int, default=0,
-                    help="the mesh's model axis: 1 gives a data axis of "
-                         "every rank; 0 (the JAX default, which picks a "
-                         "model axis on several devices) runs on one rank "
-                         "only; above 1 is refused (the model axis is not "
-                         "ported)")
+                    help="the mesh's model axis (tensor parallelism of the "
+                         "dense family): 0 picks JAX's degree, the largest "
+                         "power of two <= min(16, ranks) dividing the "
+                         "ranks; 1 gives a data axis of every rank")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     obs.add_cli_args(ap)
@@ -238,51 +254,56 @@ def _fetch(metrics: dict) -> dict:
     return out
 
 
-def _refuse_model_axis(model_parallel: int, ranks: int) -> None:
-    """Refuse, before any group is set up, what needs a model axis."""
-    if model_parallel > 1:
-        raise SystemExit(
-            f"--model-parallel {model_parallel} needs a model axis of "
-            f"{model_parallel}, which the port does not have (tensor, expert "
-            "and sequence parallelism are ROADMAP Queue 1 item 2); use "
-            "--model-parallel 1")
-    if ranks > 1 and model_parallel == 0:
-        raise SystemExit(
-            f"--model-parallel 0 on {ranks} ranks would pick a model axis "
-            "(the JAX mesh takes one of up to 16 devices), and the port's "
-            "mesh has the data axis only (the model axis is ROADMAP Queue "
-            "1 item 2): pass --model-parallel 1 to train data-parallel on "
-            f"{ranks} ranks")
+def _refuse_model_axis(model_parallel: int, ranks: int, cfg) -> None:
+    """Refuse, before any group is set up, a model axis that does not
+    divide the ranks (JAX's message) and one above 1 that
+    ``models.model.tensor_parallel_refusal`` refuses for the config."""
+    if model_parallel > 0 and ranks % model_parallel:
+        raise SystemExit(f"--model-parallel {model_parallel}: {ranks} "
+                         f"devices not divisible by TP={model_parallel}")
+    why = Mdl.tensor_parallel_refusal(cfg, model_degree(ranks,
+                                                        model_parallel))
+    if why is not None:
+        raise SystemExit(f"--model-parallel {model_parallel} on {ranks} "
+                         f"ranks: {why}; pass --model-parallel 1 to train "
+                         "it data-parallel")
 
 
 def _gather_per_example(metrics: dict) -> dict:
-    """The per-example arrays of every rank's segment, in rank order: the
-    global arrays the JAX trainer's ``device_get`` sees (one gather)."""
+    """The per-example arrays of every data rank's segment, in rank
+    order: the global arrays the JAX trainer's ``device_get`` sees (one
+    gather over the data axis)."""
     row = torch.stack([metrics["per_example_loss"],
                        metrics["per_example_fresh"].to(torch.float32)], 1)
-    g = compat.all_gather(row)
+    g = compat.all_gather(row, compat.DATA)
     return dict(metrics, per_example_loss=g[:, 0],
                 per_example_fresh=g[:, 1] > 0)
 
 
 def _say_param_bytes(say, params, layout, device) -> None:
-    """Print every rank's param bytes against the whole tree's (one
-    gather)."""
+    """Print every rank's param bytes, in rank order, against the whole
+    tree's (a gather over each axis)."""
     leaves = tree_leaves(params)
     mine = sum(x.numel() * x.element_size() for x in leaves)
     whole = sum(math.prod(s) * x.element_size()
                 for x, s in zip(leaves, tree_leaves(layout.shapes)))
-    per = compat.all_gather(torch.tensor([mine], dtype=torch.int64,
-                                         device=device)).tolist()
+    col = compat.all_gather(torch.tensor([mine], dtype=torch.int64,
+                                         device=device), compat.DATA)
+    # [model, data] -> rank order, data index * M + model index
+    per = compat.all_gather(col[None], compat.MODEL).T.reshape(-1).tolist()
     say(f"params a rank (bytes): {per} of {whole} whole "
         f"({sum(layout.held_mask())} of {len(leaves)} leaves sliced over "
-        f"{layout.shards} ranks)")
+        f"{layout.shards} ranks"
+        + (f", {sum(layout.model_mask())} cut over a model axis of "
+           f"{layout.model_shards}" if layout.model_shards > 1 else "")
+        + ")")
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     ranks = world_size()
-    _refuse_model_axis(args.model_parallel, ranks)
+    _refuse_model_axis(args.model_parallel, ranks,
+                       configs.get(args.arch, args.smoke, args.layers))
     mesh = None
     if ranks > 1:
         mesh = make_elastic_mesh(model_parallel=args.model_parallel,
@@ -299,13 +320,17 @@ def _train(args, mesh) -> int:
     if mesh is None:
         device, rank, shards = torch.device(args.device), 0, 1
         local_batch = args.global_batch
+        lead = True
     else:
-        device, rank, shards = mesh.device, mesh.rank, mesh.size
+        # the batch, the draws and the ledger go by the data axis
+        device, rank = mesh.device, mesh.data_index
+        shards = mesh.shape["data"]
         local_batch = validate_batch(args.global_batch, mesh,
                                      rules.batch_axes)
-    say = print if rank == 0 else (lambda *a, **k: None)
+        lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = configs.get(args.arch, args.smoke, args.layers)
-    if rank == 0:
+    if lead:
         telem = obs.from_args(args)
     else:  # the same instruments, no files
         telem = obs.install(obs.Telemetry(
@@ -313,7 +338,7 @@ def _train(args, mesh) -> int:
     say(
         f"arch={cfg.name} layers={cfg.num_layers} device={device} "
         + ("" if mesh is None else
-           f"ranks={shards} mesh={mesh.shape} backend={mesh.backend} ")
+           f"ranks={mesh.size} mesh={mesh.shape} backend={mesh.backend} ")
         + f"global_batch={args.global_batch} (x{local_batch}/shard) "
         f"method={args.method} ratio={args.ratio}"
     )
@@ -323,7 +348,7 @@ def _train(args, mesh) -> int:
                         mode="full" if args.method == "full" else "obftf")
     specs = Mdl.param_specs(cfg)
     layout = (None if mesh is None else
-              data_layout(specs, mesh, rank, rules))
+              data_layout(specs, mesh, rank, rules, mesh.model_index))
     optimizer = build_optimizer(args.lr, args.steps, layout)
     step_fn = make_train_step(Mdl.loss_fn(cfg), optimizer, obftf, mesh=mesh,
                               dp_axes=rules.batch_axes)
@@ -375,7 +400,8 @@ def _train(args, mesh) -> int:
 
     def live_slots() -> int:
         n = (led_state.owner >= 0).sum()
-        return int(n if led_ops is None else compat.all_reduce_sum(n))
+        return int(n if led_ops is None
+                   else compat.all_reduce_sum(n, compat.DATA))
 
     if use_device_ledger:
         if mesh is None:
@@ -458,14 +484,14 @@ def _train(args, mesh) -> int:
                     lstate, ids, losses, state["step"], valid,
                     return_stats=True)
             ovf = lstats["a2a_overflow"]
-            hits = compat.all_reduce_sum(hits)
+            hits = compat.all_reduce_sum(hits, compat.DATA)
         del metrics["selected"]  # no [batch] arrays to the host
         metrics["ledger_hits"] = hits / args.global_batch
         metrics["a2a_overflow"] = ovf
         return state, lstate, metrics
 
-    # shard-local selection draws this rank's own numbers (JAX's
-    # fold_in(rng, rank)); one rank keeps the run's seed
+    # shard-local selection draws its data row's own numbers (JAX's
+    # fold_in(rng, data index)); one rank keeps the run's seed
     noise = GeneratorNoise(torch.Generator(device).manual_seed(
         args.seed if mesh is None else fold_seed(args.seed, rank)))
     watchdog = Watchdog()
@@ -473,7 +499,7 @@ def _train(args, mesh) -> int:
 
     def _sigterm(signum, frame):
         print(f"signal {signum}: checkpoint + exit after this step"
-              + ("" if mesh is None else f" (rank {rank})"))
+              + ("" if mesh is None else f" (rank {mesh.rank})"))
         stop["now"] = True
 
     handlers = {s: signal.signal(s, _sigterm)
@@ -600,7 +626,7 @@ def _train(args, mesh) -> int:
         say(f"final checkpoint at step {int(state['step'])}")
     if args.ledger_out:
         sd = ledger_state_dict()
-        if rank == 0:
+        if lead:
             np.savez(args.ledger_out, **sd)
         layout_name = "pinned-sharded" if "pinned_shards" in sd else "global"
         say(f"ledger saved to {args.ledger_out} ({layout_name} layout)")
@@ -638,7 +664,7 @@ def _train(args, mesh) -> int:
     }
     if telem.registry is not None:
         summary["metrics"] = telem.snapshot()
-    if args.json_out and rank == 0:
+    if args.json_out and lead:
         with open(args.json_out, "w") as f:
             json.dump(summary, f)
     telem.close(summary=summary)

@@ -18,16 +18,23 @@ attention (MLA: a compressed latent cache ``ckv [B, T, R]`` and ``kpe
 [B, T, pe]``, decoded with absorbed weights in plain einsums, as the JAX
 package computes it; no kernel); the FFN is SwiGLU or the GELU MLP
 (granite-34b).
+
+Under a model axis (tensor parallelism, ``distributed.sharding``'s
+regions) ``gqa_attend`` and ``mlp`` run on the rank's slice of the heads
+and of the MLP columns: the local head counts come from the held weights'
+shapes, never from ``cfg``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.scatter import put_rows
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
@@ -124,6 +131,64 @@ def _qkv(x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.Tensor):
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
+def _qkv_cut(x: torch.Tensor, p: dict, cfg: ModelConfig,
+             positions: torch.Tensor, cut: "HeadCut"):
+    """``_qkv`` on this rank's slice of the heads (its q heads global
+    ``[m*h, (m+1)*h)``, h the local count, read from ``wq``'s held shape),
+    each replicated tensor entering the region once
+    (``sharding.enter``; the rule is the sharding module's): ``x`` before
+    the cut projections; ``q_norm`` (it acts on cut heads); with the kv
+    heads cut too, ``k_norm``, and each rank's kv heads are the ones its q
+    heads use already (JAX's grouping of q head i with kv head i // G);
+    with the kv heads whole, k and v after their norm and rope, then
+    ``_kv_for_heads`` picks the kv heads the rank's q heads use."""
+    norm = cfg.qk_norm
+    if cut.kv:
+        xs = SH.enter(x, p["q_norm"], p["k_norm"]) if norm else (
+            SH.enter(x),)
+        xe = xs[0]
+        q, k, v = (_proj_heads(xe, p[w]) for w in ("wq", "wk", "wv"))
+        if norm:
+            q = rmsnorm(q, xs[1], cfg.norm_eps)
+            k = rmsnorm(k, xs[2], cfg.norm_eps)
+        return (rope(q, positions, cfg.rope_theta),
+                rope(k, positions, cfg.rope_theta), v)
+    xs = SH.enter(x, p["q_norm"]) if norm else (SH.enter(x),)
+    q = _proj_heads(xs[0], p["wq"])
+    k, v = _proj_heads(x, p["wk"]), _proj_heads(x, p["wv"])
+    if norm:
+        q = rmsnorm(q, xs[1], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    k, v = SH.enter(rope(k, positions, cfg.rope_theta), v)
+    k, v = _kv_for_heads(k, v, cut.index * q.shape[2], q.shape[2],
+                         cfg.num_heads // cfg.num_kv_heads)
+    return rope(q, positions, cfg.rope_theta), k, v
+
+
+def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, first: int, h: int,
+                  g: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole kv heads [B,T,KV,D] -> the one kv head that q heads
+    ``[first, first+h)`` use (q head i takes kv head i // g), for
+    ``_gqa_core``'s grouping: with the kv heads whole and the heads cut,
+    a rank's h heads lie in one group where h divides g
+    (``models.model.tensor_parallel_refusal`` refuses the rest)."""
+    if g % h:
+        raise NotImplementedError(
+            f"q heads [{first}, {first + h}) span part of a kv group of {g}")
+    return k.narrow(2, first // g, 1), v.narrow(2, first // g, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadCut:
+    """How the model axis cuts one attention block's heads: this rank's
+    index on the axis, and whether the kv heads are cut too (else whole on
+    every rank). Heads the axis leaves whole run replicated, with no
+    ``HeadCut``."""
+
+    index: int
+    kv: bool
+
+
 def _gqa_core(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, keep: torch.Tensor
 ) -> torch.Tensor:
@@ -195,11 +260,19 @@ def _attend_full(q, k, v, positions, cfg: ModelConfig) -> torch.Tensor:
 
 
 def gqa_attend(
-    x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.Tensor
+    x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.Tensor,
+    cut: Optional[HeadCut] = None,
 ) -> torch.Tensor:
-    """Full-sequence attention. x [B,S,D] -> [B,S,D]."""
-    q, k, v = _qkv(x, p, cfg, positions)
-    return _out_proj(_attend_full(q, k, v, positions, cfg), p["wo"])
+    """Full-sequence attention. x [B,S,D] -> [B,S,D]. With ``cut`` the
+    rank holds its slice of the heads (``wq``, ``wo``; ``wk``, ``wv`` where
+    ``cut.kv``), attends over them, and the output projection's partial
+    sums leave the region summed over the model axis."""
+    if cut is None:
+        q, k, v = _qkv(x, p, cfg, positions)
+        return _out_proj(_attend_full(q, k, v, positions, cfg), p["wo"])
+    q, k, v = _qkv_cut(x, p, cfg, positions, cut)
+    return SH.leave(_out_proj(_attend_full(q, k, v, positions, cfg),
+                              p["wo"]))
 
 
 def gqa_cache_len(cfg: ModelConfig, max_seq: int) -> int:
@@ -529,10 +602,15 @@ def mlp_specs(d: int, f: int, gelu: bool = False) -> dict[str, ParamSpec]:
     return p
 
 
-def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+def mlp(x: torch.Tensor, p: dict, cut: bool = False) -> torch.Tensor:
     """SwiGLU where the tree has ``w3``, else GELU in its tanh form, which
     is ``jax.nn.gelu``'s default (torch's default is the erf form, up to
-    4.7e-4 away)."""
+    4.7e-4 away). With ``cut`` the rank holds its columns of ``w1``/``w3``
+    and rows of ``w2`` (the model axis's slice of ``mlp``): ``x`` enters
+    the region and the partial sums leave it summed over the model
+    axis."""
+    if cut:
+        return SH.leave(mlp(SH.enter(x), p))
     w1, w2 = p["w1"].to(x.dtype), p["w2"].to(x.dtype)
     if "w3" in p:
         return swiglu_tokens(x, w1, p["w3"].to(x.dtype), w2)

@@ -36,6 +36,17 @@ backward's recompute gathers again and no whole layer outlives its use;
 the embedding, the head and the final norm are gathered where they are
 used. The backward reduce-scatters the grads. With no rules (serving, one
 device) every gather returns its input.
+
+Over a model axis of M > 1 ranks (tensor parallelism, the dense, vlm and
+audio families; the layout cuts what ``DEFAULT_RULES`` name ``model`` on
+JAX's mesh) each block's attention runs on the rank's heads and its MLP on
+the rank's columns (``layers.gqa_attend``/``mlp`` with a cut), the
+embedding on the rank's vocab rows (out-of-slice tokens give zeros; the
+rows are summed over the model axis), the head gives the rank's slice of
+the logits, and the loss runs the cross-entropy kernel on that slice
+(``_VocabXent``): the full-vocab logits are never gathered. The other
+families raise there. ``activation_constraint`` marks the residual stream
+where the JAX model does.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from typing import Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import compat
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
@@ -55,6 +67,9 @@ from repro_torch.models.params import ParamSpec, tree_map
 
 # families each entry point runs
 SERVING_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
+# the families whose training runs tensor-parallel over a model axis (GQA
+# attention and a dense FFN; MLA's deepseek-v2-236b is not among them)
+TENSOR_PARALLEL_FAMILIES = ("dense", "vlm", "audio")
 TRAINING_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 # the families built of attention blocks alone, and those whose attention
 # cache may be paged
@@ -169,6 +184,39 @@ def layer(blocks: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def tensor_parallel_refusal(cfg: ModelConfig, m: int) -> Optional[str]:
+    """Why ``cfg`` does not train on a model axis of ``m`` ranks (None: it
+    does). The port cuts the dense family's GQA blocks: not the other
+    families, nor MLA, nor heads cut with their kv heads whole where a
+    rank's q heads span a part of a kv group (``m`` neither divides nor is
+    divided by the kv heads; no config at a power-of-two ``m``)."""
+    if m == 1:
+        return None
+    if cfg.family not in TENSOR_PARALLEL_FAMILIES or cfg.attn_impl == "mla":
+        return (f"{cfg.name} ({cfg.family}, {cfg.attn_impl}) has no tensor "
+                f"parallelism in the port on a model axis of {m} (ROADMAP "
+                "Queue 1 item 2: expert parallelism, the ssm and hybrid "
+                "families, MLA)")
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    if h % m == 0 and kv % m and m % kv:
+        return (f"{cfg.name}: {h} heads cut over a model axis of {m} with "
+                f"its {kv} kv heads whole puts part of a kv group on a rank, "
+                "which the port does not cut (ROADMAP Queue 1 item 2)")
+    return None
+
+
+def _require_model_axis(cfg: ModelConfig) -> None:
+    """Raise where ``tensor_parallel_refusal`` refuses the active model
+    axis."""
+    why = tensor_parallel_refusal(cfg, SH.model_place()[1])
+    if why is not None:
+        raise NotImplementedError(why)
+
+
+def _head_key(cfg: ModelConfig) -> str:
+    return "embed" if cfg.tie_embeddings else "lm_head"
+
+
 def embed_tokens(
     params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     prefix: Optional[torch.Tensor] = None,
@@ -176,52 +224,77 @@ def embed_tokens(
     """Row gather by ``index_select``, whose gradient is an ``index_add_``
     that reads nothing back to the host (an advanced-index gather's
     backward may, on CUDA); a ``prefix`` [B, P, D] goes in front, cast to
-    the compute dtype."""
+    the compute dtype. With the vocab cut over the model axis the rank
+    gathers the rows of its slice, gives zeros for the other tokens, and
+    the rows leave the region summed over the axis (one rank's are
+    nonzero: the sum is exact); the backward adds into the slice's rows
+    alone."""
     w = _whole(params, "embed").to(dtype_of(cfg.compute_dtype))
-    x = w.index_select(0, tokens.reshape(-1).long()).reshape(
-        *tokens.shape, w.shape[1])
+    ids = tokens.reshape(-1).long()
+    if SH.model_cut(("embed",)):
+        local = ids - SH.model_place()[0] * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        rows = w.index_select(0, torch.where(inside, local, 0))
+        x = SH.leave(torch.where(inside[:, None], rows, 0.0)).reshape(
+            *tokens.shape, w.shape[1])
+    else:
+        x = w.index_select(0, ids).reshape(*tokens.shape, w.shape[1])
     if prefix is not None:
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
     return x
 
 
 def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    w = _whole(params, "embed" if cfg.tie_embeddings else "lm_head")
+    """The logits; with the vocab cut over the model axis, this rank's
+    slice of them [..., V/M], ``x`` entering the region."""
+    key = _head_key(cfg)
+    w = _whole(params, key)
+    if SH.model_cut((key,)):
+        x = SH.enter(x)
     return x @ w.to(x.dtype).T
 
 
-def _ffn(h, p, cfg):
+def _ffn(h, p, cfg, at=None):
     """The block's FFN -> (output, MoE aux loss, MoE routing count
     ``(choices, kept)``), the last two None for a dense FFN. Nothing is
-    counted here."""
+    counted here. ``at``: the block's params path, whose MLP columns the
+    model axis may cut."""
     if "moe" in p:
         return MoE.moe_ffn_routed(h, p["moe"], cfg)
-    return L.mlp(h, p["mlp"]), None, None
+    cut = at is not None and SH.model_cut(at + ("mlp", "w1"))
+    return L.mlp(h, p["mlp"], cut), None, None
 
 
-def _attend(h, p, cfg, positions):
+def _attend(h, p, cfg, positions, at=None):
     if cfg.attn_impl == "mla":
         return L.mla_attend(h, p, cfg, positions)
-    return L.gqa_attend(h, p, cfg, positions)
+    cut = None
+    if at is not None and SH.model_cut(at + ("attn", "wq")):
+        cut = L.HeadCut(SH.model_place()[0],
+                        SH.model_cut(at + ("attn", "wk")))
+    return L.gqa_attend(h, p, cfg, positions, cut)
 
 
 def _block(x, p, cfg, positions, at=("blocks",)):
     """One attention block; ``p`` the params at path ``at`` (a layer of the
-    stack ``at``, or the hybrid's ``shared_attn``)."""
+    stack ``at``, or the hybrid's ``shared_attn``). Where the model axis
+    cuts the block's heads or MLP columns they run on the rank's slice;
+    heads it leaves whole (a count it does not divide) run replicated."""
     p = param_gather(p, at)
     h = L.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    x = x + _attend(h, p["attn"], cfg, positions)
+    x = x + _attend(h, p["attn"], cfg, positions, at)
     out, aux, routed = _ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p,
-                            cfg)
-    return x + out, aux, routed
+                            cfg, at)
+    return SH.activation_constraint(x + out, "residual"), aux, routed
 
 
 def _ssm_layer(x, p, cfg):
     """One layer of the ssm family (or of a hybrid group): x +
     Mamba2(rmsnorm(x))."""
     p = param_gather(p, ("blocks",))
-    return x + S.ssm_block(L.rmsnorm(x, p["norm"], cfg.norm_eps), p["ssm"],
-                           cfg)
+    return SH.activation_constraint(
+        x + S.ssm_block(L.rmsnorm(x, p["norm"], cfg.norm_eps), p["ssm"],
+                        cfg), "residual")
 
 
 def _hybrid_group(x, shared, group, cfg, positions):
@@ -269,7 +342,9 @@ def forward_hidden(
     included, so each SSM layer still runs its scan once a recompute. The
     model draws no random numbers, so no RNG state is stashed."""
     _require(cfg, TRAINING_FAMILIES, "the full-sequence forward")
-    x = embed_tokens(params, cfg, tokens, prefix)
+    _require_model_axis(cfg)
+    x = SH.activation_constraint(embed_tokens(params, cfg, tokens, prefix),
+                                 "residual")
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -300,12 +375,46 @@ def forward_hidden(
     return _final_norm(x, params, cfg), aux
 
 
-def per_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+class _VocabXent(torch.autograd.Function):
+    """Cross-entropy over a vocab cut into the model axis's slices, from
+    this rank's slice of the logits [T, V/M] (rows ``[offset, offset +
+    V/M)`` of the vocab): ``kops.xent_fwd`` on the slice with the labels
+    shifted by ``offset`` (a label outside the slice picks nothing: loss =
+    lse), each rank's (lse, picked logit) all-gathered over the axis, the
+    global lse their logsumexp and the picked logit their sum, in rank
+    order, so every model rank holds the same bits. The backward is
+    ``kops.xent_bwd`` on the slice with the global lse: exactly this
+    slice's part of the full gradient, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset):
+        local = labels - offset
+        loss, lse = kops.xent_fwd(logits, local)
+        both = compat.all_gather(torch.stack([lse, lse - loss])[None],
+                                 compat.MODEL)  # [M, 2, T]
+        glse = torch.logsumexp(both[:, 0], dim=0)
+        ctx.save_for_backward(logits, local, glse)
+        return glse - both[:, 1].sum(0)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, local, glse = ctx.saved_tensors
+        return kops.xent_bwd(logits, local, glse, g), None, None
+
+
+def per_token_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   vocab_cut: bool = False) -> torch.Tensor:
     """Cross-entropy per token through ``kernels.ops.xent_loss`` (the CUDA
     kernel on the card), masked afterwards: labels < 0 give 0, as in the JAX
-    model (the kernel itself gives lse there). [B,S,V], [B,S] -> [B,S] f32."""
+    model (the kernel itself gives lse there). [B,S,V], [B,S] -> [B,S] f32.
+    With ``vocab_cut`` the logits are this rank's slice of the vocab
+    (``unembed`` under a model axis): ``_VocabXent``, the same kernels."""
     v = logits.shape[-1]
-    loss = kops.xent_loss(logits.reshape(-1, v), labels.reshape(-1))
+    if vocab_cut:
+        loss = _VocabXent.apply(logits.reshape(-1, v), labels.reshape(-1),
+                                SH.model_place()[0] * v)
+    else:
+        loss = kops.xent_loss(logits.reshape(-1, v), labels.reshape(-1))
     return torch.where(labels >= 0, loss.reshape(labels.shape), 0.0)
 
 
@@ -336,7 +445,8 @@ def per_example_loss(
     only."""
     params = _tied_whole(params, cfg)
     hidden, aux = _token_hidden(params, cfg, batch)
-    ce = per_token_loss(unembed(params, cfg, hidden), batch["labels"])
+    ce = per_token_loss(unembed(params, cfg, hidden), batch["labels"],
+                        SH.model_cut((_head_key(cfg),)))
     denom = torch.clamp((batch["labels"] >= 0).sum(dim=-1), min=1)
     return ce.sum(dim=-1) / denom.to(torch.float32), aux
 
@@ -354,6 +464,10 @@ def per_example_signals(
     two signals come from detached logits: they are read, never
     differentiated. ``aux`` is the MoE aux loss (0 without MoE layers);
     a ``prefix_embed`` is read as ``per_example_loss`` reads it."""
+    if SH.model_cut((_head_key(cfg),)):
+        raise NotImplementedError(
+            "per_example_signals on a vocab cut over the model axis: the "
+            "entropy and margin need the whole row (ROADMAP Queue 1 item 2)")
     params = _tied_whole(params, cfg)
     hidden, aux = _token_hidden(params, cfg, batch)
     logits = unembed(params, cfg, hidden).to(torch.float32)
@@ -470,13 +584,13 @@ def _attn_block_fill(x, p, cfg, positions, max_seq):
     a, cache = fill(h, p["attn"], cfg, positions, max_seq)
     x = x + a
     out, _, _ = _ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p, cfg)
-    return x + out, cache
+    return SH.activation_constraint(x + out, "residual"), cache
 
 
 def _ssm_block_fill(x, p, cfg):
     h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
     out, cache = S.ssm_fill_cache(h, p["ssm"], cfg)
-    return x + out, cache
+    return SH.activation_constraint(x + out, "residual"), cache
 
 
 def prefill(
@@ -495,7 +609,8 @@ def prefill(
     first P positions; ``last_pos`` counts them.
     """
     _require(cfg, SERVING_FAMILIES, "prefill")
-    x = embed_tokens(params, cfg, tokens, prefix)
+    x = SH.activation_constraint(embed_tokens(params, cfg, tokens, prefix),
+                                 "residual")
     positions = torch.arange(x.shape[1], device=x.device)
     if cfg.family in ATTN_FAMILIES:
         cache = {}

@@ -52,17 +52,31 @@ class Optimizer(NamedTuple):
 def global_norm(tree: Any, layout=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (0-dim tensor).
     With ``layout`` (a ``distributed.zero.DataLayout``) the tree is held
-    as the params are: the full tree's norm is taken from the sum over
-    ranks of the sliced leaves' sums of squares (one all-reduce, a
-    collective) plus the whole leaves' own, counted once."""
+    as the params are: the full tree's norm counts each leaf once, the
+    sliced leaves' sums of squares summed over the data axis (one
+    all-reduce, a collective), the model-cut leaves' over the model axis
+    (one more, on a model axis of more than one rank), and a leaf held
+    whole on an axis counted once there."""
     sq = [x.to(F32).square().sum() for x in tree_leaves(tree)]
-    if layout is None or layout.shards == 1:
+    if layout is None or (layout.shards == 1 and layout.model_shards == 1):
         return torch.sqrt(sum(sq))
     held = layout.held_mask()
     zero = torch.zeros((), dtype=F32, device=sq[0].device)
-    part = sum((s for s, h in zip(sq, held) if h), zero)
-    whole = sum((s for s, h in zip(sq, held) if not h), zero)
-    return torch.sqrt(compat.all_reduce_sum(part) + whole)
+    if layout.model_shards == 1:
+        part = sum((s for s, h in zip(sq, held) if h), zero)
+        whole = sum((s for s, h in zip(sq, held) if not h), zero)
+        return torch.sqrt(compat.all_reduce_sum(part) + whole)
+    cut = layout.model_mask()
+
+    def total(data_cut: bool, model_cut: bool) -> torch.Tensor:
+        return sum((s for s, h, c in zip(sq, held, cut)
+                    if h == data_cut and c == model_cut), zero)
+
+    data = compat.all_reduce_sum(torch.stack(
+        [total(True, True), total(True, False)]), compat.DATA)
+    model = compat.all_reduce_sum(torch.stack(
+        [data[0], total(False, True)]), compat.MODEL)
+    return torch.sqrt(model[0] + data[1] + model[1] + total(False, False))
 
 
 def apply_updates(params: Any, updates: Any) -> Any:

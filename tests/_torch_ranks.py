@@ -1,8 +1,8 @@
 """Rank programs of the port's multi-process tests, and the inputs they share
 with the parent test.
 
-    python tests/_torch_ranks.py {ledger|serving|train|resume} RANK WORLD \
-        STORE OUT_DIR
+    python tests/_torch_ranks.py {ledger|serving|train|resume|tp} RANK \
+        WORLD STORE OUT_DIR
 
 Each rank joins a gloo group through a ``FileStore`` at STORE (no TCP
 port, so parallel test workers cannot collide), with a 60 s timeout on
@@ -162,7 +162,7 @@ def run_ledger(rank: int) -> dict:
     from repro_torch.distributed.ledger import sharded_ledger_ops
     from repro_torch.launch.mesh import make_elastic_mesh
 
-    mesh = make_elastic_mesh(device="cpu")
+    mesh = make_elastic_mesh(1, device="cpu")
     seg = slice(rank * B, (rank + 1) * B)
     out = {}
     for stream in STREAMS:
@@ -271,7 +271,7 @@ def engine_tokens(eng, ids) -> np.ndarray:
 def run_serving(rank: int) -> dict:
     from repro_torch.launch.mesh import make_elastic_mesh
 
-    mesh = make_elastic_mesh(device="cpu")
+    mesh = make_elastic_mesh(1, device="cpu")
     out = {}
     for run in ENGINE_RUNS:
         eng, ids = run_engine(run, mesh)
@@ -583,7 +583,7 @@ def run_train(rank: int) -> dict:
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_elastic_mesh
 
-    mesh = make_elastic_mesh(device="cpu")
+    mesh = make_elastic_mesh(1, device="cpu")
     out = run_int8(rank, mesh)
     out.update(run_hybrid(rank, mesh))
     out.update(run_dp_steps(rank, mesh))
@@ -637,6 +637,267 @@ def run_resume(rank: int) -> dict:
     return {}
 
 
+# -- tensor parallelism: the (data, model) mesh -------------------------------
+
+# the step cases hold JAX's mesh step on the same 4 devices; 16 rows of 12
+# tokens, 2 AdamW steps at DP_LR (its reasoning holds here)
+TP_N, TP_SEQ, TP_STEPS = 16, 12, 2
+# arch key -> (config, overrides of its smoke config)
+TP_ARCHS = {
+    "llama": ("llama3-8b", {}),  # 4 heads, kv 2, vocab 256, mlp 128
+    "granite": ("granite-34b", {}),  # kv 1 (MQA), the GELU MLP
+    "heads6": ("llama3-8b", {"num_heads": 6}),  # 6 % 4: heads whole
+    "musicgen": ("musicgen-medium", {}),  # MHA, vocab 128
+    "qknorm": ("llama3-8b", {"qk_norm": True}),  # q_norm, k_norm in regions
+}
+# name -> (arch, model axis, mode, method, ratio, dtype, recycled): the
+# head layouts (a) heads and kv heads cut, (b) heads cut and kv whole, (c)
+# heads whole. The bf16 case selects from recorded losses: its selection
+# forward's losses are within about 1.3e-3 of JAX's (bf16 rounding), which
+# reorders rows whose losses lie closer than that and so moves obftf's pick
+TP_CASES = {
+    "llama-b-obftf": ("llama", 4, "obftf", "obftf", 0.25, "float32", False),
+    "llama-b-full": ("llama", 4, "full", "obftf", 0.25, "float32", False),
+    "llama-a-obftf": ("llama", 2, "obftf", "obftf", 0.25, "float32", False),
+    "llama-a-bf16": ("llama", 2, "obftf", "obftf", 0.25, "bfloat16", True),
+    "granite-b-full": ("granite", 4, "full", "obftf", 0.25, "float32",
+                       False),
+    "heads6-c-full": ("heads6", 4, "full", "obftf", 0.25, "float32", False),
+    "musicgen-a-full": ("musicgen", 2, "full", "obftf", 0.25, "float32",
+                        False),
+    "qknorm-a-full": ("qknorm", 2, "full", "obftf", 0.25, "float32", False),
+    "qknorm-b-full": ("qknorm", 4, "full", "obftf", 0.25, "float32", False),
+}
+# the vocab-parallel loss: logits [T, V] of the llama smoke vocab, labels at
+# -1, 0, V-1 and each slice's borders (4 slices of 64), the rest drawn
+XENT_T = 24
+XENT_LABELS = [-1, 0, 255, 63, 64, 127, 128, 191, 192, -1]
+TP_CLI = ["--arch", "llama3-8b", "--smoke", "--global-batch", "16",
+          "--seq-len", "16", "--log-every", "1"]
+# name -> extra flags; the port's and JAX's runs resume one checkpoint of
+# JAX's initial state, as ``CLI_RUNS`` do
+TP_CLI_RUNS = {
+    "mp0": ["--model-parallel", "0", "--method", "full", "--steps", "2"],
+    "mp2": ["--model-parallel", "2", "--method", "maxk", "--ratio", "0.5",
+            "--recycle", "--ledger", "device", "--instance-pool", "16",
+            "--steps", "2"],
+}
+# the (2, 2) run's checkpoint at step 2 resumed for a step (its ledger too)
+TP_RESUME = TP_CLI_RUNS["mp2"][2:-2] + ["--steps", "3", "--resume", "2"]
+# the serve CLI with the routed ledger (``test_torch_serving_sharded``'s)
+TP_SERVE = ["--arch", "llama3-8b", "--smoke", "--batch", "4", "--requests",
+            "10", "--prompt-len", "16", "--gen", "6", "--page-size", "4",
+            "--retain", "topk", "--topk", "16", "--ledger", "device",
+            "--outcome-delay", "2", "--ledger-route", "--ledger-exchange",
+            "a2a", "--capacity-factor", "0.125"]
+
+
+def tp_config(arch: str, dtype: str):
+    from repro_torch import configs
+
+    name, extra = TP_ARCHS[arch]
+    return dataclasses.replace(configs.get(name, smoke=True),
+                               param_dtype=dtype, compute_dtype=dtype,
+                               **extra)
+
+
+def _tp_steps(case: str, mesh, inp: dict) -> dict:
+    """TP_STEPS steps of TP_CASES[case] on this rank's data rows and model
+    slices, with the draws of its data index: the metrics, the params and
+    moments gathered whole, and the shape of each leaf the rank holds."""
+    from repro_torch import optim as O
+    from repro_torch.checkpoint.manager import full_state
+    from repro_torch.core import obftf as OB
+    from repro_torch.core.selection import SelectionConfig
+    from repro_torch.distributed.zero import data_layout
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+
+    arch, _, mode, method, ratio, dtype, recycled = TP_CASES[case]
+    cfg = tp_config(arch, dtype)
+    specs = M.param_specs(cfg)
+    d, dsize = mesh.data_index, mesh.shape["data"]
+    layout = data_layout(specs, mesh, d, model_rank=mesh.model_index)
+    opt = O.adamw(O.constant(DP_LR), O.AdamWConfig(weight_decay=0.1),
+                  layout=layout)
+    step = OB.make_train_step(M.loss_fn(cfg), opt, OB.OBFTFConfig(
+        selection=SelectionConfig(method=method, ratio=ratio),
+        recycle_forward=recycled, mode=mode), mesh=mesh)
+    full = tree_map(lambda _, x: x.to(getattr(torch, dtype)),
+                    _tree_from(inp, f"{arch}/params/", specs))
+    params = layout.hold(full)
+    n = TP_N // dsize
+    batch = {k: torch.from_numpy(np.ascontiguousarray(
+        inp[f"{arch}/batch/{k}"][d * n:(d + 1) * n]))
+        for k in ("tokens", "labels", "recorded_loss")}
+    if not recycled:
+        del batch["recorded_loss"]
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    out = _flat(tree_map(lambda _, x: np.asarray(x.shape), params),
+                f"{case}/held/")
+    for t in range(TP_STEPS):
+        noise = None if mode == "full" else FixedDraws(
+            *(inp[f"draws/{case}/{t}/{d}/{k}"] for k in DRAWS))
+        state, m = step(state, batch, noise)
+        for k, v in m.items():
+            out[f"{case}/{t}/{k}"] = v.float().numpy()
+    whole = full_state(state, layout)
+    f32 = lambda t: tree_map(lambda _, x: x.float(), t)
+    out.update(_flat(f32(whole["params"]), f"{case}/params/"))
+    out.update(_flat(whole["opt"]["m"], f"{case}/m/"))
+    return out
+
+
+def _tp_xent(mesh, inp: dict) -> dict:
+    """The vocab-parallel loss on this rank's slice of XENT logits (llama's
+    layout on ``mesh``): the per-token loss and the grad of its slice for
+    the parent's cotangent."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.zero import data_layout
+    from repro_torch.models import model as M
+
+    specs = M.param_specs(tp_config("llama", "float32"))
+    layout = data_layout(specs, mesh, mesh.data_index,
+                         model_rank=mesh.model_index)
+    v = inp["xent/logits"].shape[1] // mesh.shape["model"]
+    m = mesh.model_index
+    x = torch.from_numpy(inp["xent/logits"][:, m * v:(m + 1) * v].copy())
+    x.requires_grad_(True)
+    labels = torch.from_numpy(inp["xent/labels"])
+    with S.use_rules(mesh, S.DEFAULT_RULES, layout):
+        loss = M.per_token_loss(x[None], labels[None], vocab_cut=True)[0]
+    (loss * torch.from_numpy(inp["xent/cot"])).sum().backward()
+    return {"xent/loss": loss.detach().numpy(), "xent/grad": x.grad.numpy()}
+
+
+def tied_step(mesh=None):
+    """(metrics, the params after the step, whole) of one full-method SGD
+    step (linear in the grads, so a grad counted twice shows) of the llama
+    smoke config in f32 with its table tied to the head, on this rank's
+    slices of ``mesh`` (the whole model without one)."""
+    from repro_torch import optim as O
+    from repro_torch.checkpoint.manager import full_state
+    from repro_torch.core import obftf as OB
+    from repro_torch.distributed.zero import data_layout
+    from repro_torch.models import model as M
+    from repro_torch.models.params import materialize
+
+    cfg = dataclasses.replace(tp_config("llama", "float32"),
+                              tie_embeddings=True)
+    specs = M.param_specs(cfg)
+    rs = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rs.integers(0, cfg.vocab_size, (8, 12)))
+             for k in ("tokens", "labels")}
+    params = materialize(specs, 0, torch.float32, "cpu")
+    layout = None
+    if mesh is not None:
+        layout = data_layout(specs, mesh, mesh.data_index,
+                             model_rank=mesh.model_index)
+        params = layout.hold(params)
+    opt = O.sgd_momentum(O.constant(0.05), momentum=0.9, layout=layout)
+    step = OB.make_train_step(M.loss_fn(cfg), opt, OB.OBFTFConfig(
+        mode="full"), mesh=mesh)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    state, m = step(state, batch, None)
+    whole = state["params"] if layout is None else full_state(
+        dict(state, opt={}), layout)["params"]
+    return {k: v.numpy() for k, v in m.items()}, whole
+
+
+def _restore_on(mesh, ck: Path, step: int) -> dict:
+    """The (2, 2) run's checkpoint restored into this rank's layout on
+    ``mesh``, then gathered whole: what a resume starts from."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import full_state
+    from repro_torch.distributed.zero import data_layout
+    from repro_torch.launch.train import build_optimizer
+    from repro_torch.models import model as M
+    from repro_torch.models.params import materialize
+
+    cfg = configs.get("llama3-8b", smoke=True)
+    specs = M.param_specs(cfg)
+    layout = data_layout(specs, mesh, mesh.data_index,
+                         model_rank=mesh.model_index)
+    opt = build_optimizer(1e-3, 2, layout)
+    params = layout.hold(materialize(specs, 1, torch.bfloat16, "cpu"))
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    state = CheckpointManager(str(ck), layout=layout).restore(step, state)
+    whole = full_state(state, layout)
+    return _flat({"params": {k: v.float() for k, v in _leaves(
+        whole["params"]).items()}, "m": whole["opt"]["m"]}, "")
+
+
+def _leaves(tree) -> dict:
+    """A tree's leaves by their path joined with "/"."""
+    from repro_torch.models.params import tree_map
+
+    out = {}
+    tree_map(lambda p, x: out.__setitem__("/".join(p), x), tree)
+    return out
+
+
+def run_tp(rank: int) -> dict:
+    """The mesh's coordinates for each model axis, every TP_CASES case,
+    the vocab-parallel loss, the train CLI runs of TP_CLI_RUNS against
+    JAX's, the (2, 2) run's checkpoint restored on (1, 4) and (4, 1), the
+    CLI resuming it on (1, 4), and the serve CLI with the routed ledger."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_elastic_mesh
+
+    inp = dict(np.load(OUT / "tp_inputs.npz"))
+    out = {}
+    for mp in (0, 1, 2, 4):
+        mesh = make_elastic_mesh(mp, device="cpu")
+        out[f"mesh/{mp}"] = np.asarray([mesh.data_index, mesh.model_index,
+                                        mesh.shape["data"],
+                                        mesh.shape["model"]])
+        for case, spec in TP_CASES.items():
+            if spec[1] == mp:
+                out.update(_tp_steps(case, mesh, inp))
+        if mp == 4:
+            out.update(_tp_xent(mesh, inp))
+            m, whole = tied_step(mesh)
+            out.update({f"tied/{k}": v for k, v in m.items()})
+            out.update(_flat(whole, "tied/params/"))
+        mesh.close()
+    for name, extra in TP_CLI_RUNS.items():
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            assert train.main(TP_CLI + ["--device", "cpu"] + extra + [
+                "--ckpt-dir", str(OUT / f"ck-port-{name}"), "--resume",
+                "auto", "--json-out", str(OUT / f"port-{name}.json"),
+                "--ledger-out", str(OUT / f"port-{name}.npz")]) == 0
+        out[f"cli/{name}/said"] = np.asarray(said.getvalue())
+    dist.barrier()  # rank 0 alone writes the checkpoints: wait for them
+    # the (2, 2) run's final checkpoint, restored on (1, 4) and (4, 1)
+    ck = OUT / "ck-port-mp2"
+    for mp in (4, 1):
+        mesh = make_elastic_mesh(mp, device="cpu")
+        out.update({f"restore/{mp}/{k}": v
+                    for k, v in _restore_on(mesh, ck, 2).items()})
+        mesh.close()
+    if rank == 0:
+        shutil.copytree(ck, OUT / "ck-resume-14")
+    dist.barrier()
+    assert train.main(TP_CLI + ["--device", "cpu"] + TP_RESUME + [
+        "--model-parallel", "0", "--ckpt-dir", str(OUT / "ck-resume-14"),
+        "--json-out", str(OUT / "resume-14.json")]) == 0
+    assert serve.main(TP_SERVE + [
+        "--device", "cpu", "--json-out", str(OUT / "serve-port.json"),
+        "--ledger-out", str(OUT / "serve-port.npz")]) == 0
+    return out
+
+
 OUT = Path(".")  # the rank's output directory (main sets it)
 
 
@@ -652,7 +913,7 @@ def main(argv) -> int:
         "gloo", store=dist.FileStore(store, world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=60))
     run = {"ledger": run_ledger, "serving": run_serving, "train": run_train,
-           "resume": run_resume}[scenario]
+           "resume": run_resume, "tp": run_tp}[scenario]
     np.savez(f"{out_dir}/{scenario}-{rank}.npz", **run(rank))
     dist.destroy_process_group()
     return 0

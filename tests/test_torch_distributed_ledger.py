@@ -250,8 +250,9 @@ def test_mesh_is_a_group_of_one_without_torchrun(monkeypatch):
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
         monkeypatch.delenv(k, raising=False)
     assert not dist.is_initialized()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tmesh.make_elastic_mesh(2, device="cpu")
+    with pytest.raises(ValueError, match="1 devices not divisible by TP=2"):
+        tmesh.make_elastic_mesh(2, device="cpu")  # JAX's check, no group
+    assert not dist.is_initialized()
     mesh = tmesh.make_elastic_mesh(device="cpu")
     try:
         assert (mesh.rank, mesh.size, mesh.backend) == (0, 1, "gloo")

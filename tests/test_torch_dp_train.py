@@ -44,7 +44,8 @@ ledger pinned and routed through a2a at capacity factor 0.125, and on the
 host ledger (every rank's ``LossHistory`` fed the gathered losses). Last,
 the hazards: a checkpoint of the four ranks resumed on four, one and two,
 a sharded table resumed from a checkpoint, a SIGTERM on one rank, the
-refusals of ``--model-parallel`` and of batches that do not divide.
+refusals of a model axis that does not divide or whose family has no
+tensor parallelism, and of batches that do not divide.
 """
 
 import dataclasses
@@ -571,13 +572,21 @@ def test_a_sigterm_on_one_rank_stops_every_rank_after_the_same_step(runs):
     assert sorted(os.listdir(out / "ck-term")) == ["step_0000000001"]
 
 
-@pytest.mark.parametrize("mp,ranks", [(0, 2), (2, 2), (2, 1)])
-def test_model_parallel_is_refused_before_any_group(monkeypatch, mp, ranks):
+@pytest.mark.parametrize("mp,ranks,arch,why", [
+    (2, 1, "llama3-8b", "1 devices not divisible by TP=2"),
+    (3, 4, "llama3-8b", "4 devices not divisible by TP=3"),
+    (0, 4, "mamba2-370m", "Queue 1 item 2"),
+    (2, 2, "deepseek-v2-236b", "Queue 1 item 2"),
+])
+def test_model_parallel_is_refused_before_any_group(monkeypatch, mp, ranks,
+                                                    arch, why):
+    """A model axis that does not divide the ranks (JAX's message), and
+    one above 1 for a family whose tensor parallelism is not ported."""
     import torch.distributed as dist
 
     monkeypatch.setenv("WORLD_SIZE", str(ranks))
-    with pytest.raises(SystemExit, match="Queue 1 item 2"):
-        train.main(R.FULL + ["--model-parallel", str(mp)])
+    with pytest.raises(SystemExit, match=why):
+        train.main(R.FULL + ["--model-parallel", str(mp), "--arch", arch])
     assert not dist.is_initialized()
 
 

@@ -155,6 +155,9 @@ def test_train_cli_takes_the_routing_flags_at_one_rank(tmp_path, monkeypatch):
     assert (plain["exchange"], plain["capacity_factor"]) == ("none", 1.25)
     assert (routed["exchange"], routed["capacity_factor"],
             routed["a2a_overflow"]) == ("a2a", 0.125, 0)
+    # the default model axis on two ranks is JAX's 2: refused, before any
+    # group, for a family whose tensor parallelism is not ported
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit, match="Queue 1 item 2"):
-        train.main(TRAIN)
+        train.main(TRAIN + ["--arch", "mamba2-370m"])
+    assert not dist.is_initialized()
